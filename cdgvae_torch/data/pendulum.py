@@ -1,0 +1,133 @@
+"""Pendulum data-generating process + in-memory dataset.
+
+Port of ``cdgvae_tpu/data/pendulum.py:37-168``. The DGP functions are numpy
+and are kept here as the port's own copies. ``PendulumDataset`` renders its
+images in chunks of 2048 with ``ops.renderer.render`` on the dataset's
+device: on CUDA through the hand-written kernel.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..ops.renderer import CENTER, GROUND, ROD_LEN, render
+from ..utils.device import resolve_device
+
+FACTOR_NAMES = ["light", "angle", "length", "position", "target"]
+_BETA = np.array([1.0, -1.0, 0.5, -0.5])
+
+
+def shadow_physics(light_angle: np.ndarray, pendulum_angle: np.ndarray):
+    """Closed-form shadow length/position."""
+    cx, cy = CENTER
+    l, b = ROD_LEN, GROUND
+    tip_x = cx + l * np.sin(pendulum_angle)
+    tip_y = cy - l * np.cos(pendulum_angle)
+    t = np.tan(light_angle)
+    right = tip_x - (tip_y - b) / t
+    left = cx - (cy - b) / t
+    return right - left, (right + left) / 2.0
+
+
+def sample_factors_real(seed: int = 1, n: int = 10000):
+    """The pendulum_real DGP. Returns (factors [n,5], is_test [n]) where
+    factor columns are (light, angle, length, position, target)."""
+    rng = np.random.RandomState(seed)
+    light = rng.uniform(math.pi / 4, math.pi / 2, n)
+    angle = rng.uniform(0, math.pi / 4, n)
+    length, position = shadow_physics(light, angle)
+
+    scale = 0.1  # measurement-error scale
+    length = length + rng.normal(0, scale, n)
+    position = position + rng.normal(0, scale, n)
+
+    # 20% corruption: every 5th sample's shadow resampled uniformly
+    corrupt = (np.arange(n) + 1) % 5 == 0
+    length = np.where(corrupt, rng.uniform(0, 12, n), length)
+    position = np.where(corrupt, rng.uniform(0, 12, n), position)
+
+    logit = np.stack([light, angle, length, position], 1) @ _BETA
+    p = 1.0 / (1.0 + np.exp(-logit + 2.0 * np.sin(logit)))
+    target = rng.binomial(1, p).astype(np.float64)
+
+    factors = np.stack([light, angle, length, position, target], axis=1)
+    factors = np.round(factors, 4)  # 4-decimal filename rounding
+    is_test = (np.arange(n) + 1) % 4 == 0  # 3:1 split
+    return factors, is_test
+
+
+def grid_factors(n_per_axis: int = 100):
+    """Deterministic grid DGP. Returns (factors [n²,4], is_test). Outer
+    loop = pendulum angle, inner = light."""
+    light_list = np.linspace(math.pi / 4, math.pi / 2, n_per_axis)
+    angle_list = np.linspace(0, math.pi / 4, n_per_axis)
+    angle, light = np.meshgrid(angle_list, light_list, indexing="ij")
+    light, angle = light.ravel(), angle.ravel()
+    length, position = shadow_physics(light, angle)
+    factors = np.round(np.stack([light, angle, length, position], 1), 4)
+    is_test = (np.arange(light.size) + 1) % 4 == 0
+    return factors, is_test
+
+
+def normalize_labels(label: np.ndarray, label_normalization: bool = True):
+    """Center then min-max to (0,1) per column. Returns (normalized,
+    std_of_centered)."""
+    label = label - label.mean(axis=0)
+    std = label.std(axis=0)
+    if label_normalization:
+        label = (label - label.min(axis=0)) / (
+            label.max(axis=0) - label.min(axis=0))
+    return label, std
+
+
+@dataclass
+class PendulumDataset:
+    """In-memory pendulum dataset rendered on ``device``.
+
+    ``x_data``: [n, H, W, 3] float32 tensor in [-1, 1]; ``y_data``: [n, 5]
+    float32 label tensor (light, angle, length, position, target); both on
+    ``device``. ``factors`` keeps the raw numpy factors.
+    ``labeled_ratio`` truncates the train split; ``downstream=True`` keeps
+    raw labels. Loading a PNG tree (``data_dir``) is not ported yet.
+    """
+    image_size: int = 64
+    train: bool = True
+    labeled_ratio: float = 1.0
+    label_normalization: bool = True
+    downstream: bool = False
+    seed: int = 1
+    n: int = 10000
+    device: str | torch.device = "cuda"
+    name: list = field(default_factory=lambda: list(FACTOR_NAMES))
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        factors, is_test = sample_factors_real(self.seed, self.n)
+        factors = factors[is_test if not self.train else ~is_test]
+        if self.train and self.labeled_ratio < 1.0:
+            factors = factors[: int(len(factors) * self.labeled_ratio)]
+        self.factors = factors
+        self.x_data = _render_in_chunks(factors[:, :4], self.image_size,
+                                        self.device)
+        label = factors.copy()
+        if not self.downstream:
+            label, self.std = normalize_labels(label,
+                                               self.label_normalization)
+        self.y_data = torch.as_tensor(label.astype(np.float32),
+                                      device=self.device)
+
+    def __len__(self):
+        return len(self.x_data)
+
+
+def _render_in_chunks(factors: np.ndarray, image_size: int, device,
+                      chunk: int = 2048) -> torch.Tensor:
+    outs = []
+    for i in range(0, len(factors), chunk):
+        f = torch.as_tensor(factors[i:i + chunk], dtype=torch.float32,
+                            device=device)
+        outs.append(render(f, size=image_size))
+    return torch.cat(outs, dim=0)

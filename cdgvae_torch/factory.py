@@ -1,0 +1,59 @@
+"""Model factory: build the pendulum models and causal graph from a config
+dict (port of ``cdgvae_tpu/factory.py:18-72``)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.vae import CDGVAE, VAE, pendulum_masks
+from .ops.causal import CausalGraph, scale_adjacency
+from .utils.device import resolve_device
+
+
+def pendulum_B(node: int = 4, adjacency_scaling: bool = True) -> np.ndarray:
+    """light->length, light->position, angle->length, angle->position."""
+    B = np.zeros((node, node))
+    B[0, 2] = B[0, 3] = B[1, 2] = B[1, 3] = 1.0
+    if adjacency_scaling:
+        B = scale_adjacency(B)
+    return B
+
+
+def build_graph(config: dict, B: np.ndarray, *,
+                generator: torch.Generator | None = None,
+                device=None) -> CausalGraph:
+    return CausalGraph(B, scm=config["scm"],
+                       flow_num=config.get("flow_num", 1),
+                       inverse_loop=config.get("inverse_loop", 100),
+                       generator=generator, device=device)
+
+
+def build_pendulum_model(config: dict, spurious: bool = False, *,
+                         device="cuda", seed: int = 0):
+    """Build the pendulum-family model named by ``config['model']`` on
+    ``device``, with weights drawn from ``seed``. Returns (model, None)."""
+    if spurious:
+        raise NotImplementedError(
+            "the DR wiring (spurious=True) is not ported yet: ROADMAP "
+            "Queue 1 item 11 (DR family)")
+    name = config["model"]
+    if name == "InfoMax":
+        raise NotImplementedError(
+            "InfoMax is not ported yet: ROADMAP Queue 1 item 8 "
+            "(semi-supervised and InfoMax)")
+    device = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    node = config["node"]
+    image_size = config["image_size"]
+    B = pendulum_B(node, config.get("adjacency_scaling", True))
+    graph = build_graph(config, B, generator=generator, device=device)
+
+    if name == "VAE":
+        return VAE(graph, image_size=image_size, generator=generator,
+                   device=device), None
+    if name == "CDGVAE":
+        factor = config["factor"]
+        masks = pendulum_masks(image_size, k=len(factor))
+        return CDGVAE(graph, masks, factor, image_size=image_size,
+                      generator=generator, device=device), None
+    raise ValueError("Not supported model!")

@@ -1,0 +1,74 @@
+"""Wrapper of the hand-written CUDA render kernel (``csrc/render.cu``).
+
+Replaces ``cdgvae_tpu/ops/renderer_pallas.py::render_pallas``. The library
+is built by ``nvcc`` at first launch (``_build.py``) and bound with
+``ctypes``. The wrapper checks its inputs, allocates the output, launches on
+the current stream without synchronising, and raises if the launch fails.
+It never falls back to the plain version. ``launches`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build.build("render", ["render.cu"])))
+        lib.cdgvae_render.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]
+        lib.cdgvae_render.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def render_cuda(factors: torch.Tensor, size: int = 64,
+                background: torch.Tensor | None = None) -> torch.Tensor:
+    """factors [B, 4] (float32, or a float type cast to it) and optional
+    background [B] 0/1 on one CUDA device -> [B, size, size, 3] float32 in
+    [-1, 1], channels-last."""
+    global launches
+    if factors.device.type != "cuda":
+        raise ValueError(f"render_cuda needs a CUDA tensor, got "
+                         f"{factors.device}")
+    if factors.ndim != 2 or factors.shape[1] != 4:
+        raise ValueError(f"factors must be [B, 4], got {tuple(factors.shape)}")
+    if not factors.is_floating_point():
+        raise TypeError(f"factors must be floating point, got {factors.dtype}")
+    if not factors.is_contiguous():
+        raise ValueError("factors must be contiguous")
+    if not 0 < size <= 2048:  # grid.y = size*size/256 stays under 65536
+        raise ValueError(f"size must be in (0, 2048], got {size}")
+    factors = factors.to(torch.float32)
+    n = factors.shape[0]
+    bg_ptr = None
+    if background is not None:
+        if background.device != factors.device or background.shape != (n,):
+            raise ValueError(f"background must be [{n}] on {factors.device}, "
+                             f"got {tuple(background.shape)} on "
+                             f"{background.device}")
+        if not background.is_contiguous():
+            raise ValueError("background must be contiguous")
+        background = background.to(torch.float32)
+        bg_ptr = background.data_ptr()
+    out = torch.empty((n, size, size, 3), dtype=torch.float32,
+                      device=factors.device)
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(factors.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.cdgvae_render(factors.data_ptr(), bg_ptr, out.data_ptr(),
+                               n, size, stream)
+    if rc != 0:
+        raise RuntimeError(f"render kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out

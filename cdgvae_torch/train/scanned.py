@@ -1,0 +1,76 @@
+"""The supervised loss and the epoch runner (port of
+``cdgvae_tpu/train/scanned.py:75-127,219-247``).
+
+The epoch runner keeps the semantics of ``make_scanned_epochs``: one
+permutation of the flat ``[n, 3·H·W]`` dataset per epoch from a device
+``torch.Generator``, the last partial batch dropped, metrics accumulated on
+the device and averaged per epoch with one host sync per epoch. Steps run
+as a plain Python loop.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..ops import losses
+from .steps import _forward, _metrics
+
+
+def make_supervised_loss_fn(model, beta: float, lam: float,
+                            free_bits: float = 0.0) -> Callable:
+    """ELBO + alignment loss as ``loss_fn(x, y, noise=None,
+    generator=None) -> (loss, metrics)``."""
+    node = model.node
+
+    def loss_fn(x, y, noise=None, generator=None):
+        out = _forward(model, x, noise, generator)
+        recon = losses.gaussian_recon(out.xhat, x)
+        if free_bits > 0.0:
+            kl = losses.kl_std_normal_free_bits(out.mean, out.logvar,
+                                                free_bits)
+        else:
+            kl = losses.kl_std_normal(out.mean, out.logvar)
+        align = losses.alignment_bce(out.align_latent, y[:, :node])
+        loss = recon + beta * kl + lam * align
+        return loss, _metrics(loss, recon, kl, align, out.logvar, node)
+
+    return loss_fn
+
+
+def epoch_batches(n: int, batch_size: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One epoch's shuffled indices as [n // batch_size, batch_size]; the
+    remainder is dropped."""
+    steps = n // batch_size
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    return perm[: steps * batch_size].reshape(steps, batch_size)
+
+
+def make_epoch_runner(step_fn: Callable, batch_size: int) -> Callable:
+    """Wrap a ``step(x, y, generator=...) -> metrics`` into an epoch runner,
+    the counterpart of ``make_scanned_epochs``.
+
+    Returns run(x, y, generator) -> the epoch's mean metrics as host
+    floats. ``x`` is [n, ...] items, ``y`` [n, .]; both on the generator's
+    device.
+    """
+
+    def run(x, y, generator: torch.Generator) -> dict:
+        n = x.shape[0]
+        steps = n // batch_size
+        if steps == 0:
+            raise ValueError(
+                f"dataset ({n}) smaller than batch_size ({batch_size}); "
+                "clamp the batch size (train.loop.run_epochs does)")
+        xf, item_shape = x.reshape(n, -1), x.shape[1:]
+        acc, keys = None, None
+        for idx in epoch_batches(n, batch_size, generator):
+            xi = xf[idx].reshape(batch_size, *item_shape)
+            metrics = step_fn(xi, y[idx], generator=generator)
+            vec = torch.stack(list(metrics.values()))
+            acc = vec if acc is None else acc + vec
+            keys = list(metrics)
+        return dict(zip(keys, (acc / steps).tolist()))  # the one host sync
+
+    return run

@@ -1,0 +1,37 @@
+"""The port stands alone: importing every cdgvae_torch module loads neither
+JAX, optax nor anything of cdgvae_tpu."""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import cdgvae_torch
+names = [m.name for m in pkgutil.walk_packages(cdgvae_torch.__path__,
+                                               "cdgvae_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "cdgvae_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    for name in ("cdgvae_torch.cli.main", "cdgvae_torch.ops.renderer_cuda",
+                 "cdgvae_torch.train.scanned", "cdgvae_torch.utils.interop"):
+        assert name in result["modules"]
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "cdgvae_tpu" not in src.replace(
+        "cdgvae_tpu/ops/renderer_pallas.py", "")

@@ -2,8 +2,8 @@
 
 Port of ``cdgvae_tpu/data/pendulum.py:37-168``. The DGP functions are numpy
 and are kept here as the port's own copies. ``PendulumDataset`` renders its
-images in chunks of 2048 with ``ops.renderer.render`` on the dataset's
-device: on CUDA through the hand-written kernel.
+images with ``ops.renderer.render`` on the dataset's device: on CUDA in one
+launch of the hand-written kernel, on the CPU in chunks of 2048.
 """
 from __future__ import annotations
 
@@ -110,8 +110,8 @@ class PendulumDataset:
         if self.train and self.labeled_ratio < 1.0:
             factors = factors[: int(len(factors) * self.labeled_ratio)]
         self.factors = factors
-        self.x_data = _render_in_chunks(factors[:, :4], self.image_size,
-                                        self.device)
+        self.x_data = _render_images(factors[:, :4], self.image_size,
+                                     self.device)
         label = factors.copy()
         if not self.downstream:
             label, self.std = normalize_labels(label,
@@ -123,11 +123,13 @@ class PendulumDataset:
         return len(self.x_data)
 
 
-def _render_in_chunks(factors: np.ndarray, image_size: int, device,
-                      chunk: int = 2048) -> torch.Tensor:
-    outs = []
-    for i in range(0, len(factors), chunk):
-        f = torch.as_tensor(factors[i:i + chunk], dtype=torch.float32,
-                            device=device)
-        outs.append(render(f, size=image_size))
-    return torch.cat(outs, dim=0)
+def _render_images(factors: np.ndarray, image_size: int, device,
+                   chunk: int = 2048) -> torch.Tensor:
+    """Render every image once on ``device``. The CUDA kernel needs no
+    scratch, so the whole split is one launch that writes each image in
+    place; the plain version on the CPU goes in chunks, which bound its
+    temporaries."""
+    f = torch.as_tensor(factors, dtype=torch.float32, device=device)
+    if f.device.type == "cuda":
+        return render(f, size=image_size)
+    return torch.cat([render(c, size=image_size) for c in f.split(chunk)])

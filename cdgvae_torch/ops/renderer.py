@@ -82,6 +82,82 @@ def _paint(img, cov, color):
     return img * (1.0 - cov[..., None]) + color * cov[..., None]
 
 
+def _scene(factors: torch.Tensor):
+    """Per-image scalars of float32 factors [batch, 4], each [batch]:
+    (light_x, ball_x, ball_y, xi3, xi4) in data coordinates."""
+    xi1, xi2, xi3, xi4 = factors.unbind(1)
+    light_x = CENTER[0] + 10.0 / torch.tan(xi1)
+    ball_x = CENTER[0] + (ROD_LEN - 1.5) * torch.sin(xi2)
+    ball_y = CENTER[1] - (ROD_LEN - 1.5) * torch.cos(xi2)
+    return light_x, ball_x, ball_y, xi3, xi4
+
+
+def _pixel_range(lo, hi, size):
+    """Half-open index range [i0, i1) of the pixels whose centre i + 0.5
+    lies in (lo - 1, hi + 1), clamped to [0, size]: the open interval
+    (lo, hi) plus one whole pixel of margin against float32 rounding."""
+    i0 = torch.floor(lo - 1.5) + 1
+    i1 = torch.ceil(hi + 0.5)
+    return (i0.clamp(0, size).to(torch.int64),
+            i1.clamp(0, size).to(torch.int64))
+
+
+def shape_boxes(factors: torch.Tensor, size: int = 64) -> torch.Tensor:
+    """Conservative pixel boxes of the four shapes, [batch, 4, 4] int64.
+
+    Row k of an image is shape k in paint order (sun, rod, ball, shadow)
+    as (x0, x1, y0, y1), half-open and clamped to the image and to the
+    axes window. Outside its box a shape's painted coverage
+    ``window * clip(0.5 - d, 0, 1)`` is exactly 0, so a renderer may skip
+    it there without changing a bit. The support is the ellipse's extent
+    plus its fringe, ``r*sx + 0.5*sqrt(sx/sy)`` across and
+    ``r*sy + 0.5*sqrt(sy/sx)`` down (where d = 0.5), or the segment's
+    bounding box widened by ``lw_half + 0.5``. ``csrc/render.cu`` carries
+    the same formula; this copy is what the CPU tests check.
+    """
+    factors = factors.to(torch.float32)
+    light_x, ball_x, ball_y, xi3, xi4 = _scene(factors)
+    sx, sy = _scales(size)
+    seg = 0.5 * _LINEWIDTH_PT / 72.0 * size + 0.5
+
+    x0, y1 = _data_to_px(_XLIM[0], _YLIM[0], size)
+    x1, y0 = _data_to_px(_XLIM[1], _YLIM[1], size)
+    # pixels where the window factor is > 0: centre in (x0-0.5, x1+0.5)
+    win = (_pixel_range(torch.tensor(x0 - 0.5), torch.tensor(x1 + 0.5), size)
+           + _pixel_range(torch.tensor(y0 - 0.5), torch.tensor(y1 + 0.5),
+                          size))
+
+    def ellipse(cx, cy, r):
+        hx = r * sx + 0.5 * (sx / sy) ** 0.5
+        hy = r * sy + 0.5 * (sy / sx) ** 0.5
+        return (cx - hx, cx + hx, cy - hy, cy + hy)
+
+    def segment(ax, ay, bx, by):
+        return (torch.minimum(ax, bx) - seg, torch.maximum(ax, bx) + seg,
+                torch.minimum(ay, by) - seg, torch.maximum(ay, by) + seg)
+
+    sun_x, sun_y = _data_to_px(light_x, 20.5, size)
+    sun_y = torch.full_like(sun_x, sun_y)
+    ball_px, ball_py = _data_to_px(ball_x, ball_y, size)
+    piv_x, piv_y = _data_to_px(CENTER[0], CENTER[1], size)
+    sha_x, ground = _data_to_px(xi4 - xi3 / 2.0, GROUND, size)
+    shb_x, _ = _data_to_px(xi4 + xi3 / 2.0, GROUND, size)
+    ground = torch.full_like(sha_x, ground)
+    supports = [ellipse(sun_x, sun_y, 3.0),
+                segment(torch.full_like(ball_px, piv_x),
+                        torch.full_like(ball_py, piv_y), ball_px, ball_py),
+                ellipse(ball_px, ball_py, 1.5),
+                segment(sha_x, ground, shb_x, ground)]
+    boxes = []
+    for lx, hx, ly, hy in supports:
+        bx0, bx1 = _pixel_range(lx, hx, size)
+        by0, by1 = _pixel_range(ly, hy, size)
+        boxes.append(torch.stack([bx0.clamp(min=win[0]), bx1.clamp(max=win[1]),
+                                  by0.clamp(min=win[2]), by1.clamp(max=win[3])],
+                                 1))
+    return torch.stack(boxes, 1)
+
+
 def render_reference(factors: torch.Tensor, size: int = 64,
                      background: torch.Tensor | None = None) -> torch.Tensor:
     """Render a batch of pendulum scenes with plain torch ops.
@@ -97,17 +173,27 @@ def render_reference(factors: torch.Tensor, size: int = 64,
         background = torch.zeros(factors.shape[0], dtype=torch.float32,
                                  device=dev)
     background = background.to(device=dev, dtype=torch.float32)
+    window, shapes = _painted_coverages(factors, size)
 
-    def col(v):  # per-image scalar -> [batch, 1, 1]
-        return v[:, None, None]
+    def color(c):
+        return torch.tensor(c, dtype=torch.float32, device=dev)
 
-    xi1, xi2, xi3, xi4 = (col(factors[:, i]) for i in range(4))
-    light_x = CENTER[0] + 10.0 / torch.tan(xi1)
-    ball_x = CENTER[0] + (ROD_LEN - 1.5) * torch.sin(xi2)
-    ball_y = CENTER[1] - (ROD_LEN - 1.5) * torch.cos(xi2)
-    bg = col(background)
+    img = color(_WHITE).expand(factors.shape[0], size, size, 3)
+    img = _paint(img, window * (background[:, None, None] > 0.5),
+                 color(_BLUE))
+    for cov, c in zip(shapes, (_ORANGE, _BLACK, _FIREBRICK, _BLACK)):
+        img = _paint(img, cov, color(c))
+    return img * 2.0 - 1.0
 
-    coords = torch.arange(size, dtype=torch.float32, device=dev) + 0.5
+
+def _painted_coverages(factors: torch.Tensor, size: int):
+    """The axes-window factor [size, size] and, in paint order (sun, rod,
+    ball, shadow), each shape's painted coverage ``window * clip(0.5 - d,
+    0, 1)`` [batch, size, size] of float32 factors [batch, 4]."""
+    light_x, ball_x, ball_y, xi3, xi4 = (v[:, None, None]
+                                         for v in _scene(factors))
+    coords = torch.arange(size, dtype=torch.float32,
+                          device=factors.device) + 0.5
     py = coords[:, None].expand(size, size)
     px = coords[None, :].expand(size, size)
 
@@ -117,26 +203,15 @@ def render_reference(factors: torch.Tensor, size: int = 64,
     x1, y0 = _data_to_px(_XLIM[1], _YLIM[1], size)
     window = (torch.clamp(torch.minimum(px - x0, x1 - px) + 0.5, 0.0, 1.0)
               * torch.clamp(torch.minimum(py - y0, y1 - py) + 0.5, 0.0, 1.0))
-
-    def color(c):
-        return torch.tensor(c, dtype=torch.float32, device=dev)
-
-    img = color(_WHITE).expand(factors.shape[0], size, size, 3)
-    img = _paint(img, window * (bg > 0.5), color(_BLUE))
-    # sun
-    d = _ellipse_distance(px, py, light_x, 20.5, 3.0, size)
-    img = _paint(img, window * _coverage(d), color(_ORANGE))
-    # rod
-    d = _segment_distance(px, py, CENTER[0], CENTER[1], ball_x, ball_y, size)
-    img = _paint(img, window * _coverage(d - lw_half), color(_BLACK))
-    # ball
-    d = _ellipse_distance(px, py, ball_x, ball_y, 1.5, size)
-    img = _paint(img, window * _coverage(d), color(_FIREBRICK))
-    # shadow
-    d = _segment_distance(px, py, xi4 - xi3 / 2.0, GROUND,
-                          xi4 + xi3 / 2.0, GROUND, size)
-    img = _paint(img, window * _coverage(d - lw_half), color(_BLACK))
-    return img * 2.0 - 1.0
+    sun = _ellipse_distance(px, py, light_x, 20.5, 3.0, size)
+    rod = _segment_distance(px, py, CENTER[0], CENTER[1], ball_x, ball_y,
+                            size)
+    ball = _ellipse_distance(px, py, ball_x, ball_y, 1.5, size)
+    shadow = _segment_distance(px, py, xi4 - xi3 / 2.0, GROUND,
+                               xi4 + xi3 / 2.0, GROUND, size)
+    return window, [window * _coverage(sun), window * _coverage(rod - lw_half),
+                    window * _coverage(ball),
+                    window * _coverage(shadow - lw_half)]
 
 
 def render(factors: torch.Tensor, size: int = 64,

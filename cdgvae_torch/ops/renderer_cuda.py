@@ -2,9 +2,10 @@
 
 Replaces ``cdgvae_tpu/ops/renderer_pallas.py::render_pallas``. The library
 is built by ``nvcc`` at first launch (``_build.py``) and bound with
-``ctypes``. The wrapper checks its inputs, allocates the output, launches on
-the current stream without synchronising, and raises if the launch fails.
-It never falls back to the plain version. ``launches`` counts the launches.
+``ctypes``. The wrapper checks its inputs, allocates the output (or takes
+the caller's), launches on the current stream without synchronising, and
+raises if the launch fails. It never falls back to the plain version.
+``launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -13,6 +14,10 @@ import ctypes
 import torch
 
 from . import _build
+
+# one output row of 3 float32 channels must fit a warp's 6 KB band buffer
+# (render.cu: kMaxSize = kBandFloats / 3)
+MAX_SIZE = 512
 
 launches = 0
 _lib = None
@@ -31,10 +36,13 @@ def _load():
 
 
 def render_cuda(factors: torch.Tensor, size: int = 64,
-                background: torch.Tensor | None = None) -> torch.Tensor:
+                background: torch.Tensor | None = None, *,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """factors [B, 4] (float32, or a float type cast to it) and optional
     background [B] 0/1 on one CUDA device -> [B, size, size, 3] float32 in
-    [-1, 1], channels-last."""
+    [-1, 1], channels-last. ``out``, if given, is a contiguous float32
+    [B, size, size, 3] tensor on the same device that receives the images
+    and is returned."""
     global launches
     if factors.device.type != "cuda":
         raise ValueError(f"render_cuda needs a CUDA tensor, got "
@@ -45,8 +53,8 @@ def render_cuda(factors: torch.Tensor, size: int = 64,
         raise TypeError(f"factors must be floating point, got {factors.dtype}")
     if not factors.is_contiguous():
         raise ValueError("factors must be contiguous")
-    if not 0 < size <= 2048:  # grid.y = size*size/256 stays under 65536
-        raise ValueError(f"size must be in (0, 2048], got {size}")
+    if not 0 < size <= MAX_SIZE:
+        raise ValueError(f"size must be in (0, {MAX_SIZE}], got {size}")
     factors = factors.to(torch.float32)
     n = factors.shape[0]
     bg_ptr = None
@@ -59,8 +67,14 @@ def render_cuda(factors: torch.Tensor, size: int = 64,
             raise ValueError("background must be contiguous")
         background = background.to(torch.float32)
         bg_ptr = background.data_ptr()
-    out = torch.empty((n, size, size, 3), dtype=torch.float32,
-                      device=factors.device)
+    shape = (n, size, size, 3)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=factors.device)
+    elif (out.device != factors.device or out.dtype != torch.float32
+          or tuple(out.shape) != shape or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 {list(shape)} "
+                         f"tensor on {factors.device}, got {out.dtype} "
+                         f"{list(out.shape)} on {out.device}")
     if n == 0:
         return out
     lib = _load()

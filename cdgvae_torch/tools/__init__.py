@@ -1,0 +1,1 @@
+"""Measurement tools for the port's kernels, run on a machine with a card."""

@@ -8,12 +8,15 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-2. the build of every CUDA kernel of the main path, timed;
+2. the build of every CUDA kernel of the main path, timed, with the
+   compiler's report (registers, shared memory, spills, stack frame);
 3. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it and at ragged sizes;
-4. the main path: ``PendulumDataset`` rendered through the kernel, then the
-   full-width flagship CDG-VAE trained for 3 epochs of 29 steps; the loss
-   must be finite and fall, and every kernel must have launched;
+   the main path gives it, at ragged sizes, at edge factors and at 16,
+   128 and 512 px;
+4. the main path: ``PendulumDataset`` rendered through the kernel (build
+   time on the host clock), then the full-width flagship CDG-VAE trained
+   for 3 epochs of 29 steps; the loss must be finite and fall, and every
+   kernel must have launched;
 5. the full-width model's loss on the card against the same model on the
    CPU (same weights, batch and noise);
 6. times on the card from CUDA events, beside each kernel's bound;
@@ -41,9 +44,12 @@ import torch
 # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# float32 operations a pixel as csrc/render.cu does them: pixel centre 2,
-# window 13, background 1, sun 21, rod 39, ball 16, shadow 41, the five
-# paints on 3 channels 50, the [-1, 1] map 6
+# float32 operations a pixel of the uncut function, every shape evaluated
+# at every pixel as render_reference does: pixel centre 2, window 13,
+# background 1, sun 21, rod 39, ball 16, shadow 41, the five paints on 3
+# channels 50, the [-1, 1] map 6. csrc/render.cu skips the shapes on the
+# tiles their boxes miss and does far fewer; the bound still counts these,
+# and is set by the bytes either way.
 RENDER_OPS_PER_PIXEL = 189
 
 FLAGSHIP = dict(model="CDGVAE", node=4, scm="linear", flow_num=1,
@@ -52,6 +58,10 @@ FLAGSHIP = dict(model="CDGVAE", node=4, scm="linear", flow_num=1,
 BATCH, BETA, LAM, LR, EPOCHS = 128, 0.1, 5.0, 1e-3, 3
 N_SAMPLES = 4949  # its train split is 3,712 images = 29 batches of 128
 MAX_ABS_TOL, MEAN_ABS_TOL = 5e-5, 1e-6
+# at 512 px (renderer_cuda.MAX_SIZE) max |d| read 6.7e-5 on the case below
+# and 1.0e-4 on tests/test_torch_kernels.py's factors (H100); twice the
+# larger
+MAX_ABS_TOL_512 = 2e-4
 
 
 def check(ok: bool, what: str):
@@ -154,6 +164,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build("render", ["render.cu"])
     print(f"build render.cu: {time.perf_counter() - t0:.2f} s -> {lib.name}")
+    print("ptxas report (registers, shared memory, spills, stack frame):")
     print(lib.with_suffix(".log").read_text().strip())
 
     # 3. kernel against plain version on the card
@@ -164,29 +175,46 @@ def main() -> int:
     rng = np.random.default_rng(0)
     bg_all = torch.as_tensor(rng.integers(0, 2, 3712).astype(np.float32),
                              device=dev)
-    cases = [("B=3712", f_all, None), ("B=3712 bg", f_all, bg_all),
-             ("B=2048 (chunk)", f_all[:2048], None),
-             ("B=1664 (chunk)", f_all[2048:], None),
-             ("B=13", f_all[:13], None), ("B=13 bg", f_all[:13], bg_all[:13]),
-             ("B=1", f_all[:1], None)]
+    # xi1 in {pi/4, pi/2}, xi2 in {0, pi/4}, xi3, xi4 in {0, 13.5}
+    edge = torch.as_tensor(np.stack([g.ravel() for g in np.meshgrid(
+        [math.pi / 4, math.pi / 2], [0.0, math.pi / 4], [0.0, 13.5],
+        [0.0, 13.5], indexing="ij")], 1), dtype=torch.float32, device=dev)
+    cases = [("B=3712", f_all, None, 64), ("B=3712 bg", f_all, bg_all, 64),
+             ("B=2048", f_all[:2048], None, 64),
+             ("B=133 (ragged last wave)", f_all[:133], None, 64),
+             ("B=13 bg", f_all[:13], bg_all[:13], 64),
+             ("B=1", f_all[:1], None, 64),
+             ("B=3712 16px bg", f_all, bg_all, 16),
+             ("B=512 128px", f_all[:512], None, 128),
+             ("edge", edge, None, 64), ("edge bg", edge, bg_all[:16], 64),
+             ("edge 16px", edge, None, 16), ("edge 128px", edge, None, 128),
+             ("B=2 512px", f_all[:2], None, 512)]
     max_err = 0.0
-    for name, f, bg in cases:
-        out = renderer_cuda.render_cuda(f, 64, bg)
-        ref = render_reference(f, 64, bg)
+    for name, f, bg, size in cases:
+        ref = render_reference(f, size, bg)
+        out = renderer_cuda.render_cuda(f, size, bg)
         torch.cuda.synchronize()
-        check(out.shape == (f.shape[0], 64, 64, 3), f"{name}: shape {out.shape}")
+        check(out.shape == (f.shape[0], size, size, 3),
+              f"{name}: shape {out.shape}")
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
         diff = (out - ref).abs()
         mx, mean = diff.max().item(), diff.mean().item()
         print(f"render {name}: max|d| {mx:.3e} mean|d| {mean:.3e}")
-        check(mx <= MAX_ABS_TOL and mean <= MEAN_ABS_TOL,
+        tol = MAX_ABS_TOL if size <= 128 else MAX_ABS_TOL_512
+        check(mx <= tol and mean <= MEAN_ABS_TOL,
               f"render {name} disagrees with render_reference "
               f"(max {mx}, mean {mean})")
-        max_err = max(max_err, mx)
+        if size <= 128:  # the kernels line: the cases held to MAX_ABS_TOL
+            max_err = max(max_err, mx)
 
     # 4. the main path, with the launch counts read around it
     renderer_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     dataset = PendulumDataset(n=N_SAMPLES, device=dev)
+    torch.cuda.synchronize()
+    print(f"dataset build ({len(dataset)} train images, DGP + render): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock) [{card}]")
     model, _ = build_pendulum_model(FLAGSHIP, device=dev, seed=0)
     optimizer = make_optimizer(model, LR)
     step = make_train_step(model, optimizer, BETA, LAM)
@@ -257,12 +285,16 @@ def main() -> int:
               f"{step_s * 1e3:.3f} ms unprofiled = "
               f"{busy / len(order) / step_s:.3f} busy share [{card}]")
         print(table)
-        f128 = f_all[:128]
-        busy, wall, _ = profile_window(
-            lambda: [renderer_cuda.render_cuda(f128, 64) for _ in range(20)])
-        print(f"render B=128 device time (profiler): {busy / 20 * 1e6:.2f} "
-              f"us per launch, {wall / 20 * 1e6:.2f} us wall per call "
-              f"[{card}]")
+        for n in (3712, 2048, 128):
+            f = f_all[:n]
+            out = torch.empty((n, 64, 64, 3), device=dev)
+            busy, wall, _ = profile_window(
+                lambda: [renderer_cuda.render_cuda(f, 64, out=out)
+                         for _ in range(20)])
+            print(f"render B={n} device time (profiler): "
+                  f"{busy / 20 * 1e6:.2f} us per launch, "
+                  f"{wall / 20 * 1e6:.2f} us wall per call; events "
+                  f"{rows[n][0] * 1e3:.2f} us [{card}]")
     else:
         print("profiler saw no device kernels: busy share not measured")
 

@@ -16,8 +16,10 @@ import torch
 from cdgvae_torch.data import pendulum
 from cdgvae_torch.ops import _build, renderer_cuda
 from cdgvae_torch.ops.renderer import render, render_reference
+from cdgvae_torch.tools import render_split
 
 KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 5e-5, 1e-6
+MAX_SIZE_MAX_ABS = 2e-4  # at renderer_cuda.MAX_SIZE = 512 px
 
 
 def _factors(n, seed=1):
@@ -89,26 +91,89 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     assert paths[0] != paths[1]
 
 
+def _edge_factors():
+    """xi1 in {pi/4, pi/2}, xi2 in {0, pi/4}, xi3, xi4 in {0, 13.5}: the
+    sun at the window's edge, the rod upright, empty and long shadows."""
+    grid = np.meshgrid([math.pi / 4, math.pi / 2], [0.0, math.pi / 4],
+                       [0.0, 13.5], [0.0, 13.5], indexing="ij")
+    return torch.as_tensor(np.stack([g.ravel() for g in grid], 1),
+                           dtype=torch.float32)
+
+
+def _assert_matches(out, ref):
+    diff = (out - ref).abs()
+    assert diff.max().item() <= KERNEL_MAX_ABS
+    assert diff.mean().item() <= KERNEL_MEAN_ABS
+    assert math.isfinite(out.sum().item())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,with_bg", [(3712, False), (3712, True),
-                                       (2048, False), (13, True),
-                                       (1, False)])
-def test_cuda_kernel_matches_reference(cuda_device, n, with_bg):
-    f = _factors(4949)[:n].to(cuda_device)
+@pytest.mark.parametrize("which,n,size,with_bg", [
+    ("real", 3712, 64, False), ("real", 3712, 64, True),
+    ("real", 2048, 64, False), ("real", 13, 64, True), ("real", 1, 64, False),
+    # B=133: the persistent grid's last round of items is ragged
+    ("real", 133, 64, False), ("real", 133, 16, True),
+    ("real", 133, 128, False), ("real", 40, 28, False),
+    ("edge", 16, 64, True), ("edge", 16, 16, False), ("edge", 16, 128, False)])
+def test_cuda_kernel_matches_reference(cuda_device, which, n, size, with_bg):
+    f = (_factors(4949) if which == "real" else _edge_factors())[:n]
+    f = f.to(cuda_device)
     bg = None
     if with_bg:
         bits = np.random.default_rng(0).integers(0, 2, n)
         bg = torch.as_tensor(bits, dtype=torch.float32, device=cuda_device)
     before = renderer_cuda.launches
-    out = render(f, 64, bg)
-    ref = render_reference(f, 64, bg)
+    out = render(f, size, bg)
+    ref = render_reference(f, size, bg)
     torch.cuda.synchronize()
     assert renderer_cuda.launches == before + 1
-    assert out.shape == (n, 64, 64, 3) and out.is_contiguous()
-    diff = (out - ref).abs()
-    assert diff.max().item() <= KERNEL_MAX_ABS
+    assert out.shape == (n, size, size, 3) and out.is_contiguous()
+    _assert_matches(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_writes_into_out_and_nothing_else(cuda_device):
+    # offsets of 0-3 floats put each band at every alignment mod 16 bytes
+    f = _factors(24).to(cuda_device)
+    for lead in range(4):
+        flat = torch.full((lead + 24 * 16 * 16 * 3 + 5,), 7.0,
+                          device=cuda_device)
+        view = flat[lead:lead + flat.numel() - lead - 5].view(24, 16, 16, 3)
+        got = renderer_cuda.render_cuda(f, 16, out=view)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == view.data_ptr()
+        _assert_matches(view, render_reference(f, 16))
+        assert bool((flat[:lead] == 7.0).all())
+        assert bool((flat[flat.numel() - 5:] == 7.0).all())
+    # a slice of a bigger batch: its neighbours keep their values
+    big = torch.full((10, 64, 64, 3), 7.0, device=cuda_device)
+    renderer_cuda.render_cuda(f[:4], 64, out=big[3:7])
+    torch.cuda.synchronize()
+    _assert_matches(big[3:7], render_reference(f[:4], 64))
+    assert bool((big[:3] == 7.0).all()) and bool((big[7:] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_checks_size_and_out(cuda_device):
+    f = torch.zeros(2, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="size"):
+        renderer_cuda.render_cuda(f, renderer_cuda.MAX_SIZE + 1)
+    for bad in (torch.empty(2, 16, 16, 3),  # on the CPU
+                torch.empty(2, 16, 16, 3, device=cuda_device,
+                            dtype=torch.float64),
+                torch.empty(3, 16, 16, 3, device=cuda_device),
+                torch.empty(2, 16, 3, 16, device=cuda_device).transpose(2, 3)):
+        with pytest.raises(ValueError, match="out"):
+            renderer_cuda.render_cuda(f, 16, out=bad)
+    # the largest size renders. Its max |d| on these factors read 1.0e-4 on
+    # an H100 (the culling is exact there too:
+    # tests/test_torch_render_boxes.py), so the limit is twice that reading
+    size = renderer_cuda.MAX_SIZE
+    f = _factors(2).to(cuda_device)
+    diff = (renderer_cuda.render_cuda(f, size)
+            - render_reference(f, size)).abs()
+    assert diff.max().item() <= MAX_SIZE_MAX_ABS
     assert diff.mean().item() <= KERNEL_MEAN_ABS
-    assert math.isfinite(out.sum().item())
 
 
 @pytest.mark.cuda
@@ -120,3 +185,50 @@ def test_cuda_dataset_renders_through_the_kernel(cuda_device):
                                            dtype=torch.float32), 64)
     diff = (ds.x_data.cpu() - ref).abs()
     assert diff.max().item() <= KERNEL_MAX_ABS
+
+
+@pytest.mark.cuda
+def test_cuda_dataset_writes_each_image_once(cuda_device):
+    """No full-size copy: the build's peak device memory is the images
+    themselves, plus the labels and factors."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    before = renderer_cuda.launches
+    ds = pendulum.PendulumDataset(n=4949, image_size=64, device=cuda_device)
+    torch.cuda.synchronize()
+    assert renderer_cuda.launches == before + 1
+    images = ds.x_data.numel() * 4
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert images == 3712 * 64 * 64 * 3 * 4
+    assert peak < images + (1 << 20)
+
+
+def test_render_split_builds_every_variant_at_once(tmp_path, monkeypatch):
+    """One nvcc per variant, all started before any is waited on, each with
+    its RENDER_SPLIT switch; a failed build raises."""
+    started = []
+
+    class FailedNvcc:
+        returncode = 1
+
+        def __init__(self, cmd, **_kw):
+            started.append(cmd)
+
+        def communicate(self):
+            assert len(started) == len(render_split.VARIANTS)
+            return "error",
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(render_split.subprocess, "Popen", FailedNvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        render_split._build_all()
+    assert [c[-1] for c in started] == [str(_build.CSRC / "render.cu")] * 3
+    assert sorted(f for c in started for f in c if "RENDER_SPLIT" in f) == [
+        "-DRENDER_SPLIT=0", "-DRENDER_SPLIT=1", "-DRENDER_SPLIT=2"]
+
+
+def test_render_split_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert render_split.main() == 1

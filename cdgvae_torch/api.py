@@ -1,0 +1,127 @@
+"""Serving API: load a checkpoint, run inference (port of
+``cdgvae_tpu/api.py:25-235`` for the pendulum family).
+
+    from cdgvae_torch.api import LoadedModel
+    m = LoadedModel.load("assets/model_CDGVAE_linear")      # on cuda
+    z = m.encode(images)                       # deterministic latents
+    xr = m.reconstruct(images)
+    xc = m.counterfactual(images, do_index=1, value=0.7)
+    xs = m.sample(64)                          # eps ~ N(0, I) -> decode
+
+Inputs are numpy arrays or tensors, outputs numpy arrays. Every path runs
+under ``torch.no_grad()`` on the posterior mean (``deterministic=True``),
+not a draw. The JAX package pads batches to a power of two so that ragged
+batch sizes reuse compiled XLA programs; PyTorch runs eagerly and every
+path here is per sample, so the port runs each batch as it comes, with no
+padding.
+
+A checkpoint of another family (tabular, TVAE, CelebA, the DR node-5
+wiring) or a ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .factory import build_pendulum_model
+from .utils.checkpoint import load_checkpoint
+from .utils.device import resolve_device
+from .utils.interop import load_jax_params
+
+# the JAX factory builds these names as the same model classes
+_MODEL_CLASS = {"InfoMax": "VAE", "CDGVAEsemi": "CDGVAE"}
+
+
+def _unported_family(config: dict) -> str | None:
+    if config.get("model") == "TVAE" or "dataset" in config:
+        return "the tabular family: ROADMAP Queue 1 item 12"
+    if "causal_structure" in config:
+        return "the CelebA family: ROADMAP Queue 1 item 13"
+    if bool(config.get("spurious", config.get("node", 4) == 5)):
+        return "the DR family (node-5 spurious wiring): ROADMAP Queue 1 " \
+               "item 11"
+    return None
+
+
+class LoadedModel:
+    def __init__(self, model, config: dict):
+        self.model = model.eval()
+        self.config = config
+        self.device = next(model.parameters()).device
+
+    @classmethod
+    def load(cls, checkpoint_dir: str, device: str | torch.device = "cuda",
+             mesh=None) -> "LoadedModel":
+        """Build the checkpoint's model on ``device`` from its embedded
+        config and load its params.
+
+        The matmul precision is the caller's: nothing here sets
+        ``torch.backends.cuda.matmul.allow_tf32``. Its PyTorch default,
+        False, serves in full float32 (the SEM solve needs it); a caller
+        that turns TF32 on gets TF32 answers."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh serving is not ported yet: ROADMAP Queue 1 item 14 "
+                "(data parallel)")
+        ck = load_checkpoint(checkpoint_dir)
+        config = ck["config"]
+        if config is None:
+            raise ValueError("checkpoint has no embedded config")
+        family = _unported_family(config)
+        if family is not None:
+            raise NotImplementedError(f"serving {family} is not ported yet")
+        device = resolve_device(device)
+        build = dict(config, model=_MODEL_CLASS.get(config["model"],
+                                                    config["model"]))
+        model, _ = build_pendulum_model(build, device=device)
+        load_jax_params(model, ck["params"])
+        return cls(model, config)
+
+    def _input(self, x) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.array(x, dtype=np.float32))
+        return x.to(device=self.device, dtype=torch.float32)
+
+    def _encode(self, x: torch.Tensor):
+        return self.model.encode(x, deterministic=True)
+
+    @torch.no_grad()
+    def encode(self, x) -> np.ndarray:
+        """Deterministic causal latents [batch, node]."""
+        return self._encode(self._input(x))[4].cpu().numpy()
+
+    @torch.no_grad()
+    def reconstruct(self, x) -> np.ndarray:
+        """Reconstructions [batch, H, W, 3] in [-1, 1]."""
+        latent = self._encode(self._input(x))[4]
+        return self.model.decode_fast(latent).cpu().numpy()
+
+    @torch.no_grad()
+    def counterfactual(self, x, do_index: int, value) -> np.ndarray:
+        """Answer do(z_{do_index} := value) for each input: encode, apply
+        the do-operator with ancestral re-propagation, decode. ``value``
+        is a scalar or one value per row."""
+        _, _, eps, _, latent, _ = self._encode(self._input(x))
+        if torch.is_tensor(value) or np.ndim(value):
+            value = self._input(value)
+        z_do = self.model.graph.do_intervention(latent, eps, int(do_index),
+                                                value)
+        return self.model.decode_fast(z_do).cpu().numpy()
+
+    @torch.no_grad()
+    def generate(self, eps) -> np.ndarray:
+        """Exogenous noise eps [n, node] -> SEM + flows -> decode."""
+        _, latent, _ = self.model.graph.transform(self._input(eps))
+        return self.model.decode_fast(latent).cpu().numpy()
+
+    def sample(self, n: int, generator: torch.Generator | None = None
+               ) -> np.ndarray:
+        """Generative sampling: eps ~ N(0, I) drawn from ``generator`` (a
+        generator seeded 0 on the model's device if None), then
+        :meth:`generate`."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        eps = torch.randn((n, self.model.node), generator=generator,
+                          device=generator.device)
+        return self.generate(eps)

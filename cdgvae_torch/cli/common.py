@@ -1,0 +1,146 @@
+"""Shared CLI plumbing for the pendulum CLI (port of the parts of
+``cdgvae_tpu/cli/common.py:17-143,204-337`` it uses): list and bool flag
+parsers, the infrastructure flags, ``--resume``, and the fixed-dataset and
+online training drivers, single device.
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+
+from ..train.loop import run_epochs
+from ..train.online import make_online_run_from_loss, train_split_size
+from ..train.scanned import Averager
+
+# JAX-, mesh- or XLA-trace-specific flags of the reference, refused here
+_UNPORTED_FLAGS = {
+    "--platform": "picks the JAX backend; the port takes --device "
+                  "(ROADMAP Queue 1 item 15, tooling)",
+    "--dp": "the data-parallel mesh is not ported yet (ROADMAP Queue 1 "
+            "item 14, data parallel)",
+    "--profile": "the XLA trace is not ported yet (ROADMAP Queue 1 item "
+                 "15, tooling: torch.profiler)",
+}
+
+
+def arg_as_list(s: str):
+    """Parse a Python-literal list flag."""
+    v = ast.literal_eval(s)
+    if type(v) is not list:
+        raise argparse.ArgumentTypeError(f'Argument "{s}" is not a list')
+    return v
+
+
+def arg_as_bool(s):
+    """Boolean flag parser that makes '--flag False' mean False."""
+    if isinstance(s, bool):
+        return s
+    v = s.strip().lower()
+    if v in ("true", "1", "yes", "y"):
+        return True
+    if v in ("false", "0", "no", "n"):
+        return False
+    raise argparse.ArgumentTypeError(f'expected a boolean, got "{s}"')
+
+
+class _Unported(argparse.Action):
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not supported by the port: "
+                     f"{_UNPORTED_FLAGS[option_string]}")
+
+
+def add_infra_args(parser: argparse.ArgumentParser):
+    """Framework-side flags that have no reference counterpart."""
+    parser.add_argument("--wandb", action="store_true",
+                        help="log metrics to wandb too, if it is installed")
+    parser.add_argument("--assets_dir", default="./assets", type=str,
+                        help="output directory for figures and checkpoints")
+    parser.add_argument("--n_samples", default=10000, type=int,
+                        help="DGP sample count (10000 = reference; smaller "
+                             "for smoke tests)")
+    parser.add_argument("--eager", action="store_true",
+                        help="per-batch epoch driver that keeps the last "
+                             "partial batch (the reference's exact "
+                             "protocol)")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="cuda (default) or cpu")
+    for flag, why in _UNPORTED_FLAGS.items():
+        parser.add_argument(flag, action=_Unported, default=argparse.SUPPRESS,
+                            help=f"not supported: {why}")
+    return parser
+
+
+def add_resume_arg(parser: argparse.ArgumentParser):
+    parser.add_argument("--resume", default="", type=str,
+                        help="checkpoint directory to resume from (restores "
+                             "params + optimizer state + epoch)")
+    return parser
+
+
+def apply_resume(config: dict, state: tuple):
+    """Restore ``state = (model, optimizer)`` in place from ``--resume``.
+
+    Returns (state, start_epoch). Refuses a checkpoint already at or past
+    ``--epochs``. Reads JAX-written checkpoints as well as the port's.
+    """
+    if not config.get("resume"):
+        return state, 0
+    if len(state) != 2:
+        raise NotImplementedError(
+            "resuming the InfoMax (model, discriminator) state is not "
+            "ported yet: ROADMAP Queue 1 item 8")
+    from ..utils.checkpoint import load_checkpoint
+    from ..utils.interop import load_jax_opt_state, load_jax_params
+
+    ck = load_checkpoint(config["resume"])
+    start_epoch = int(ck["step"])
+    if start_epoch >= config.get("epochs", float("inf")):
+        raise ValueError(
+            f"--resume checkpoint is at epoch {start_epoch}, which is "
+            f"already >= --epochs {config['epochs']}; raising --epochs is "
+            "required to continue (running on would retrain from scratch "
+            "and overwrite the checkpoint's step metadata)")
+    model, optimizer = state
+    load_jax_params(model, ck["params"])
+    load_jax_opt_state(optimizer, model, ck["opt_state"])
+    print(f"resumed from {config['resume']} at epoch {start_epoch}")
+    return state, start_epoch
+
+
+def run_scanned_training(config, *, step, data, start_epoch=0, on_epoch=None,
+                         post_epoch=None, post_epoch_pred=None):
+    """The fixed-dataset training branch: ``train.loop.run_epochs`` over
+    ``data = (x, y)`` from ``start_epoch`` to ``config['epochs']``."""
+    x, y = data
+    return run_epochs(step, x, y, seed=config["seed"],
+                      epochs=config["epochs"],
+                      batch_size=config["batch_size"],
+                      start_epoch=start_epoch, on_epoch=on_epoch,
+                      post_epoch=post_epoch, post_epoch_pred=post_epoch_pred)
+
+
+def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
+                        on_epoch, sample_batch_builder, post_epoch=None,
+                        post_epoch_pred=None):
+    """The ``--online`` driver: epoch-equivalents of the reference
+    protocol's steps per epoch (from the DGP's train-split size), each a
+    run of fresh-batch steps; ``on_epoch`` gets the epoch's mean metrics
+    (keys sorted) after one host sync, and ``post_epoch(epoch)`` runs where
+    ``post_epoch_pred(epoch)`` holds."""
+    bs = config["batch_size"]
+    steps_per_epoch = max(train_split_size(config["n_samples"]) // bs, 1)
+    run = make_online_run_from_loss(loss_fn, optimizer,
+                                    sample_batch_builder(bs),
+                                    steps_per_epoch, seed=config["seed"],
+                                    device=device)
+    history = []
+    for epoch in range(start_epoch, config["epochs"]):
+        avg = Averager()
+        avg.add(run(epoch * steps_per_epoch))
+        metrics = avg.result()
+        on_epoch(epoch, metrics)
+        history.append(metrics)
+        if post_epoch is not None and (post_epoch_pred is None
+                                       or post_epoch_pred(epoch)):
+            post_epoch(epoch)
+    return history

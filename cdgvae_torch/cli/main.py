@@ -1,46 +1,45 @@
 """Pendulum training entry point, the supervised VAE/CDGVAE path of
-``cdgvae_tpu/cli/main.py`` with the same flag names and defaults, plus
-``--device``.
+``cdgvae_tpu/cli/main.py:109-334`` with the same flag names and defaults,
+plus ``--device``.
 
 Usage: python -m cdgvae_torch.cli.main --model CDGVAE --device cuda ...
 
-Trains on the rendered pendulum_real train split and prints one
-``[epoch NNN]`` line per epoch. Checkpoints, figures and the metric logger
-are not ported yet.
+Trains on the rendered pendulum_real train split (or, with ``--online``,
+on a fresh device-rendered batch every step), prints one ``[epoch NNN]``
+line per epoch, appends the epoch metrics to ``<assets_dir>/metrics.jsonl``,
+writes the recon figure every 10 epochs and ``recon.png`` at the end, and
+saves a checkpoint (the JAX package's layout) to
+``<assets_dir>/model_<model>_<scm>`` every 25 epochs and at the end.
+``--resume`` continues from a checkpoint of either package. ``--eager``
+runs the per-batch protocol that keeps the last partial batch.
+
+Not ported yet, and refused when asked for: InfoMax and
+``--labeled_ratio < 1`` (ROADMAP Queue 1 item 8), ``--data_dir`` (item 7,
+PNG trees), the wandb model artifact (items 7 and 8), and ``--platform``,
+``--dp`` and ``--profile`` (items 14 and 15).
 """
 from __future__ import annotations
 
 import argparse
-import ast
+import os
 
+import numpy as np
 import torch
 
 from ..data.pendulum import PendulumDataset
 from ..factory import build_pendulum_model
-from ..train.loop import format_epoch, run_epochs
+from ..train.loop import format_epoch, train_epoch
 from ..train.steps import make_optimizer, make_train_step
+from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
-from ..utils.simulation import set_random_seed
-
-
-def arg_as_list(s: str):
-    """Parse a Python-literal list flag."""
-    v = ast.literal_eval(s)
-    if type(v) is not list:
-        raise argparse.ArgumentTypeError(f'Argument "{s}" is not a list')
-    return v
-
-
-def arg_as_bool(s):
-    """Boolean flag parser that makes '--flag False' mean False."""
-    if isinstance(s, bool):
-        return s
-    v = s.strip().lower()
-    if v in ("true", "1", "yes", "y"):
-        return True
-    if v in ("false", "0", "no", "n"):
-        return False
-    raise argparse.ArgumentTypeError(f'expected a boolean, got "{s}"')
+from ..utils.interop import export_opt_state, export_params
+from ..utils.logging import MetricLogger
+from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
+                                derived_generator, set_random_seed)
+from ..utils.viz import viz_recon_grid
+from .common import (add_infra_args, add_resume_arg, apply_resume,
+                     arg_as_bool, arg_as_list, run_online_training,
+                     run_scanned_training)
 
 
 def get_args(argv=None):
@@ -59,6 +58,9 @@ def get_args(argv=None):
                         help="the number of inverse loop")
     parser.add_argument("--factor", default=[1, 1, 2], type=arg_as_list,
                         help="Numbers of latents allocated to each factor")
+    parser.add_argument("--labeled_ratio", default=1, type=float,
+                        help="ratio of labeled dataset for semi-supervised "
+                             "(only 1 is ported)")
     parser.add_argument("--label_normalization", default=True,
                         type=arg_as_bool,
                         help="If True, normalize additional label data")
@@ -79,38 +81,140 @@ def get_args(argv=None):
     parser.add_argument("--free_bits", default=0.0, type=float,
                         help="floor the per-dim KL at this many nats "
                              "(0 = the reference objective)")
-    parser.add_argument("--n_samples", default=10000, type=int,
-                        help="DGP sample count (10000 = reference; smaller "
-                             "for smoke tests)")
-    parser.add_argument("--device", default="cuda", type=str,
-                        help="cuda (default) or cpu")
+    parser.add_argument("--online", action="store_true",
+                        help="fresh-data-per-step training: every step "
+                             "draws a new batch from the pendulum_real DGP "
+                             "and renders it on the device")
+    parser.add_argument("--data_dir", default="", type=str,
+                        help="reference-format PNG dataset tree (not "
+                             "ported yet)")
+    add_resume_arg(parser)
+    add_infra_args(parser)
     return parser.parse_args(argv)
+
+
+def _refuse_unported(config: dict):
+    if config["model"] not in ("VAE", "CDGVAE"):
+        raise SystemExit(f"--model {config['model']} is not ported yet "
+                         "(InfoMax: ROADMAP Queue 1 item 8); this entry "
+                         "point trains VAE or CDGVAE")
+    if config["labeled_ratio"] < 1:
+        raise SystemExit("--labeled_ratio < 1 (semi-supervised) is not "
+                         "ported yet: ROADMAP Queue 1 item 8")
+    if config["data_dir"]:
+        raise SystemExit("--data_dir (a PNG dataset tree) is not ported "
+                         "yet: ROADMAP Queue 1 item 7")
+    if config["online"] and (config["eager"] or
+                             not config["label_normalization"]):
+        raise SystemExit("--online supports the scanned path on the "
+                         "synthetic DGP with full labels and "
+                         "label_normalization only")
 
 
 def main(argv=None):
     config = vars(get_args(argv))
-    if config["model"] not in ("VAE", "CDGVAE"):
-        raise SystemExit(f"--model {config['model']} is not ported yet; "
-                         "this entry point trains VAE or CDGVAE")
+    _refuse_unported(config)
+    config["spurious"] = False  # family marker for checkpoint loaders (api.py)
     device = resolve_device(config["device"])
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
+    seed, bs = config["seed"], config["batch_size"]
+    logger = MetricLogger(logdir=config["assets_dir"],
+                          use_wandb=config["wandb"], tags=["VAEBased"],
+                          config=config)
+    if config["wandb"]:
+        print("--wandb: metrics are logged; publishing the model artifact "
+              "is not ported yet (ROADMAP Queue 1 items 7 and 8)")
 
-    dataset = PendulumDataset(
-        image_size=config["image_size"], train=True,
-        label_normalization=config["label_normalization"],
-        seed=config["seed"], n=config["n_samples"], device=device)
-    model, _ = build_pendulum_model(config, device=device,
-                                    seed=config["seed"])
+    if not config["online"]:
+        dataset = PendulumDataset(
+            image_size=config["image_size"], train=True,
+            label_normalization=config["label_normalization"],
+            seed=seed, n=config["n_samples"], device=device)
+    model, _ = build_pendulum_model(config, device=device, seed=seed)
     optimizer = make_optimizer(model, config["lr"])
+    (model, optimizer), start_epoch = apply_resume(config,
+                                                   (model, optimizer))
+    shuffle_rng = np.random.default_rng(seed + start_epoch)
+    os.makedirs(config["assets_dir"], exist_ok=True)
+    ckpt = os.path.join(config["assets_dir"],
+                        f"model_{config['model']}_{config['scm']}")
+
+    # the viz batch: a training-batch-sized slice, or under --online one
+    # draw of the online DGP (a batch function of its own, so the
+    # trainer's image buffer never overwrites it)
+    if config["online"]:
+        from ..train.online import pendulum_batch_fn
+
+        def sample_builder(batch_size):
+            return pendulum_batch_fn(batch_size, config["image_size"],
+                                     norm_seed=seed,
+                                     norm_n=config["n_samples"],
+                                     device=device)
+        x_viz = sample_builder(bs)(
+            derived_generator(seed, VIZ_BATCH, device=device))[0]
+    else:
+        x_viz = dataset.x_data[:min(bs, len(dataset))]
+
+    def viz(path):
+        with torch.no_grad():
+            out = model(x_viz, generator=derived_generator(
+                seed, VIZ_NOISE, device=device), fast=True)
+        viz_recon_grid(out.xhat[:9].cpu().numpy(), path)
+
+    def save(step):
+        save_checkpoint(ckpt, export_params(model),
+                        opt_state=export_opt_state(optimizer, model),
+                        step=step, config=config)
+
+    def ckpt_due(epoch):
+        return (epoch + 1) % 25 == 0 and epoch + 1 < config["epochs"]
+
+    def viz_due(epoch):
+        return epoch % 10 == 0
+
+    def post_epoch(epoch):
+        if ckpt_due(epoch):
+            save(epoch + 1)
+        if viz_due(epoch):
+            viz(f"{config['assets_dir']}/tmp_image_{epoch}.png")
+
+    def on_epoch(epoch, metrics):
+        print(format_epoch(epoch, metrics), flush=True)
+        logger.log(metrics, step=epoch)
+
+    pred = lambda e: ckpt_due(e) or viz_due(e)  # noqa: E731
     step = make_train_step(model, optimizer, config["beta"],
                            config["lambda"], free_bits=config["free_bits"])
-    generator = torch.Generator(device=device).manual_seed(config["seed"])
-    return run_epochs(step, dataset.x_data, dataset.y_data, generator,
-                      epochs=config["epochs"],
-                      batch_size=config["batch_size"],
-                      on_epoch=lambda e, m: print(format_epoch(e, m),
-                                                  flush=True))
+    if config["online"]:
+        from ..train.scanned import make_supervised_loss_fn
+        run_online_training(
+            config, loss_fn=make_supervised_loss_fn(
+                model, config["beta"], config["lambda"],
+                free_bits=config["free_bits"]),
+            optimizer=optimizer, device=device, start_epoch=start_epoch,
+            on_epoch=on_epoch, sample_batch_builder=sample_builder,
+            post_epoch=post_epoch, post_epoch_pred=pred)
+    elif not config["eager"]:
+        run_scanned_training(
+            config, step=step, data=(dataset.x_data, dataset.y_data),
+            start_epoch=start_epoch, on_epoch=on_epoch,
+            post_epoch=post_epoch, post_epoch_pred=pred)
+    else:
+        for epoch in range(start_epoch, config["epochs"]):
+            metrics = train_epoch(step, dataset.x_data, dataset.y_data, bs,
+                                  derived_generator(seed, EPOCH, epoch,
+                                                    device=device),
+                                  shuffle_rng)
+            on_epoch(epoch, metrics)
+            post_epoch(epoch)
+
+    viz(f"{config['assets_dir']}/recon.png")
+    logger.log_image("reconstruction", f"{config['assets_dir']}/recon.png")
+    save(config["epochs"])
+    print(f"checkpoint saved to {ckpt}")
+    logger.finish()
+    return model, optimizer
 
 
 if __name__ == "__main__":

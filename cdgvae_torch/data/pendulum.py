@@ -20,13 +20,14 @@ FACTOR_NAMES = ["light", "angle", "length", "position", "target"]
 _BETA = np.array([1.0, -1.0, 0.5, -0.5])
 
 
-def shadow_physics(light_angle: np.ndarray, pendulum_angle: np.ndarray):
-    """Closed-form shadow length/position."""
+def shadow_physics(light_angle: np.ndarray, pendulum_angle: np.ndarray,
+                   xp=np):
+    """Closed-form shadow length/position; ``xp=torch`` for tensors."""
     cx, cy = CENTER
     l, b = ROD_LEN, GROUND
-    tip_x = cx + l * np.sin(pendulum_angle)
-    tip_y = cy - l * np.cos(pendulum_angle)
-    t = np.tan(light_angle)
+    tip_x = cx + l * xp.sin(pendulum_angle)
+    tip_y = cy - l * xp.cos(pendulum_angle)
+    t = xp.tan(light_angle)
     right = tip_x - (tip_y - b) / t
     left = cx - (cy - b) / t
     return right - left, (right + left) / 2.0

@@ -93,9 +93,17 @@ class VAE(nn.Module):
         xhat = self.decoder(latent, final_activation=torch.tanh)
         return xhat.reshape(-1, self.image_size, self.image_size, 3)
 
+    def decode_fast(self, latent: torch.Tensor) -> torch.Tensor:
+        """The images alone, as ``CDGVAE.decode_fast``; the VAE has no
+        per-block outputs to skip."""
+        return self.decode(latent)
+
     def forward(self, x: torch.Tensor, noise: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
-                deterministic: bool = False) -> VAEOutput:
+                deterministic: bool = False, fast: bool = False
+                ) -> VAEOutput:
+        """``fast`` is taken for a call common to both models and changes
+        nothing here."""
         mean, logvar, epsilon, orig_latent, latent, logdet = self.encode(
             x, noise, generator, deterministic)
         xhat = self.decode(latent)
@@ -111,8 +119,6 @@ class CDGVAE(nn.Module):
     dims feed each decoder block; defaults to the contiguous ``factor``
     split.
     """
-
-    supports_fast_decode = True  # train/steps._forward keys on this
 
     def __init__(self, graph: CausalGraph, masks, factor: Sequence[int],
                  image_size: int = 64, hidden: int = 300,

@@ -1,15 +1,19 @@
 """Causal latent layer: linear SEM solve + per-node flows.
 
-Port of ``cdgvae_tpu/ops/causal.py:36-108``:
+Port of ``cdgvae_tpu/ops/causal.py:36-151``:
 
     z_orig = eps @ (I - B)^{-1}          (linear SEM, solved in closed form)
     z      = f(z_orig)                    (per-node invertible 1-D flow)
 
+and the do-operator:
+
+    z_struct = flow^{-1}(z) with z[do] := value
+    for j != do (topological order): z_struct[:, j] = z_struct[:, :j] @ B[:j, j] + eps[:, j]
+    z_do = flow(z_struct)
+
 ``(I - B)^{-1}`` is computed once on the host in float64 and cast. The
 solve must run in full float32: callers keep
 ``torch.backends.cuda.matmul.allow_tf32`` False (the entry points set it).
-The do-operator (``ancestral_propagate``, ``do_intervention``) belongs to
-the eval slice and is not ported yet.
 """
 from __future__ import annotations
 
@@ -51,7 +55,14 @@ class CausalGraph(nn.Module):
         B = np.asarray(B, dtype=np.float64)
         if not is_dag(B):
             raise ValueError("B must be a DAG")
+        # ancestral_propagate needs the nodes in topological order (B
+        # strictly upper-triangular); checked when it runs, so that other
+        # DAGs still build
+        self.topo_ordered = bool(np.allclose(np.tril(B), 0.0))
         self.node = B.shape[0]
+        self.register_buffer("B", torch.as_tensor(B, dtype=torch.float32,
+                                                  device=device),
+                             persistent=False)
         self.register_buffer(
             "I_B_inv", torch.as_tensor(np.linalg.inv(np.eye(self.node) - B),
                                        dtype=torch.float32, device=device),
@@ -69,3 +80,41 @@ class CausalGraph(nn.Module):
     def inverse(self, latent: torch.Tensor) -> torch.Tensor:
         """latent [batch, node] -> pre-flow structural values."""
         return self.flows.inverse(latent)
+
+    def ancestral_propagate(self, z_struct: torch.Tensor, eps: torch.Tensor,
+                            do_index: int) -> torch.Tensor:
+        """Re-propagate the exogenous noise ``eps`` through the SEM, holding
+        column ``do_index`` of the structural values ``z_struct`` [batch,
+        node] fixed."""
+        if not self.topo_ordered:
+            raise ValueError(
+                "ancestral_propagate requires a topologically ordered "
+                "(strictly upper-triangular) B: column j may only depend on "
+                "columns < j. Reorder the nodes; a valid-but-unordered DAG "
+                "would silently drop its below-diagonal edges here.")
+        cols = list(z_struct.unbind(1))
+        for j in range(self.node):
+            if j == do_index:
+                continue
+            if j == 0:
+                cols[j] = eps[:, 0]
+            else:
+                parents = torch.stack(cols[:j], dim=1)
+                cols[j] = parents @ self.B[:j, j].to(parents.dtype) \
+                    + eps[:, j]
+        return torch.stack(cols, dim=1)
+
+    def do_intervention(self, latent: torch.Tensor, eps: torch.Tensor,
+                        do_index: int, value) -> torch.Tensor:
+        """do(z_{do_index} := value): inverse flow, ancestral
+        re-propagation, flow. ``do_index`` is a Python int; ``value`` a
+        scalar or a [batch] tensor. Returns the intervened latent [batch,
+        node]."""
+        value = torch.as_tensor(value, dtype=latent.dtype,
+                                device=latent.device)
+        latent_do = latent.clone()
+        latent_do[:, do_index] = value.expand(latent.shape[0])
+        z_struct = self.inverse(latent_do)
+        z_struct = self.ancestral_propagate(z_struct, eps, do_index)
+        z_do, _ = self.flows(z_struct)
+        return z_do

@@ -215,12 +215,16 @@ def _painted_coverages(factors: torch.Tensor, size: int):
 
 
 def render(factors: torch.Tensor, size: int = 64,
-           background: torch.Tensor | None = None) -> torch.Tensor:
+           background: torch.Tensor | None = None, *,
+           out: torch.Tensor | None = None) -> torch.Tensor:
     """Render on the tensor's device: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor. ``out``, if given, is a contiguous
+    float32 [B, size, size, 3] tensor that receives the images and is
+    returned."""
     if factors.device.type == "cuda":
         from .renderer_cuda import render_cuda
-        return render_cuda(factors, size, background)
+        return render_cuda(factors, size, background, out=out)
     if factors.device.type == "cpu":
-        return render_reference(factors, size, background)
+        img = render_reference(factors, size, background)
+        return img if out is None else out.copy_(img)
     raise ValueError(f"render: unsupported device {factors.device}")

@@ -2,10 +2,11 @@
 ``cdgvae_tpu/train/scanned.py:75-127,219-247``).
 
 The epoch runner keeps the semantics of ``make_scanned_epochs``: one
-permutation of the flat ``[n, 3·H·W]`` dataset per epoch from a device
-``torch.Generator``, the last partial batch dropped, metrics accumulated on
-the device and averaged per epoch with one host sync per epoch. Steps run
-as a plain Python loop.
+permutation of the flat ``[n, 3·H·W]`` dataset per epoch from the epoch's
+``torch.Generator`` (``train/loop.py::run_epochs`` derives it from the
+seed and the epoch), the last partial batch dropped, metrics accumulated
+on the device and averaged per epoch with one host sync per epoch. Steps
+run as a plain Python loop.
 """
 from __future__ import annotations
 
@@ -14,7 +15,29 @@ from typing import Callable
 import torch
 
 from ..ops import losses
-from .steps import _forward, _metrics
+from .steps import _metrics
+
+
+class Averager:
+    """Accumulates dicts of device tensors, each a step's scalar or a run's
+    [steps] stack; ``result()`` is the mean over every step added, in one
+    host sync, its keys sorted as JAX's pytree flattening orders them (and
+    so the JAX trainers' console lines and logs)."""
+
+    def __init__(self):
+        self._acc = []
+
+    def add(self, metrics: dict):
+        self._acc.append(metrics)
+
+    def result(self) -> dict:
+        if not self._acc:
+            return {}
+        keys = sorted(self._acc[0])
+        means = torch.stack([torch.cat([m[k].reshape(-1)
+                                        for m in self._acc]).mean()
+                             for k in keys])
+        return dict(zip(keys, means.tolist()))
 
 
 def make_supervised_loss_fn(model, beta: float, lam: float,
@@ -24,7 +47,7 @@ def make_supervised_loss_fn(model, beta: float, lam: float,
     node = model.node
 
     def loss_fn(x, y, noise=None, generator=None):
-        out = _forward(model, x, noise, generator)
+        out = model(x, noise=noise, generator=generator, fast=True)
         recon = losses.gaussian_recon(out.xhat, x)
         if free_bits > 0.0:
             kl = losses.kl_std_normal_free_bits(out.mean, out.logvar,
@@ -52,8 +75,9 @@ def make_epoch_runner(step_fn: Callable, batch_size: int) -> Callable:
     the counterpart of ``make_scanned_epochs``.
 
     Returns run(x, y, generator) -> the epoch's mean metrics as host
-    floats. ``x`` is [n, ...] items, ``y`` [n, .]; both on the generator's
-    device.
+    floats, keys sorted. ``x`` is [n, ...] items, ``y`` [n, .]; both on
+    the generator's device, which draws the permutation and then each
+    step's noise.
     """
 
     def run(x, y, generator: torch.Generator) -> dict:
@@ -64,13 +88,10 @@ def make_epoch_runner(step_fn: Callable, batch_size: int) -> Callable:
                 f"dataset ({n}) smaller than batch_size ({batch_size}); "
                 "clamp the batch size (train.loop.run_epochs does)")
         xf, item_shape = x.reshape(n, -1), x.shape[1:]
-        acc, keys = None, None
+        avg = Averager()
         for idx in epoch_batches(n, batch_size, generator):
             xi = xf[idx].reshape(batch_size, *item_shape)
-            metrics = step_fn(xi, y[idx], generator=generator)
-            vec = torch.stack(list(metrics.values()))
-            acc = vec if acc is None else acc + vec
-            keys = list(metrics)
-        return dict(zip(keys, (acc / steps).tolist()))  # the one host sync
+            avg.add(step_fn(xi, y[idx], generator=generator))
+        return avg.result()  # the one host sync
 
     return run

@@ -16,13 +16,6 @@ import torch
 from ..ops import losses
 
 
-def _forward(model, x, noise=None, generator=None):
-    """The model's fast (band-sliced) decode path when it has one."""
-    if getattr(model, "supports_fast_decode", False):
-        return model(x, noise=noise, generator=generator, fast=True)
-    return model(x, noise=noise, generator=generator)
-
-
 def _metrics(loss, recon, kl, align, logvar, node) -> dict:
     m = {"loss": loss, "recon": recon, "KL": kl, "alignment": align}
     pv = losses.posterior_variance(logvar)

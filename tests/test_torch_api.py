@@ -1,0 +1,106 @@
+"""The port's LoadedModel against the JAX package's on the same checkpoint:
+encode, reconstruct, counterfactual on every node (a scalar value, and a
+value per row against the JAX do-operator composed by hand, since the JAX
+API takes a scalar) and the generative path fed JAX's own noise; VAE and
+CDG-VAE, linear and nonlinear SCMs. 16 px, the factory's widths. Tolerance
+atol 1e-5, float32 on the CPU.
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+
+from cdgvae_tpu.api import LoadedModel as JLoadedModel
+from cdgvae_tpu.factory import build_pendulum_model
+from cdgvae_tpu.utils.checkpoint import save_checkpoint
+from cdgvae_torch.api import LoadedModel
+
+ATOL = 1e-5
+CFG = dict(model="CDGVAE", node=4, scm="linear", flow_num=1,
+           inverse_loop=100, factor=[1, 1, 2], image_size=16,
+           adjacency_scaling=True, spurious=False)
+
+
+def _checkpoint(tmp_path, cfg):
+    model, _ = build_pendulum_model(cfg)
+    params = model.init(jax.random.key(0))
+    ckpt = str(tmp_path / "ck")
+    save_checkpoint(ckpt, params, config=cfg)
+    return ckpt, model, params
+
+
+def _images(n, seed=0):
+    return np.tanh(np.random.default_rng(seed).normal(
+        size=(n, 16, 16, 3))).astype(np.float32)
+
+
+def _close(a, b):
+    np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("model,scm", [("CDGVAE", "linear"),
+                                       ("CDGVAE", "nonlinear"),
+                                       ("VAE", "linear"),
+                                       ("VAE", "nonlinear")])
+def test_loaded_model_matches_jax(tmp_path, model, scm):
+    cfg = dict(CFG, model=model, scm=scm)
+    ckpt, jmodel, params = _checkpoint(tmp_path, cfg)
+    jm = JLoadedModel.load(ckpt, bucket_batches=False)
+    tm = LoadedModel.load(ckpt, device="cpu")
+    x = _images(5)
+
+    _close(tm.encode(x), jm.encode(x))
+    _close(tm.reconstruct(x), jm.reconstruct(x))
+    per_row = np.linspace(-1.0, 1.5, 5).astype(np.float32)
+    _, _, eps, _, latent, _ = jmodel.encode(params, jnp.asarray(x),
+                                            deterministic=True)
+    for do_index in range(4):
+        _close(tm.counterfactual(x, do_index, 0.7),
+               jm.counterfactual(x, do_index=do_index, value=0.7))
+        z_do = jmodel.graph.do_intervention(params["causal"], latent, eps,
+                                            do_index, jnp.asarray(per_row))
+        dec = jmodel.decode(params, z_do)
+        want = dec[1] if isinstance(dec, tuple) else dec
+        _close(tm.counterfactual(x, do_index, per_row), np.asarray(want))
+
+    # JAX's sample(n, rng) draws eps = normal(rng, (n, node)); feed it
+    eps_j = np.asarray(jax.random.normal(jax.random.key(3), (6, 4)))
+    _close(tm.generate(eps_j), jm.sample(6, rng=jax.random.key(3)))
+    assert tm.sample(6).shape == (6, 16, 16, 3)
+
+
+def test_counterfactual_on_a_sink_leaves_the_light_band(tmp_path):
+    ckpt, _, _ = _checkpoint(tmp_path, CFG)
+    m = LoadedModel.load(ckpt, device="cpu")
+    x = _images(4)
+    xr = m.reconstruct(x)
+    xc = m.counterfactual(x, do_index=3, value=2.0)
+    bands = 16 * 20 // 64  # light rows at 16px
+    np.testing.assert_allclose(xc[:, :bands], xr[:, :bands], atol=1e-6)
+    # the root node's band does move (at 16 px the shadow band is empty,
+    # tests/test_torch_model.py::test_pendulum_masks_match_jax)
+    assert not np.allclose(m.counterfactual(x, do_index=0, value=2.0), xr)
+    # tensors in, numpy out
+    import torch
+    z = m.encode(torch.from_numpy(x))
+    assert isinstance(z, np.ndarray) and z.shape == (4, 4)
+
+
+@pytest.mark.parametrize("cfg,item", [
+    ({"model": "CDGVAE", "dataset": "loan"}, "item 12"),
+    ({"model": "TVAE", "dataset": "loan"}, "item 12"),
+    ({"model": "CDGVAE", "causal_structure": 0}, "item 13"),
+    (dict(CFG, node=5, factor=[1, 1, 3], spurious=True), "item 11"),
+    (dict(CFG, node=5, factor=[1, 1, 3]) | {"spurious": None}, "item 11"),
+])
+def test_unported_families_raise(tmp_path, cfg, item):
+    cfg = {k: v for k, v in cfg.items() if v is not None}
+    save_checkpoint(str(tmp_path / "ck"), {"w": np.ones(1)}, config=cfg)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        LoadedModel.load(str(tmp_path / "ck"), device="cpu")
+
+
+def test_mesh_serving_raises(tmp_path):
+    ckpt, _, _ = _checkpoint(tmp_path, CFG)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        LoadedModel.load(ckpt, device="cpu", mesh=object())

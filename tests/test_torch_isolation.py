@@ -1,5 +1,6 @@
 """The port stands alone: importing every cdgvae_torch module loads neither
-JAX, optax nor anything of cdgvae_tpu."""
+JAX, optax, matplotlib nor anything of cdgvae_tpu (the GPU machine has
+none of them)."""
 import json
 import subprocess
 import sys
@@ -15,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(cdgvae_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "optax", "cdgvae_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "cdgvae_tpu",
+                                    "matplotlib", "wandb"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -27,7 +29,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     for name in ("cdgvae_torch.cli.main", "cdgvae_torch.ops.renderer_cuda",
-                 "cdgvae_torch.train.scanned", "cdgvae_torch.utils.interop"):
+                 "cdgvae_torch.train.scanned", "cdgvae_torch.utils.interop",
+                 "cdgvae_torch.api", "cdgvae_torch.cli.common",
+                 "cdgvae_torch.train.online", "cdgvae_torch.train.loop",
+                 "cdgvae_torch.utils.checkpoint",
+                 "cdgvae_torch.utils.logging", "cdgvae_torch.utils.viz"):
         assert name in result["modules"]
 
 

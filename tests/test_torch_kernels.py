@@ -13,13 +13,21 @@ import numpy as np
 import pytest
 import torch
 
+from cdgvae_torch.api import LoadedModel
 from cdgvae_torch.data import pendulum
+from cdgvae_torch.factory import build_pendulum_model
 from cdgvae_torch.ops import _build, renderer_cuda
 from cdgvae_torch.ops.renderer import render, render_reference
 from cdgvae_torch.tools import render_split
+from cdgvae_torch.train import online
+from cdgvae_torch.utils.checkpoint import save_checkpoint
+from cdgvae_torch.utils.interop import export_params
 
 KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 5e-5, 1e-6
 MAX_SIZE_MAX_ABS = 2e-4  # at renderer_cuda.MAX_SIZE = 512 px
+# serving on the card against the CPU, TF32 off: the same float32 math,
+# summed in other orders by cuBLAS and the CPU's GEMMs
+SERVE_MAX_ABS = 1e-4
 
 
 def _factors(n, seed=1):
@@ -232,3 +240,55 @@ def test_render_split_builds_every_variant_at_once(tmp_path, monkeypatch):
 def test_render_split_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert render_split.main() == 1
+
+
+@pytest.mark.cuda
+def test_online_batch_renders_through_the_kernel(cuda_device):
+    sample = online.pendulum_batch_fn(128, 64, device=cuda_device)
+    before = renderer_cuda.launches
+    x, y = sample(torch.Generator(device=cuda_device).manual_seed(3))
+    torch.cuda.synchronize()
+    assert renderer_cuda.launches == before + 1
+    f = online.sample_factors_device(
+        torch.Generator(device=cuda_device).manual_seed(3), 128)
+    _assert_matches(x, render_reference(f[:, :4], 64))
+    assert y.shape == (128, 5) and y.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_online_step_reuses_one_image_buffer(cuda_device):
+    """Each draw renders into the batch function's one buffer: no new
+    full-size allocation per step."""
+    sample = online.pendulum_batch_fn(128, 64, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    first, _ = sample(g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    for _ in range(3):
+        x, _ = sample(g)
+        assert x.data_ptr() == first.data_ptr()
+    torch.cuda.synchronize()
+    images = 128 * 64 * 64 * 3 * 4
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < images // 8
+
+
+@pytest.mark.cuda
+def test_loaded_model_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    config = dict(model="CDGVAE", node=4, scm="linear", flow_num=1,
+                  inverse_loop=100, factor=[1, 1, 2], image_size=64,
+                  adjacency_scaling=True, spurious=False)
+    model, _ = build_pendulum_model(config, device="cpu", seed=0)
+    save_checkpoint(str(tmp_path / "ck"), export_params(model),
+                    config=config)
+    gpu = LoadedModel.load(str(tmp_path / "ck"), device=cuda_device)
+    cpu = LoadedModel.load(str(tmp_path / "ck"), device="cpu")
+    x = render_reference(_factors(7), 64).numpy()
+    eps = np.random.default_rng(0).standard_normal((7, 4)).astype(np.float32)
+    pairs = [(gpu.encode(x), cpu.encode(x)),
+             (gpu.reconstruct(x), cpu.reconstruct(x)),
+             (gpu.generate(eps), cpu.generate(eps))]
+    pairs += [(gpu.counterfactual(x, d, 0.5), cpu.counterfactual(x, d, 0.5))
+              for d in range(4)]
+    for got, want in pairs:
+        assert np.abs(got - want).max() <= SERVE_MAX_ABS

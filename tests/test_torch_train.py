@@ -199,8 +199,7 @@ def test_epoch_runner_semantics():
     # run_epochs clamps the batch size to the dataset: one full step/epoch
     seen.clear()
     lines = []
-    hist = tloop.run_epochs(step, x, y, torch.Generator(), epochs=2,
-                            batch_size=64,
+    hist = tloop.run_epochs(step, x, y, seed=0, epochs=2, batch_size=64,
                             on_epoch=lambda e, m: lines.append(e))
     assert lines == [0, 1] and len(hist) == 2
     assert [len(b) for b in seen] == [n, n]
@@ -220,9 +219,9 @@ def _cli(*args, timeout=240):
                           text=True, timeout=timeout)
 
 
-def test_cli_trains_on_cpu():
+def test_cli_trains_on_cpu(tmp_path):
     proc = _cli("--device", "cpu", "--image_size", "16", "--n_samples", "96",
-                "--epochs", "2")
+                "--epochs", "2", "--assets_dir", str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[epoch")]
     assert [ln[:11] for ln in lines] == ["[epoch 001]", "[epoch 002]"]
@@ -241,6 +240,8 @@ def test_cli_without_gpu_exits_nonzero():
 
 
 def test_cli_rejects_what_is_not_ported():
-    for args in (["--model", "InfoMax"], ["--online"]):
+    for args in (["--model", "InfoMax"], ["--labeled_ratio", "0.5"],
+                 ["--dp", "2"]):
         proc = _cli("--device", "cpu", *args)
         assert proc.returncode != 0 and "[epoch" not in proc.stdout
+        assert "ROADMAP Queue 1 item" in proc.stderr

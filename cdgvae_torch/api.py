@@ -29,8 +29,8 @@ from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
 from .utils.interop import load_jax_params
 
-# the JAX factory builds these names as the same model classes
-_MODEL_CLASS = {"InfoMax": "VAE", "CDGVAEsemi": "CDGVAE"}
+# an InfoMax checkpoint serves its VAE; the discriminator is not needed
+_MODEL_CLASS = {"InfoMax": "VAE"}
 
 
 def _unported_family(config: dict) -> str | None:

@@ -1,6 +1,7 @@
-"""Shared CLI plumbing for the pendulum CLI (port of the parts of
-``cdgvae_tpu/cli/common.py:17-143,204-337`` it uses): list and bool flag
-parsers, the infrastructure flags, ``--resume``, and the fixed-dataset and
+"""Shared CLI plumbing for the pendulum CLIs (port of the parts of
+``cdgvae_tpu/cli/common.py:17-143,204-372`` they use): list and bool flag
+parsers, the infrastructure flags, ``--resume`` (the InfoMax 4-tuple
+included), and the fixed-dataset (supervised and semi-supervised) and
 online training drivers, single device.
 """
 from __future__ import annotations
@@ -8,7 +9,7 @@ from __future__ import annotations
 import argparse
 import ast
 
-from ..train.loop import run_epochs
+from ..train.loop import run_epochs, run_epochs_semi
 from ..train.online import make_online_run_from_loss, train_split_size
 from ..train.scanned import Averager
 
@@ -20,6 +21,8 @@ _UNPORTED_FLAGS = {
             "item 14, data parallel)",
     "--profile": "the XLA trace is not ported yet (ROADMAP Queue 1 item "
                  "15, tooling: torch.profiler)",
+    "--data_dir": "reading a PNG dataset tree is not ported yet (ROADMAP "
+                  "Queue 1 item 7, with PNG export)",
 }
 
 
@@ -62,11 +65,29 @@ def add_infra_args(parser: argparse.ArgumentParser):
                         help="per-batch epoch driver that keeps the last "
                              "partial batch (the reference's exact "
                              "protocol)")
+    add_device_arg(parser)
+    for flag in ("--dp", "--profile"):
+        _add_unported(parser, flag)
+    return parser
+
+
+def _add_unported(parser: argparse.ArgumentParser, flag: str):
+    parser.add_argument(flag, action=_Unported, default=argparse.SUPPRESS,
+                        help=f"not supported: {_UNPORTED_FLAGS[flag]}")
+
+
+def add_png_data_dir_arg(parser: argparse.ArgumentParser):
+    """The reference's ``--data_dir`` (a PNG dataset tree), refused."""
+    _add_unported(parser, "--data_dir")
+    return parser
+
+
+def add_device_arg(parser: argparse.ArgumentParser):
+    """``--device`` alone, for the eval CLIs, with the reference's
+    ``--platform`` refused."""
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
-    for flag, why in _UNPORTED_FLAGS.items():
-        parser.add_argument(flag, action=_Unported, default=argparse.SUPPRESS,
-                            help=f"not supported: {why}")
+    _add_unported(parser, "--platform")
     return parser
 
 
@@ -78,17 +99,18 @@ def add_resume_arg(parser: argparse.ArgumentParser):
 
 
 def apply_resume(config: dict, state: tuple):
-    """Restore ``state = (model, optimizer)`` in place from ``--resume``.
+    """Restore ``state`` in place from ``--resume``: ``(model,
+    optimizer)``, or for InfoMax ``(model, discriminator, optimizer,
+    optimizer_d)``, whose discriminator and its Adam come from the
+    checkpoint's extras ``d_params`` and ``opt_state_d``.
 
     Returns (state, start_epoch). Refuses a checkpoint already at or past
-    ``--epochs``. Reads JAX-written checkpoints as well as the port's.
+    ``--epochs``, and an InfoMax resume from a checkpoint without the
+    discriminator's state. Reads JAX-written checkpoints as well as the
+    port's.
     """
     if not config.get("resume"):
         return state, 0
-    if len(state) != 2:
-        raise NotImplementedError(
-            "resuming the InfoMax (model, discriminator) state is not "
-            "ported yet: ROADMAP Queue 1 item 8")
     from ..utils.checkpoint import load_checkpoint
     from ..utils.interop import load_jax_opt_state, load_jax_params
 
@@ -100,7 +122,18 @@ def apply_resume(config: dict, state: tuple):
             f"already >= --epochs {config['epochs']}; raising --epochs is "
             "required to continue (running on would retrain from scratch "
             "and overwrite the checkpoint's step metadata)")
-    model, optimizer = state
+    # keyed on the state's arity, as the reference does
+    if len(state) == 4:
+        model, discriminator, optimizer, optimizer_d = state
+        ex = ck["extras"] or {}
+        if "d_params" not in ex or "opt_state_d" not in ex:
+            raise ValueError(
+                "--resume: this InfoMax checkpoint has no discriminator "
+                "state (saved by an older version); cannot resume")
+        load_jax_params(discriminator, ex["d_params"])
+        load_jax_opt_state(optimizer_d, discriminator, ex["opt_state_d"])
+    else:
+        model, optimizer = state
     load_jax_params(model, ck["params"])
     load_jax_opt_state(optimizer, model, ck["opt_state"])
     print(f"resumed from {config['resume']} at epoch {start_epoch}")
@@ -119,20 +152,39 @@ def run_scanned_training(config, *, step, data, start_epoch=0, on_epoch=None,
                       post_epoch=post_epoch, post_epoch_pred=post_epoch_pred)
 
 
+def run_scanned_training_semi(config, *, step, data, start_epoch=0,
+                              on_epoch=None):
+    """The semi-supervised fixed-dataset branch: ``train.loop.
+    run_epochs_semi`` over ``data = (x_u, x_l, y_l)``, each batch size
+    clamped to its stream."""
+    x_u, x_l, y_l = data
+    return run_epochs_semi(step, x_u, x_l, y_l, seed=config["seed"],
+                           epochs=config["epochs"],
+                           batch_size=config["batch_size"],
+                           batch_size_l=config["batch_sizeL"],
+                           start_epoch=start_epoch, on_epoch=on_epoch)
+
+
 def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
-                        on_epoch, sample_batch_builder, post_epoch=None,
-                        post_epoch_pred=None):
+                        on_epoch, sample_batch_builder, labeled=None,
+                        post_epoch=None, post_epoch_pred=None):
     """The ``--online`` driver: epoch-equivalents of the reference
     protocol's steps per epoch (from the DGP's train-split size), each a
     run of fresh-batch steps; ``on_epoch`` gets the epoch's mean metrics
     (keys sorted) after one host sync, and ``post_epoch(epoch)`` runs where
-    ``post_epoch_pred(epoch)`` holds."""
+    ``post_epoch_pred(epoch)`` holds. ``labeled=(x_l, y_l)`` switches to
+    the semi-supervised loss, ``batch_sizeL`` clamped to the labeled
+    rows."""
     bs = config["batch_size"]
     steps_per_epoch = max(train_split_size(config["n_samples"]) // bs, 1)
+    kw = {}
+    if labeled is not None:
+        kw = dict(labeled=labeled,
+                  batch_size_l=min(config["batch_sizeL"], len(labeled[0])))
     run = make_online_run_from_loss(loss_fn, optimizer,
                                     sample_batch_builder(bs),
                                     steps_per_epoch, seed=config["seed"],
-                                    device=device)
+                                    device=device, **kw)
     history = []
     for epoch in range(start_epoch, config["epochs"]):
         avg = Averager()

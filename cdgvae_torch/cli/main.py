@@ -1,22 +1,24 @@
-"""Pendulum training entry point, the supervised VAE/CDGVAE path of
-``cdgvae_tpu/cli/main.py:109-334`` with the same flag names and defaults,
+"""Pendulum training entry point, the VAE, InfoMax and CDGVAE paths of
+``cdgvae_tpu/cli/main.py:30-334`` with the same flag names and defaults,
 plus ``--device``.
 
 Usage: python -m cdgvae_torch.cli.main --model CDGVAE --device cuda ...
 
-Trains on the rendered pendulum_real train split (or, with ``--online``,
-on a fresh device-rendered batch every step), prints one ``[epoch NNN]``
-line per epoch, appends the epoch metrics to ``<assets_dir>/metrics.jsonl``,
-writes the recon figure every 10 epochs and ``recon.png`` at the end, and
-saves a checkpoint (the JAX package's layout) to
-``<assets_dir>/model_<model>_<scm>`` every 25 epochs and at the end.
-``--resume`` continues from a checkpoint of either package. ``--eager``
-runs the per-batch protocol that keeps the last partial batch.
+Trains on the rendered pendulum_real train split (cut to its first
+``--labeled_ratio`` share, or, with ``--online``, a fresh device-rendered
+batch every step), prints one ``[epoch NNN]`` line per epoch, appends the
+epoch metrics to ``<assets_dir>/metrics.jsonl``, writes the recon figure
+every 10 epochs and ``recon.png`` at the end, and saves a checkpoint (the
+JAX package's layout) to ``<assets_dir>/model_<model>_<scm>`` every 25
+epochs and at the end. InfoMax trains the VAE with the MI discriminator
+(its checkpoint carries ``extras={"d_params", "opt_state_d"}``) and, as in
+the reference, skips the mid-run checkpoints. ``--resume`` continues from
+a checkpoint of either package. ``--eager`` runs the per-batch protocol
+that keeps the last partial batch.
 
-Not ported yet, and refused when asked for: InfoMax and
-``--labeled_ratio < 1`` (ROADMAP Queue 1 item 8), ``--data_dir`` (item 7,
-PNG trees), the wandb model artifact (items 7 and 8), and ``--platform``,
-``--dp`` and ``--profile`` (items 14 and 15).
+Not ported yet, and refused when asked for: ``--data_dir`` (ROADMAP Queue
+1 item 7, PNG trees), the wandb model artifact (item 7), and
+``--platform``, ``--dp`` and ``--profile`` (items 14 and 15).
 """
 from __future__ import annotations
 
@@ -29,7 +31,9 @@ import torch
 from ..data.pendulum import PendulumDataset
 from ..factory import build_pendulum_model
 from ..train.loop import format_epoch, train_epoch
-from ..train.steps import make_optimizer, make_train_step
+from ..train.steps import (make_infomax_loss_fn, make_infomax_step,
+                           make_optimizer, make_train_step,
+                           pair_infomax_optimizer)
 from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.interop import export_opt_state, export_params
@@ -37,9 +41,9 @@ from ..utils.logging import MetricLogger
 from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
                                 derived_generator, set_random_seed)
 from ..utils.viz import viz_recon_grid
-from .common import (add_infra_args, add_resume_arg, apply_resume,
-                     arg_as_bool, arg_as_list, run_online_training,
-                     run_scanned_training)
+from .common import (add_infra_args, add_png_data_dir_arg, add_resume_arg,
+                     apply_resume, arg_as_bool, arg_as_list,
+                     run_online_training, run_scanned_training)
 
 
 def get_args(argv=None):
@@ -47,7 +51,7 @@ def get_args(argv=None):
     parser.add_argument("--seed", type=int, default=1,
                         help="seed for repeatable results")
     parser.add_argument("--model", type=str, default="CDGVAE",
-                        help="VAE based model options: VAE, CDGVAE")
+                        help="VAE based model options: VAE, InfoMax, CDGVAE")
     parser.add_argument("--node", default=4, type=int,
                         help="the number of nodes")
     parser.add_argument("--scm", default="linear", type=str,
@@ -59,8 +63,7 @@ def get_args(argv=None):
     parser.add_argument("--factor", default=[1, 1, 2], type=arg_as_list,
                         help="Numbers of latents allocated to each factor")
     parser.add_argument("--labeled_ratio", default=1, type=float,
-                        help="ratio of labeled dataset for semi-supervised "
-                             "(only 1 is ported)")
+                        help="ratio of labeled dataset for semi-supervised")
     parser.add_argument("--label_normalization", default=True,
                         type=arg_as_bool,
                         help="If True, normalize additional label data")
@@ -74,38 +77,34 @@ def get_args(argv=None):
                         help="batch size")
     parser.add_argument("--lr", default=0.001, type=float,
                         help="learning rate")
+    parser.add_argument("--lr_D", default=0.0001, type=float,
+                        help="learning rate for discriminator in InfoMax")
     parser.add_argument("--beta", default=0.1, type=float,
                         help="observation noise")
     parser.add_argument("--lambda", default=5, type=float,
                         help="weight of label alignment loss")
     parser.add_argument("--free_bits", default=0.0, type=float,
                         help="floor the per-dim KL at this many nats "
-                             "(0 = the reference objective)")
+                             "(0 = the reference objective; VAE/CDGVAE "
+                             "only)")
+    parser.add_argument("--gamma", default=1, type=float,
+                        help="weight of f-divergence (InfoMax)")
     parser.add_argument("--online", action="store_true",
                         help="fresh-data-per-step training: every step "
                              "draws a new batch from the pendulum_real DGP "
                              "and renders it on the device")
-    parser.add_argument("--data_dir", default="", type=str,
-                        help="reference-format PNG dataset tree (not "
-                             "ported yet)")
+    add_png_data_dir_arg(parser)
     add_resume_arg(parser)
     add_infra_args(parser)
     return parser.parse_args(argv)
 
 
-def _refuse_unported(config: dict):
-    if config["model"] not in ("VAE", "CDGVAE"):
-        raise SystemExit(f"--model {config['model']} is not ported yet "
-                         "(InfoMax: ROADMAP Queue 1 item 8); this entry "
-                         "point trains VAE or CDGVAE")
-    if config["labeled_ratio"] < 1:
-        raise SystemExit("--labeled_ratio < 1 (semi-supervised) is not "
-                         "ported yet: ROADMAP Queue 1 item 8")
-    if config["data_dir"]:
-        raise SystemExit("--data_dir (a PNG dataset tree) is not ported "
-                         "yet: ROADMAP Queue 1 item 7")
-    if config["online"] and (config["eager"] or
-                             not config["label_normalization"]):
+def _refuse_unsupported(config: dict):
+    if config["free_bits"] and config["model"] == "InfoMax":
+        raise SystemExit("--free_bits targets the supervised VAE/CDGVAE "
+                         "objective; the InfoMax path does not wire it")
+    if config["online"] and (config["eager"] or config["labeled_ratio"] < 1
+                             or not config["label_normalization"]):
         raise SystemExit("--online supports the scanned path on the "
                          "synthetic DGP with full labels and "
                          "label_normalization only")
@@ -113,28 +112,40 @@ def _refuse_unported(config: dict):
 
 def main(argv=None):
     config = vars(get_args(argv))
-    _refuse_unported(config)
+    _refuse_unsupported(config)
     config["spurious"] = False  # family marker for checkpoint loaders (api.py)
     device = resolve_device(config["device"])
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
     seed, bs = config["seed"], config["batch_size"]
+    infomax = config["model"] == "InfoMax"
     logger = MetricLogger(logdir=config["assets_dir"],
                           use_wandb=config["wandb"], tags=["VAEBased"],
                           config=config)
     if config["wandb"]:
         print("--wandb: metrics are logged; publishing the model artifact "
-              "is not ported yet (ROADMAP Queue 1 items 7 and 8)")
+              "is not ported yet (ROADMAP Queue 1 item 7)")
 
     if not config["online"]:
         dataset = PendulumDataset(
             image_size=config["image_size"], train=True,
+            labeled_ratio=config["labeled_ratio"],
             label_normalization=config["label_normalization"],
             seed=seed, n=config["n_samples"], device=device)
-    model, _ = build_pendulum_model(config, device=device, seed=seed)
+    model, discriminator = build_pendulum_model(config, device=device,
+                                                seed=seed)
     optimizer = make_optimizer(model, config["lr"])
-    (model, optimizer), start_epoch = apply_resume(config,
-                                                   (model, optimizer))
+    beta, lam = config["beta"], config["lambda"]
+    if infomax:
+        optimizer_d = make_optimizer(discriminator, config["lr_D"])
+        state = (model, discriminator, optimizer, optimizer_d)
+        step = make_infomax_step(model, discriminator, optimizer,
+                                 optimizer_d, beta, lam, config["gamma"])
+    else:
+        state = (model, optimizer)
+        step = make_train_step(model, optimizer, beta, lam,
+                               free_bits=config["free_bits"])
+    state, start_epoch = apply_resume(config, state)
     shuffle_rng = np.random.default_rng(seed + start_epoch)
     os.makedirs(config["assets_dir"], exist_ok=True)
     ckpt = os.path.join(config["assets_dir"],
@@ -163,9 +174,14 @@ def main(argv=None):
         viz_recon_grid(out.xhat[:9].cpu().numpy(), path)
 
     def save(step):
+        extras = None
+        if infomax:
+            extras = {"d_params": export_params(discriminator),
+                      "opt_state_d": export_opt_state(optimizer_d,
+                                                      discriminator)}
         save_checkpoint(ckpt, export_params(model),
                         opt_state=export_opt_state(optimizer, model),
-                        step=step, config=config)
+                        step=step, config=config, extras=extras)
 
     def ckpt_due(epoch):
         return (epoch + 1) % 25 == 0 and epoch + 1 < config["epochs"]
@@ -174,7 +190,9 @@ def main(argv=None):
         return epoch % 10 == 0
 
     def post_epoch(epoch):
-        if ckpt_due(epoch):
+        # the reference skips InfoMax's mid-run checkpoints (its hook sees
+        # only the model's state); the final one carries the extras
+        if ckpt_due(epoch) and not infomax:
             save(epoch + 1)
         if viz_due(epoch):
             viz(f"{config['assets_dir']}/tmp_image_{epoch}.png")
@@ -184,17 +202,21 @@ def main(argv=None):
         logger.log(metrics, step=epoch)
 
     pred = lambda e: ckpt_due(e) or viz_due(e)  # noqa: E731
-    step = make_train_step(model, optimizer, config["beta"],
-                           config["lambda"], free_bits=config["free_bits"])
     if config["online"]:
-        from ..train.scanned import make_supervised_loss_fn
+        if infomax:
+            loss_fn = make_infomax_loss_fn(model, discriminator, beta, lam,
+                                           config["gamma"])
+            opt = pair_infomax_optimizer(optimizer, optimizer_d)
+        else:
+            from ..train.scanned import make_supervised_loss_fn
+            loss_fn = make_supervised_loss_fn(model, beta, lam,
+                                              free_bits=config["free_bits"])
+            opt = optimizer
         run_online_training(
-            config, loss_fn=make_supervised_loss_fn(
-                model, config["beta"], config["lambda"],
-                free_bits=config["free_bits"]),
-            optimizer=optimizer, device=device, start_epoch=start_epoch,
-            on_epoch=on_epoch, sample_batch_builder=sample_builder,
-            post_epoch=post_epoch, post_epoch_pred=pred)
+            config, loss_fn=loss_fn, optimizer=opt, device=device,
+            start_epoch=start_epoch, on_epoch=on_epoch,
+            sample_batch_builder=sample_builder, post_epoch=post_epoch,
+            post_epoch_pred=pred)
     elif not config["eager"]:
         run_scanned_training(
             config, step=step, data=(dataset.x_data, dataset.y_data),
@@ -214,7 +236,7 @@ def main(argv=None):
     save(config["epochs"])
     print(f"checkpoint saved to {ckpt}")
     logger.finish()
-    return model, optimizer
+    return state
 
 
 if __name__ == "__main__":

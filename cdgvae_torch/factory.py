@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.classifier import Discriminator
 from .models.vae import CDGVAE, VAE, pendulum_masks
 from .ops.causal import CausalGraph, scale_adjacency
 from .utils.device import resolve_device
@@ -31,16 +32,13 @@ def build_graph(config: dict, B: np.ndarray, *,
 def build_pendulum_model(config: dict, spurious: bool = False, *,
                          device="cuda", seed: int = 0):
     """Build the pendulum-family model named by ``config['model']`` on
-    ``device``, with weights drawn from ``seed``. Returns (model, None)."""
+    ``device``, with weights drawn from ``seed``. Returns (model,
+    discriminator), the discriminator for InfoMax and None otherwise."""
     if spurious:
         raise NotImplementedError(
             "the DR wiring (spurious=True) is not ported yet: ROADMAP "
             "Queue 1 item 11 (DR family)")
     name = config["model"]
-    if name == "InfoMax":
-        raise NotImplementedError(
-            "InfoMax is not ported yet: ROADMAP Queue 1 item 8 "
-            "(semi-supervised and InfoMax)")
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     node = config["node"]
@@ -48,10 +46,14 @@ def build_pendulum_model(config: dict, spurious: bool = False, *,
     B = pendulum_B(node, config.get("adjacency_scaling", True))
     graph = build_graph(config, B, generator=generator, device=device)
 
-    if name == "VAE":
-        return VAE(graph, image_size=image_size, generator=generator,
-                   device=device), None
-    if name == "CDGVAE":
+    if name in ("VAE", "InfoMax"):
+        model = VAE(graph, image_size=image_size, generator=generator,
+                    device=device)
+        disc = (Discriminator(node, image_size=image_size,
+                              generator=generator, device=device)
+                if name == "InfoMax" else None)
+        return model, disc
+    if name in ("CDGVAE", "CDGVAEsemi"):
         factor = config["factor"]
         masks = pendulum_masks(image_size, k=len(factor))
         return CDGVAE(graph, masks, factor, image_size=image_size,

@@ -8,6 +8,10 @@ feature axes, mean over batch):
 * ``kl_std_normal_free_bits``  per-dim batch-mean KL floored at free_bits
 * ``alignment_bce``     per-node BCE-with-logits summed over nodes, batch
                         mean, in the stable logits form (not sigmoid + BCE)
+* ``clipped_bce_probs`` elementwise BCE in probability space, clipped to
+                        [eps, 1 - eps] (torch ``BCELoss`` on sigmoid
+                        outputs; deliberately not ``stable_bce``)
+* ``infomax_mi``        the negative f-divergence MI bound of InfoMax
 * ``posterior_variance`` per-node mean posterior variance
 """
 from __future__ import annotations
@@ -42,6 +46,20 @@ def alignment_bce(align_latent: torch.Tensor,
                   labels: torch.Tensor) -> torch.Tensor:
     z = align_latent.float()
     return stable_bce(z, labels.to(z.dtype)).sum(dim=1).mean()
+
+
+def clipped_bce_probs(p: torch.Tensor, y: torch.Tensor,
+                      eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise ``-(y log p + (1 - y) log(1 - p))`` with ``p`` clipped
+    to [eps, 1 - eps]; its gradient saturates under the clip."""
+    p = torch.clamp(p, eps, 1.0 - eps)
+    return -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+
+
+def infomax_mi(d_joint: torch.Tensor, d_marginal: torch.Tensor
+               ) -> torch.Tensor:
+    """MI = -(E[D(x, eps)] - E[exp(D(x, eps_marginal) - 1)])."""
+    return -(d_joint.mean() - torch.exp(d_marginal - 1.0).mean())
 
 
 def posterior_variance(logvar: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Epoch drivers and the console line (port of ``cdgvae_tpu/train/
-loop.py:17-64,103-179``).
+loop.py:17-100,103-191``).
 
 ``run_epochs`` is the port's ``run_scanned_chunks``: the fixed-shape
 epoch runner (``train/scanned.py``), the batch size clamped to the
@@ -11,8 +11,8 @@ ends a "chunk". Epoch e shuffles and draws its noise from a generator
 derived from ``(seed, e)``, so a run resumed at epoch k continues as the
 uninterrupted run would.
 
-``train_epoch`` is the eager per-batch protocol (``--eager``): a numpy
-shuffle, the last partial batch kept.
+``train_epoch`` and ``train_epoch_semi`` are the eager per-batch protocol
+(``--eager``): a numpy shuffle, the last partial batch kept.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.simulation import EPOCH, derived_generator
-from .scanned import Averager, make_epoch_runner
+from .scanned import Averager, make_epoch_runner, make_scanned_epochs_semi
 
 
 def format_epoch(epoch: int, metrics: dict) -> str:
@@ -51,6 +51,48 @@ def train_epoch(step: Callable, x, y, batch_size: int,
     return avg.result()
 
 
+def train_epoch_semi(step: Callable, x_u, x_l, y_l, batch_size: int,
+                     batch_size_l: int, generator: torch.Generator,
+                     shuffle_rng: np.random.Generator) -> dict:
+    """One semi-supervised epoch of ``step(x_u, x_l, y_l, generator=...)``
+    over the unlabeled batches, cycling the labeled ones with a reshuffle
+    when they run out; short batches are kept. As in the reference each
+    permutation is drawn from ``shuffle_rng`` at its stream's first batch:
+    the unlabeled one, then the labeled one, then each labeled reshuffle.
+    Returns the epoch-mean metrics (keys sorted)."""
+    avg = Averager()
+    labeled_iter = batch_indices(len(x_l), batch_size_l, shuffle_rng)
+    for idx_u in batch_indices(len(x_u), batch_size, shuffle_rng):
+        try:
+            idx_l = next(labeled_iter)
+        except StopIteration:
+            labeled_iter = batch_indices(len(x_l), batch_size_l, shuffle_rng)
+            idx_l = next(labeled_iter)
+        idx_u = torch.as_tensor(idx_u, device=x_u.device)
+        idx_l = torch.as_tensor(idx_l, device=x_l.device)
+        avg.add(step(x_u[idx_u], x_l[idx_l], y_l[idx_l], generator=generator))
+    return avg.result()
+
+
+def _drive(run: Callable, data: tuple, *, seed: int, epochs: int,
+           start_epoch: int, on_epoch: Callable | None,
+           post_epoch: Callable | None,
+           post_epoch_pred: Callable | None) -> list[dict]:
+    """Epochs ``start_epoch .. epochs - 1`` of ``run(*data, generator)``,
+    each with the generator derived from ``(seed, epoch)``."""
+    history = []
+    for epoch in range(start_epoch, epochs):
+        metrics = run(*data, derived_generator(seed, EPOCH, epoch,
+                                               device=data[0].device))
+        if on_epoch is not None:
+            on_epoch(epoch, metrics)
+        history.append(metrics)
+        if post_epoch is not None and (post_epoch_pred is None
+                                       or post_epoch_pred(epoch)):
+            post_epoch(epoch)
+    return history
+
+
 def run_epochs(step: Callable, x, y, *, seed: int, epochs: int,
                batch_size: int, start_epoch: int = 0,
                on_epoch: Callable | None = None,
@@ -62,16 +104,23 @@ def run_epochs(step: Callable, x, y, *, seed: int, epochs: int,
     epoch without a predicate), when the model and optimizer that ``step``
     updates in place hold the exact post-epoch state. A dataset smaller
     than ``batch_size`` trains one full-dataset step per epoch. Returns
-    the per-epoch metric dicts."""
+    the per-epoch metric dicts. The InfoMax step updates its model and
+    discriminator in place, so it runs here as any step does."""
     run = make_epoch_runner(step, batch_size=min(batch_size, len(x)))
-    history = []
-    for epoch in range(start_epoch, epochs):
-        metrics = run(x, y, derived_generator(seed, EPOCH, epoch,
-                                              device=x.device))
-        if on_epoch is not None:
-            on_epoch(epoch, metrics)
-        history.append(metrics)
-        if post_epoch is not None and (post_epoch_pred is None
-                                       or post_epoch_pred(epoch)):
-            post_epoch(epoch)
-    return history
+    return _drive(run, (x, y), seed=seed, epochs=epochs,
+                  start_epoch=start_epoch, on_epoch=on_epoch,
+                  post_epoch=post_epoch, post_epoch_pred=post_epoch_pred)
+
+
+def run_epochs_semi(step: Callable, x_u, x_l, y_l, *, seed: int,
+                    epochs: int, batch_size: int, batch_size_l: int,
+                    start_epoch: int = 0,
+                    on_epoch: Callable | None = None) -> list[dict]:
+    """:func:`run_epochs` for the two-stream semi-supervised runner
+    (``train/scanned.py::make_scanned_epochs_semi``), each batch size
+    clamped to its stream."""
+    run = make_scanned_epochs_semi(step, min(batch_size, len(x_u)),
+                                   min(batch_size_l, len(x_l)))
+    return _drive(run, (x_u, x_l, y_l), seed=seed, epochs=epochs,
+                  start_epoch=start_epoch, on_epoch=on_epoch,
+                  post_epoch=None, post_epoch_pred=None)

@@ -19,8 +19,10 @@ reference.
 Step i of a run draws its data and its noise from a generator derived from
 ``(seed, i)``, so a run resumed at a step continues as the uninterrupted
 run would. Nothing in a step waits for the device or copies to it:
-metrics stay on it until the caller reads them. Semi-supervised, DR and sharded online
-training are not ported yet (ROADMAP Queue 1 items 8, 11 and 14).
+metrics stay on it until the caller reads them. The semi-supervised
+trainer takes a fresh unlabeled batch every step and a subsample of a
+labeled set that lies on the device. DR and sharded online training are
+not ported yet (ROADMAP Queue 1 items 11 and 14).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from ..data.pendulum import _BETA, sample_factors_real, shadow_physics
 from ..ops.renderer import render
 from ..utils.simulation import ONLINE_STEP, derived_seed
 from .scanned import make_supervised_loss_fn
+from .steps import step_from_loss
 
 _BETA_F = tuple(float(b) for b in _BETA)
 
@@ -140,32 +143,47 @@ def pendulum_batch_fn(batch_size: int, image_size: int = 64,
     return sample
 
 
-def make_online_run_from_loss(loss_fn: Callable,
-                              optimizer: torch.optim.Optimizer,
+def make_online_run_from_loss(loss_fn: Callable, optimizer,
                               sample_batch: Callable,
                               n_steps_per_call: int, *, seed: int,
-                              device: str | torch.device) -> Callable:
+                              device: str | torch.device,
+                              labeled: tuple | None = None,
+                              batch_size_l: int = 0) -> Callable:
     """Online trainer for a supervised ``loss_fn(x, y, generator=...) ->
-    (loss, metrics)`` over the model that ``optimizer`` updates.
+    (loss, metrics)`` over the models that ``optimizer`` updates (the
+    InfoMax pair through ``steps.pair_infomax_optimizer``), or with
+    ``labeled=(x_l, y_l)`` on ``device`` for the semi-supervised
+    ``loss_fn(x_u, x_l, y_l, generator=...)``.
 
     Returns ``run(step0) -> per-step metrics``: steps ``step0 ..
-    step0 + n_steps_per_call - 1``, each a fresh ``sample_batch`` draw,
-    forward, backward and optimizer step, with data and noise drawn from
-    the generator derived from ``(seed, step)``. The metrics come back as
-    device tensors [n_steps_per_call] keyed like ``loss_fn``'s, unsynced.
+    step0 + n_steps_per_call - 1``, each a fresh ``sample_batch`` draw
+    (semi: its images are the unlabeled batch, and ``batch_size_l`` rows
+    of the labeled set are drawn without replacement), forward, backward
+    and optimizer step, with data and noise drawn from the generator
+    derived from ``(seed, step)``. The metrics come back as device tensors
+    [n_steps_per_call] keyed like ``loss_fn``'s, unsynced.
     """
+    if labeled is not None and not 0 < batch_size_l <= len(labeled[0]):
+        raise ValueError(
+            f"labeled set ({len(labeled[0])} rows) cannot give a labeled "
+            f"batch of {batch_size_l}; lower batch_sizeL or use more "
+            "labeled data")
     generator = torch.Generator(device=device)
+    step = step_from_loss(loss_fn, optimizer)
 
     def run(step0: int) -> dict:
         per_step = []
-        for step in range(step0, step0 + n_steps_per_call):
-            generator.manual_seed(derived_seed(seed, ONLINE_STEP, step))
+        for i in range(step0, step0 + n_steps_per_call):
+            generator.manual_seed(derived_seed(seed, ONLINE_STEP, i))
             x, y = sample_batch(generator)
-            loss, metrics = loss_fn(x, y, generator=generator)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
-            per_step.append({k: v.detach() for k, v in metrics.items()})
+            if labeled is None:
+                batch = (x, y)
+            else:
+                x_l, y_l = labeled
+                idx = torch.randperm(len(x_l), generator=generator,
+                                     device=generator.device)[:batch_size_l]
+                batch = (x, x_l[idx], y_l[idx])
+            per_step.append(step(*batch, generator=generator))
         return {k: torch.stack([m[k] for m in per_step])
                 for k in per_step[0]}
 

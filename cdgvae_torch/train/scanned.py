@@ -1,7 +1,8 @@
-"""The supervised loss and the epoch runner (port of
-``cdgvae_tpu/train/scanned.py:75-127,219-247``).
+"""The supervised loss and the epoch runners (port of
+``cdgvae_tpu/train/scanned.py:75-199,219-247``).
 
-The epoch runner keeps the semantics of ``make_scanned_epochs``: one
+The epoch runners keep the semantics of ``make_scanned_epochs`` and
+``make_scanned_epochs_semi``: one
 permutation of the flat ``[n, 3·H·W]`` dataset per epoch from the epoch's
 ``torch.Generator`` (``train/loop.py::run_epochs`` derives it from the
 seed and the epoch), the last partial batch dropped, metrics accumulated
@@ -92,6 +93,53 @@ def make_epoch_runner(step_fn: Callable, batch_size: int) -> Callable:
         for idx in epoch_batches(n, batch_size, generator):
             xi = xf[idx].reshape(batch_size, *item_shape)
             avg.add(step_fn(xi, y[idx], generator=generator))
+        return avg.result()  # the one host sync
+
+    return run
+
+
+def labeled_batches(n_l: int, steps: int, batch_size_l: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    """An epoch's labeled indices as [steps, batch_size_l]: ``ceil(steps ·
+    batch_size_l / n_l)`` permutations of ``n_l`` concatenated and cut, so
+    every batch is full and the stream reshuffles when it runs out."""
+    need = steps * batch_size_l
+    perms = [torch.randperm(n_l, generator=generator, device=generator.device)
+             for _ in range(-(-need // n_l))]
+    return torch.cat(perms)[:need].reshape(steps, batch_size_l)
+
+
+def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
+                             batch_size_l: int) -> Callable:
+    """Semi-supervised epoch runner, the counterpart of
+    ``make_scanned_epochs_semi``: the unlabeled stream drives the epoch and
+    drops its remainder; the labeled stream cycles through
+    :func:`labeled_batches`, so every labeled batch is exactly
+    ``batch_size_l``. The epoch's generator draws the unlabeled
+    permutation, then the labeled ones, then each step's noise.
+
+    ``step_fn(x_u, x_l, y_l, generator=...) -> metrics``. Returns
+    run(x_u, x_l, y_l, generator) -> the epoch's mean metrics as host
+    floats, keys sorted. Use ``train.loop.train_epoch_semi`` (``--eager``)
+    for the reference's protocol with short batches.
+    """
+
+    def run(x_u, x_l, y_l, generator: torch.Generator) -> dict:
+        n_u, n_l = x_u.shape[0], x_l.shape[0]
+        steps = n_u // batch_size
+        if steps == 0 or n_l < batch_size_l:
+            raise ValueError(
+                f"streams too small (unlabeled {n_u} vs batch {batch_size}; "
+                f"labeled {n_l} vs batch {batch_size_l}); clamp the batch "
+                "sizes or use the eager train_epoch_semi")
+        xf_u, xf_l = x_u.reshape(n_u, -1), x_l.reshape(n_l, -1)
+        idx_u = epoch_batches(n_u, batch_size, generator)
+        idx_l = labeled_batches(n_l, steps, batch_size_l, generator)
+        avg = Averager()
+        for iu, il in zip(idx_u, idx_l):
+            avg.add(step_fn(xf_u[iu].reshape(batch_size, *x_u.shape[1:]),
+                            xf_l[il].reshape(batch_size_l, *x_l.shape[1:]),
+                            y_l[il], generator=generator))
         return avg.result()  # the one host sync
 
     return run

@@ -1,11 +1,15 @@
-"""Supervised train step for the pendulum family (port of
-``cdgvae_tpu/train/steps.py:28-98``).
+"""Train steps for the pendulum family (port of ``cdgvae_tpu/train/
+steps.py:28-265``): supervised, InfoMax and semi-supervised.
 
-The step runs forward, loss, backward and the Adam update in place on the
-model and optimizer it closes over. Metrics come back as device scalars
-keyed exactly like the reference's log dict (``loss, recon, KL, alignment,
-posterior_variance1..node``); the epoch runner accumulates them on the
-device and syncs once per epoch.
+A step runs forward, loss, backward and the optimizer update in place on
+the models and optimizer it closes over. Metrics come back as device
+scalars keyed exactly like the reference's log dict (``loss, recon, KL,
+alignment, [MutualInfo,] posterior_variance1..node``); the epoch runner
+accumulates them on the device and syncs once per epoch.
+
+Every stochastic input is either given (``noise=``, and for InfoMax the
+marginal's ``perm=``/``shift=``) or drawn from the step's
+``torch.Generator``, so a test can hand both packages the same draws.
 """
 from __future__ import annotations
 
@@ -16,8 +20,10 @@ import torch
 from ..ops import losses
 
 
-def _metrics(loss, recon, kl, align, logvar, node) -> dict:
+def _metrics(loss, recon, kl, align, logvar, node, extra=None) -> dict:
     m = {"loss": loss, "recon": recon, "KL": kl, "alignment": align}
+    if extra:
+        m.update(extra)
     pv = losses.posterior_variance(logvar)
     for i in range(node):
         m[f"posterior_variance{i + 1}"] = pv[i]
@@ -31,6 +37,21 @@ def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
                             eps=1e-8)
 
 
+def step_from_loss(loss_fn: Callable, optimizer) -> Callable:
+    """``step(*batch, **draws) -> metrics``: ``loss_fn(*batch, **draws) ->
+    (loss, metrics)``, backward, and one ``optimizer.step()``; the metrics
+    come back as detached device scalars."""
+
+    def step(*batch, **draws):
+        loss, metrics = loss_fn(*batch, **draws)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
 def make_train_step(model, optimizer: torch.optim.Optimizer, beta: float,
                     lam: float, free_bits: float = 0.0) -> Callable:
     """Supervised VAE/CDG-VAE step.
@@ -40,13 +61,133 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, beta: float,
     """
     from .scanned import make_supervised_loss_fn
 
-    loss_fn = make_supervised_loss_fn(model, beta, lam, free_bits=free_bits)
+    return step_from_loss(make_supervised_loss_fn(model, beta, lam,
+                                                  free_bits=free_bits),
+                          optimizer)
 
-    def step(x, y, noise=None, generator=None):
-        loss, metrics = loss_fn(x, y, noise=noise, generator=generator)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
 
-    return step
+def marginal_epsilon(epsilon: torch.Tensor, mode: str = "permutation", *,
+                     perm: torch.Tensor | None = None, shift=None,
+                     generator: torch.Generator | None = None
+                     ) -> torch.Tensor:
+    """Mismatch eps against x for the InfoMax marginal term.
+
+    ``"permutation"``: the rows of ``epsilon`` in the order ``perm`` (drawn
+    from ``generator`` when not given). ``"roll"``: a cyclic shift by
+    ``shift`` rows, 1..B-1 (drawn when not given), which never pairs a row
+    with its own eps. The roll is a gather, so a device ``shift`` needs no
+    host sync.
+    """
+    n, dev = epsilon.shape[0], epsilon.device
+    if mode == "roll":
+        if n < 2:
+            raise ValueError(
+                "InfoMax marginal needs a local batch of >= 2 (got "
+                f"{n}); raise batch_size or lower the device count")
+        if shift is None:
+            shift = torch.randint(1, n, (), generator=generator, device=dev)
+        return epsilon[(torch.arange(n, device=dev) - shift) % n]
+    if mode != "permutation":
+        raise ValueError(f"unknown marginal mode {mode!r}")
+    if perm is None:
+        perm = torch.randperm(n, generator=generator, device=dev)
+    return epsilon[perm]
+
+
+def make_infomax_loss_fn(model, discriminator, beta: float, lam: float,
+                         gamma: float,
+                         marginal: str = "permutation") -> Callable:
+    """InfoMax joint loss over the model and the discriminator, as
+    ``loss_fn(x, y, noise=None, perm=None, shift=None, generator=None) ->
+    (grad_target, metrics)``.
+
+    The reference calls ``loss.backward(retain_graph=True)`` and then
+    ``MI.backward()``, so both the model and the discriminator accumulate
+    (gamma + 1)·dMI: the gradient target is ``recon + β·KL + λ·align +
+    (γ+1)·MI``, while the logged ``loss`` carries γ·MI. The noise is drawn
+    before the marginal's permutation.
+    """
+    node = model.node
+
+    def loss_fn(x, y, noise=None, perm=None, shift=None, generator=None):
+        out = model(x, noise=noise, generator=generator)
+        recon = losses.gaussian_recon(out.xhat, x)
+        kl = losses.kl_std_normal(out.mean, out.logvar)
+        align = losses.alignment_bce(out.align_latent, y[:, :node])
+        d_joint = discriminator(x, out.epsilon)
+        d_marginal = discriminator(x, marginal_epsilon(
+            out.epsilon, marginal, perm=perm, shift=shift,
+            generator=generator))
+        mi = losses.infomax_mi(d_joint, d_marginal)
+        ref_loss = recon + beta * kl + lam * align + gamma * mi
+        metrics = _metrics(ref_loss, recon, kl, align, out.logvar, node,
+                           {"MutualInfo": mi})
+        return ref_loss + mi, metrics  # + mi: the extra MI.backward()
+
+    return loss_fn
+
+
+class _PairOptimizer:
+    """Two optimizers driven as one: ``zero_grad`` and ``step`` go to
+    both. Each keeps its own learning rate and state."""
+
+    def __init__(self, optimizer, optimizer_d):
+        self.optimizers = (optimizer, optimizer_d)
+
+    def zero_grad(self, set_to_none: bool = True):
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        for opt in self.optimizers:
+            opt.step()
+
+
+def pair_infomax_optimizer(optimizer: torch.optim.Optimizer,
+                           optimizer_d: torch.optim.Optimizer
+                           ) -> _PairOptimizer:
+    """The (model, discriminator) Adams as one optimizer, so the InfoMax
+    pair rides any single-optimizer runner (the online trainer among
+    them); the update equals stepping each apart."""
+    return _PairOptimizer(optimizer, optimizer_d)
+
+
+def make_infomax_step(model, discriminator,
+                      optimizer: torch.optim.Optimizer,
+                      optimizer_d: torch.optim.Optimizer,
+                      beta: float, lam: float, gamma: float) -> Callable:
+    """InfoMax step ``step(x, y, noise=None, perm=None, generator=None) ->
+    metrics`` (see :func:`make_infomax_loss_fn` for the gradient). It
+    updates both models in place, so it already has the single-state
+    shape of the reference's ``pair_infomax_step``: the epoch runners
+    drive it as they drive the supervised step."""
+    return step_from_loss(
+        make_infomax_loss_fn(model, discriminator, beta, lam, gamma),
+        pair_infomax_optimizer(optimizer, optimizer_d))
+
+
+def make_semi_loss_fn(model, beta: float, lam: float) -> Callable:
+    """Semi-supervised loss: the ELBO on an unlabeled batch and the
+    alignment of a separate labeled batch's deterministic encode, as
+    ``loss_fn(x_u, x_l, y_l, noise=None, generator=None) -> (loss,
+    metrics)``."""
+    node = model.node
+
+    def loss_fn(x_u, x_l, y_l, noise=None, generator=None):
+        out = model(x_u, noise=noise, generator=generator, fast=True)
+        recon = losses.gaussian_recon(out.xhat, x_u)
+        kl = losses.kl_std_normal(out.mean, out.logvar)
+        mean_l, _ = model.get_posterior(x_l)
+        _, align_latent, _ = model.graph.transform(mean_l)
+        align = losses.alignment_bce(align_latent, y_l[:, :node])
+        loss = recon + beta * kl + lam * align
+        return loss, _metrics(loss, recon, kl, align, out.logvar, node)
+
+    return loss_fn
+
+
+def make_semi_step(model, optimizer: torch.optim.Optimizer, beta: float,
+                   lam: float) -> Callable:
+    """Semi-supervised step ``step(x_u, x_l, y_l, noise=None,
+    generator=None) -> metrics``."""
+    return step_from_loss(make_semi_loss_fn(model, beta, lam), optimizer)

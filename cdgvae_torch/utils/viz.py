@@ -1,10 +1,11 @@
-"""The recon figure (port of ``cdgvae_tpu/utils/viz.py:15-28``).
+"""Figures (port of ``cdgvae_tpu/utils/viz.py:15-135``).
 
-The GPU machine has no matplotlib, so the panels are tiled into one uint8
-array and written as a PNG with the standard library's ``zlib`` and
-``struct``. The panels are the reference's (``clip((x + 1) / 2, 0, 1)``,
-at most ``n`` of them, three to a row); matplotlib's figure margins and
-scaling are not reproduced.
+The GPU machine has no matplotlib, so every figure is a uint8 picture
+written as a PNG with the standard library's ``zlib`` and ``struct``.
+Image figures tile their panels (``clip((x + 1) / 2, 0, 1)``) on white,
+``PAD`` pixels apart; matplotlib's margins, titles and labels are not
+reproduced. Bar charts and heatmaps carry no text: one bar per entry, or
+one coloured cell per entry; their callers print the values.
 """
 from __future__ import annotations
 
@@ -14,22 +15,25 @@ import zlib
 import numpy as np
 
 PAD = 2  # white pixels between and around the panels
+BAR_W, BAR_GAP, BAR_H = 12, 8, 96  # bar chart geometry, pixels
+CELL = 16  # heatmap cell, pixels
+# matplotlib's coolwarm at 0, 0.5 and 1
+_COOLWARM = np.array([[59, 76, 192], [221, 221, 221], [180, 4, 38]],
+                     np.float64)
 
 
-def recon_grid(xhat: np.ndarray, n: int = 9, cols: int = 3) -> np.ndarray:
-    """The first ``min(n, len(xhat))`` images [H, W, 3] in [-1, 1] tiled
-    ``cols`` to a row on white: [rows*(H+PAD)+PAD, cols*(W+PAD)+PAD, 3]
-    uint8."""
-    xhat = np.asarray(xhat)
-    n = min(n, len(xhat))
-    h, w = xhat.shape[1:3]
+def tile(images: np.ndarray, cols: int) -> np.ndarray:
+    """Images [n, H, W, 3] in [-1, 1] tiled ``cols`` to a row on white:
+    [rows*(H+PAD)+PAD, cols*(W+PAD)+PAD, 3] uint8."""
+    images = np.asarray(images)
+    n, h, w = images.shape[:3]
     rows = max(1, -(-n // cols))
     grid = np.full((rows * (h + PAD) + PAD, cols * (w + PAD) + PAD, 3), 255,
                    dtype=np.uint8)
     for i in range(n):
         r, c = divmod(i, cols)
         y, x = PAD + r * (h + PAD), PAD + c * (w + PAD)
-        panel = np.clip((xhat[i] + 1) / 2, 0, 1)
+        panel = np.clip((images[i] + 1) / 2, 0, 1)
         grid[y:y + h, x:x + w] = np.rint(panel * 255).astype(np.uint8)
     return grid
 
@@ -53,8 +57,70 @@ def write_png(path: str, rgb: np.ndarray):
 
 
 def viz_recon_grid(xhat: np.ndarray, path: str, n: int = 9) -> np.ndarray:
-    """3x3 grid of reconstructions in [0, 1] written to ``path``; returns
-    the uint8 picture."""
-    grid = recon_grid(xhat, n)
+    """The first ``min(n, len(xhat))`` reconstructions, three to a row,
+    written to ``path``; returns the uint8 picture."""
+    grid = tile(np.asarray(xhat)[:n], 3)
     write_png(path, grid)
     return grid
+
+
+def viz_do_grid(images: np.ndarray, path: str, row_names=None) -> np.ndarray:
+    """The do-intervention grid [node, n_values, H, W, 3]: one row per
+    intervened node (``row_names`` top to bottom), one column per value."""
+    images = np.asarray(images)
+    node, k = images.shape[:2]
+    grid = tile(images.reshape(node * k, *images.shape[2:]), k)
+    write_png(path, grid)
+    if row_names is not None:
+        print(f"{path}: rows {', '.join(map(str, row_names[:node]))}")
+    return grid
+
+
+def viz_pair(x: np.ndarray, xhat: np.ndarray, path: str) -> np.ndarray:
+    """Original and reconstruction side by side, images in [-1, 1]."""
+    grid = tile(np.stack([x, xhat]), 2)
+    write_png(path, grid)
+    return grid
+
+
+def viz_gam_blocks(blocks: np.ndarray, path: str) -> np.ndarray:
+    """Per-block GAM decoder outputs [K, H, W, 3] in [-1, 1], in a row."""
+    grid = tile(blocks, len(blocks))
+    write_png(path, grid)
+    return grid
+
+
+def viz_bars(vals, names, ylabel: str, path: str, ylim=None) -> np.ndarray:
+    """One bar per entry of ``vals``, heights scaled to ``ylim`` (default:
+    from min(0, vals) to max(vals)); the values are printed."""
+    vals = np.asarray(vals, dtype=np.float64)
+    lo, hi = ylim if ylim else (min(0.0, vals.min()), vals.max())
+    span = hi - lo if hi > lo else 1.0
+    pic = np.full((BAR_H + 2 * PAD, len(vals) * (BAR_W + BAR_GAP) + BAR_GAP,
+                   3), 255, np.uint8)
+    base = PAD + BAR_H  # the row below the tallest bar's range
+    for i, v in enumerate(vals):
+        top = base - int(round(np.clip((v - lo) / span, 0, 1) * BAR_H))
+        x = BAR_GAP + i * (BAR_W + BAR_GAP)
+        pic[top:base, x:x + BAR_W] = (31, 119, 180)
+    pic[base, :] = 0
+    write_png(path, pic)
+    print(f"{path}: {ylabel}: " + ", ".join(
+        f"{n} {v:.4g}" for n, v in zip(names, vals)))
+    return pic
+
+
+def viz_heatmap(arr: np.ndarray, path: str) -> np.ndarray:
+    """One cell per entry of ``arr`` [rows, cols], coloured blue (its
+    minimum) through grey to red (its maximum), row 0 at the bottom as
+    matplotlib's ``pcolor`` draws it."""
+    arr = np.asarray(arr, dtype=np.float64)
+    lo, hi = arr.min(), arr.max()
+    t = (arr - lo) / (hi - lo) if hi > lo else np.full(arr.shape, 0.5)
+    seg = np.minimum((t * 2).astype(int), 1)  # which half of the map
+    frac = (t * 2 - seg)[..., None]
+    rgb = _COOLWARM[seg] * (1 - frac) + _COOLWARM[seg + 1] * frac
+    cells = np.rint(rgb[::-1]).astype(np.uint8)
+    pic = np.repeat(np.repeat(cells, CELL, axis=0), CELL, axis=1)
+    write_png(path, pic)
+    return pic

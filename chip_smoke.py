@@ -37,10 +37,26 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     against ``render_reference`` of the same draw; host time a step over
     whole epochs of the online and the dataset path, interleaved; then a
     profiler window of 10 online steps (busy share, the render kernel's
-    device time a step), which must hold no host wait or copy.
+    device time a step), which must hold no host wait or copy;
+11. semi-supervised training through ``cdgvae_torch.cli.main_semi``
+    (labeled 10%, labeled batch 32): 2 epochs on the fixed datasets, then
+    ``--resume`` to 3, then ``--online`` for 2 epoch-equivalents; losses
+    finite and falling, 2 render launches a fixed run and one a step
+    online; the semi step's host time over whole epochs, interleaved with
+    the dataset step; profiler windows of 10 semi steps, on the datasets
+    and online, which must hold no host wait or copy;
+12. InfoMax through ``cli.main --model InfoMax``: 2 epochs, ``--resume``
+    to 3 (the checkpoint's discriminator extras and both Adam counts),
+    ``--eager`` and ``--online``; MutualInfo finite in every metric line;
+    the full-width InfoMax loss on the card against the CPU (same weights,
+    batch, noise and permutation); host time a step and busy share;
+13. eval: ``cli.main_classifier`` for 2 epochs, ``cli.metric`` on phase 8's
+    and phase 11's checkpoints, whose structural-zero CDM entries must read
+    exactly 0.0; ``cdm_matrices`` on 512 images on the card against the
+    CPU; ``cli.inference`` writes its seven figures; the CLIs' wall times.
 
 The render kernel's launches are counted around each path (phases 4, 8
-and 10) and summed in the ``{"kernels": [...]}`` JSON line, which is
+and 10-13) and summed in the ``{"kernels": [...]}`` JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -89,6 +105,17 @@ MAX_ABS_TOL_512 = 2e-4
 # 1 than at 128)
 SERVE_TOL = 1e-4
 SERVE_BATCHES = (1, 7, 128)
+BATCH_L, LR_D, GAMMA = 32, 1e-4, 1.0  # main_semi's and InfoMax's defaults
+# CDM on the card against the CPU: scores are sigmoids of float32 sums over
+# 12,288 pixels in other orders, averaged over the images
+CDM_TOL = 1e-4
+# (source, checked) CDM entries that the masked GAM decoder holds at exactly
+# 0: do(length) and do(position) cannot move light or angle, do(light)
+# cannot move angle, do(angle) cannot move light
+STRUCTURAL_ZEROS = ((2, 0), (2, 1), (3, 0), (3, 1), (0, 1), (1, 0))
+INFERENCE_PNGS = ("latent_maxmin_orig.png", "latent_maxmin.png",
+                  "posterior_variance.png", "crossentropy.png",
+                  "original_and_recon.png", "gam.png", "do.png")
 # profiler events of a host that waits for the device or copies to or from
 # it (a .item() of a CUDA tensor, a tensor made from host data); the
 # profiled window's own closing torch.cuda.synchronize() is a
@@ -177,15 +204,46 @@ class Tee(io.TextIOBase):
         sys.__stdout__.flush()
 
 
-def run_cli(args: list[str]) -> str:
-    """Run the port's CLI in this process; return what it printed."""
-    from cdgvae_torch.cli import main as cli_main
+def run_cli(args: list[str], cli: str = "main") -> tuple[str, object, float]:
+    """Run the port's CLI ``cdgvae_torch.cli.<cli>`` in this process.
+    Returns what it printed, what its ``main`` returned, and its wall time
+    in seconds (host clock, ending in a device sync)."""
+    import importlib
 
+    module = importlib.import_module(f"cdgvae_torch.cli.{cli}")
     tee = Tee()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        cli_main.main(args)
+        result = module.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     sys.stdout.flush()
-    return tee.kept.getvalue()
+    return tee.kept.getvalue(), result, wall
+
+
+def interleaved_ms(paths: dict, steps: int, card: str) -> dict:
+    """Host time a step of each path, ``paths[name](k)`` running epoch k
+    of ``steps`` steps and ending in a host sync: the paths in turn, 3
+    rounds after a warm one. Prints each path's times; returns the
+    medians in seconds a step."""
+    per_step = {name: [] for name in paths}
+    for k in range(4):
+        for name, fn in paths.items():
+            t0 = time.perf_counter()
+            fn(k)
+            if k:  # round 0 warms
+                per_step[name].append((time.perf_counter() - t0) / steps)
+    med = {name: statistics.median(v) for name, v in per_step.items()}
+    for name, v in per_step.items():
+        print(f"host time a step, {name}, epochs of {steps} steps: "
+              f"{', '.join(f'{s * 1e3:.3f}' for s in v)} ms, median "
+              f"{med[name] * 1e3:.3f} ms [{card}]")
+    return med
+
+
+def read_csv_matrix(path: Path) -> list[list[str]]:
+    with open(path) as f:
+        return [line.rstrip("\n").split(",") for line in f]
 
 
 def read_records(path: Path) -> list[dict]:
@@ -216,20 +274,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from cdgvae_torch.api import LoadedModel
+    from cdgvae_torch.cli.main_classifier import classifier_masks
     from cdgvae_torch.data.pendulum import PendulumDataset, sample_factors_real
+    from cdgvae_torch.eval.metric import cdm_matrices
     from cdgvae_torch.factory import build_pendulum_model
+    from cdgvae_torch.models.classifier import FactorClassifier
     from cdgvae_torch.ops import _build, renderer_cuda
     from cdgvae_torch.ops.renderer import render_reference
     from cdgvae_torch.train.loop import format_epoch, run_epochs
-    from cdgvae_torch.train.online import (make_online_scanned_steps,
+    from cdgvae_torch.train.online import (make_online_run_from_loss,
+                                           make_online_scanned_steps,
                                            pendulum_batch_fn,
                                            sample_factors_device,
                                            train_split_size)
     from cdgvae_torch.train.scanned import (Averager, epoch_batches,
+                                            labeled_batches,
                                             make_epoch_runner,
+                                            make_scanned_epochs_semi,
                                             make_supervised_loss_fn)
-    from cdgvae_torch.train.steps import make_optimizer, make_train_step
+    from cdgvae_torch.train.steps import (make_infomax_loss_fn,
+                                          make_infomax_step, make_optimizer,
+                                          make_semi_loss_fn, make_semi_step,
+                                          make_train_step)
     from cdgvae_torch.utils.checkpoint import load_checkpoint
+    from cdgvae_torch.utils.interop import load_jax_params
     from cdgvae_torch.utils.simulation import ONLINE_STEP, derived_seed
 
     dev = torch.device("cuda")
@@ -421,18 +489,17 @@ def main() -> int:
     cli_dir = work / "cli"
     ckpt = cli_dir / "model_CDGVAE_linear"
     renderer_cuda.launches = 0
-    t0 = time.perf_counter()
-    said = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "2",
-                    "--assets_dir", str(cli_dir)])
-    cli_s = time.perf_counter() - t0
+    said, _, cli_s = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "2",
+                              "--assets_dir", str(cli_dir)])
     for name in ("state.pkl", "config.json"):
         check((ckpt / name).is_file(), f"the CLI wrote no {name}")
     check((cli_dir / "recon.png").is_file(), "the CLI wrote no recon.png")
     check(f"checkpoint saved to {ckpt}" in said, "no 'checkpoint saved' line")
     check(len(read_records(cli_dir / "metrics.jsonl")) == 2,
           "metrics.jsonl does not hold 2 records")
-    said = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "3",
-                    "--assets_dir", str(cli_dir), "--resume", str(ckpt)])
+    said, _, _ = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "3",
+                          "--assets_dir", str(cli_dir), "--resume",
+                          str(ckpt)])
     path_launches["cli"] = renderer_cuda.launches
     check(f"resumed from {ckpt} at epoch 2" in said, "no 'resumed' line")
     ck = load_checkpoint(str(ckpt))
@@ -483,10 +550,9 @@ def main() -> int:
     # 10. the online trainer through the CLI, then a profiled window
     online_dir = work / "online"
     renderer_cuda.launches = 0
-    t0 = time.perf_counter()
-    run_cli(["--online", "--n_samples", str(N_SAMPLES), "--epochs", "2",
-             "--assets_dir", str(online_dir)])
-    online_cli_s = time.perf_counter() - t0
+    _, _, online_cli_s = run_cli(["--online", "--n_samples", str(N_SAMPLES),
+                                  "--epochs", "2", "--assets_dir",
+                                  str(online_dir)])
     path_launches["online"] = renderer_cuda.launches
     online_steps = 2 * (train_split_size(N_SAMPLES) // BATCH)
     losses = [r["loss"] for r in read_records(online_dir / "metrics.jsonl")]
@@ -533,23 +599,13 @@ def main() -> int:
         for i in range(k * steps, (k + 1) * steps):
             draw.manual_seed(derived_seed(1, ONLINE_STEP, i))
 
-    paths = {"dataset": lambda k: data_epoch(
-                 dataset.x_data, dataset.y_data,
-                 torch.Generator(device=dev).manual_seed(100 + k)),
-             "online": online_epoch, "draw and render": draws,
-             "generator reseed": reseeds}
-    per_step = {name: [] for name in paths}
-    for k in range(4):
-        for name, fn in paths.items():
-            t0 = time.perf_counter()
-            fn(k)
-            if k:  # round 0 warms
-                per_step[name].append((time.perf_counter() - t0) / steps)
-    med = {name: statistics.median(v) for name, v in per_step.items()}
-    for name, v in per_step.items():
-        print(f"host time a step, {name}, epochs of {steps} steps: "
-              f"{', '.join(f'{s * 1e3:.3f}' for s in v)} ms, median "
-              f"{med[name] * 1e3:.3f} ms [{card}]")
+    def dataset_epoch(k):
+        return data_epoch(dataset.x_data, dataset.y_data,
+                          torch.Generator(device=dev).manual_seed(100 + k))
+
+    med = interleaved_ms({"dataset": dataset_epoch, "online": online_epoch,
+                          "draw and render": draws,
+                          "generator reseed": reseeds}, steps, card)
 
     busy, wall, table, kernels, waits = profile_window(
         lambda: online_run[10](0))
@@ -571,11 +627,223 @@ def main() -> int:
     # what the host's time a step drifts with: the CPU thread pool (the
     # CPU work of phases 5 and 9 starts it) and the garbage collector
     probe_host("phase 10")
+    n_threads = torch.get_num_threads()
     torch.set_num_threads(1)
     probe_host("torch.set_num_threads(1)")
     gc.collect()
     gc.freeze()
     probe_host("gc.collect() and gc.freeze()")
+    torch.set_num_threads(n_threads)  # phases 12-13 hold the card to the CPU
+
+    def finite_falling(name: str, records: list[dict]) -> list[float]:
+        losses = [r["loss"] for r in records]
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"{name}: losses not finite and falling: {losses}")
+        return losses
+
+    def profiled_steps(name: str, fn, n: int, step_s: float):
+        """Profile ``fn`` (n steps): busy share against the unprofiled host
+        time a step ``step_s``; fail on a host wait or copy."""
+        busy, wall, table, _, waits = profile_window(fn)
+        if busy > 0:
+            print(f"{name}, profiled {n} steps: device busy {busy * 1e3:.3f} "
+                  f"ms of {wall * 1e3:.3f} ms wall; per step "
+                  f"{busy / n * 1e3:.3f} ms busy of {step_s * 1e3:.3f} ms "
+                  f"unprofiled = {busy / n / step_s:.3f} busy share; host "
+                  f"waits and copies {waits} [{card}]")
+            print(table)
+        else:
+            print(f"profiler saw no device kernels: {name} busy share not "
+                  "measured")
+        check(not waits, f"{name} waits for the device or copies to or from "
+              f"it: {waits}")
+
+    # 11. semi-supervised training through cli.main_semi: the fixed
+    # datasets (labeled 10%, 371 rows), --resume, then --online
+    semi_dir = work / "semi"
+    semi_ckpt = semi_dir / "model_CDGVAEsemi_nonlinear"
+    semi_args = ["--n_samples", str(N_SAMPLES), "--labeled_ratio", "0.1",
+                 "--batch_sizeL", str(BATCH_L)]
+    renderer_cuda.launches = 0
+    _, _, semi_cli_s = run_cli(semi_args + ["--epochs", "2", "--assets_dir",
+                                            str(semi_dir)], "main_semi")
+    check(renderer_cuda.launches == 2, f"semi: {renderer_cuda.launches} "
+          "render launches for the labeled and unlabeled datasets, not 2")
+    said, _, _ = run_cli(semi_args + ["--epochs", "3", "--assets_dir",
+                                      str(semi_dir), "--resume",
+                                      str(semi_ckpt)], "main_semi")
+    path_launches["semi"] = renderer_cuda.launches
+    check(path_launches["semi"] == 4, f"semi: {path_launches['semi']} render "
+          "launches over the two runs, not 4")
+    check(f"resumed from {semi_ckpt} at epoch 2" in said, "semi: no "
+          "'resumed' line")
+    ck = load_checkpoint(str(semi_ckpt))
+    check(ck["step"] == 3 and int(ck["opt_state"][0].count) == 3 * steps,
+          f"semi checkpoint at step {ck['step']}, Adam count "
+          f"{int(ck['opt_state'][0].count)}")
+    losses = finite_falling("semi", read_records(semi_dir / "metrics.jsonl"))
+    print(f"semi cli: 2 epochs in {semi_cli_s:.3f} s (host clock, both "
+          f"datasets and the checkpoint included), resumed to epoch 3, "
+          f"losses {losses}; fixed path launches {{'render': "
+          f"{path_launches['semi']}}} (2 a run) [{card}]")
+    semi_online_dir = work / "semi_online"
+    renderer_cuda.launches = 0
+    _, _, semi_online_s = run_cli(semi_args + [
+        "--online", "--epochs", "2", "--assets_dir", str(semi_online_dir)],
+        "main_semi")
+    path_launches["semi online"] = renderer_cuda.launches
+    check(path_launches["semi online"] >= online_steps + 1,
+          f"semi online: {path_launches['semi online']} render launches "
+          f"for {online_steps} steps")
+    losses = finite_falling("semi online",
+                            read_records(semi_online_dir / "metrics.jsonl"))
+    print(f"semi online cli: {online_steps} steps in {semi_online_s:.3f} s "
+          f"(host clock), losses {losses}; launches {{'render': "
+          f"{path_launches['semi online']}}} [{card}]")
+
+    # the semi step timed against the dataset step, both on the linear
+    # flagship, so that they differ by the labeled encode alone
+    n_l = int(len(dataset) * 0.1)
+    x_l, y_l = dataset.x_data[:n_l], dataset.y_data[:n_l]
+    semi_model, _ = build_pendulum_model(FLAGSHIP, device=dev, seed=0)
+    semi_opt = make_optimizer(semi_model, LR)
+    semi_step = make_semi_step(semi_model, semi_opt, BETA, LAM)
+    semi_run = make_scanned_epochs_semi(semi_step, BATCH, BATCH_L)
+    med = interleaved_ms({"dataset": dataset_epoch, "semi": lambda k: semi_run(
+        dataset.x_data, x_l, y_l,
+        torch.Generator(device=dev).manual_seed(300 + k))}, steps, card)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = list(zip(epoch_batches(len(dataset), BATCH, gen)[:10],
+                       labeled_batches(n_l, 10, BATCH_L, gen)))
+    profiled_steps("semi step", lambda: [
+        semi_step(dataset.x_data[u], x_l[l], y_l[l], generator=gen)
+        for u, l in batches], 10, med["semi"])
+    online_semi = make_online_run_from_loss(
+        make_semi_loss_fn(semi_model, BETA, LAM), semi_opt, sample, 10,
+        seed=1, device=dev, labeled=(x_l, y_l), batch_size_l=BATCH_L)
+    profiled_steps("online semi step (labeled subsample drawn on the card)",
+                   lambda: online_semi(0), 10, med["semi"])
+    probe_host("phase 11")
+
+    # 12. InfoMax through cli.main: 2 epochs, --resume to 3, --eager,
+    # --online; the full-width loss on the card against the CPU
+    im_dir = work / "infomax"
+    im_ckpt = im_dir / "model_InfoMax_linear"
+    im_args = ["--model", "InfoMax", "--n_samples", str(N_SAMPLES)]
+    renderer_cuda.launches = 0
+    _, _, im_cli_s = run_cli(im_args + ["--epochs", "2", "--assets_dir",
+                                        str(im_dir)])
+    said, _, _ = run_cli(im_args + ["--epochs", "3", "--assets_dir",
+                                    str(im_dir), "--resume", str(im_ckpt)])
+    check(f"resumed from {im_ckpt} at epoch 2" in said, "InfoMax: no "
+          "'resumed' line")
+    ck = load_checkpoint(str(im_ckpt))
+    extras = ck["extras"] or {}
+    check({"d_params", "opt_state_d"} <= set(extras),
+          f"InfoMax checkpoint extras {sorted(extras)}")
+    counts = (int(ck["opt_state"][0].count),
+              int(extras["opt_state_d"][0].count))
+    check(ck["step"] == 3 and counts == (3 * steps, 3 * steps),
+          f"InfoMax checkpoint at step {ck['step']}, Adam counts {counts}")
+    im_eager_dir, im_online_dir = work / "infomax_eager", work / "infomax_on"
+    _, _, im_eager_s = run_cli(im_args + ["--eager", "--epochs", "1",
+                                          "--assets_dir", str(im_eager_dir)])
+    _, _, im_online_s = run_cli(im_args + ["--online", "--epochs", "2",
+                                           "--assets_dir", str(im_online_dir)])
+    path_launches["infomax"] = renderer_cuda.launches
+    check(path_launches["infomax"] >= 3 + online_steps + 1,
+          f"InfoMax: {path_launches['infomax']} render launches")
+    for d in (im_dir, im_eager_dir, im_online_dir):
+        mi = [r["MutualInfo"] for r in read_records(d / "metrics.jsonl")]
+        check(len(mi) > 0 and all(math.isfinite(v) for v in mi),
+              f"InfoMax MutualInfo {mi} in {d.name}")
+        print(f"InfoMax {d.name}: MutualInfo {mi}")
+    finite_falling("InfoMax", read_records(im_dir / "metrics.jsonl"))
+    finite_falling("InfoMax online", read_records(im_online_dir /
+                                                  "metrics.jsonl"))
+    print(f"InfoMax cli: 2 epochs in {im_cli_s:.3f} s, --eager 1 epoch in "
+          f"{im_eager_s:.3f} s, --online {online_steps} steps in "
+          f"{im_online_s:.3f} s (host clock); launches {{'render': "
+          f"{path_launches['infomax']}}} [{card}]")
+    im_cfg = dict(FLAGSHIP, model="InfoMax")
+    perm = torch.as_tensor(rng.permutation(BATCH))
+    for d in ("cpu", "cuda"):
+        m, disc = build_pendulum_model(im_cfg, device=d, seed=0)
+        _, metrics = make_infomax_loss_fn(m, disc, BETA, LAM, GAMMA)(
+            batch.to(d), labels.to(d), noise=noise.to(d), perm=perm.to(d))
+        result[d] = metrics["loss"].item()
+    rel = abs(result["cuda"] - result["cpu"]) / abs(result["cpu"])
+    print(f"full-width InfoMax loss cuda {result['cuda']:.6f} cpu "
+          f"{result['cpu']:.6f} rel {rel:.2e}")
+    check(rel <= 1e-5, "full-width InfoMax loss on the card disagrees with "
+          "the CPU")
+    im_model, im_disc = build_pendulum_model(im_cfg, device=dev, seed=0)
+    im_step = make_infomax_step(im_model, im_disc,
+                                make_optimizer(im_model, LR),
+                                make_optimizer(im_disc, LR_D), BETA, LAM,
+                                GAMMA)
+    im_run = make_epoch_runner(im_step, BATCH)
+    med = interleaved_ms({"dataset": dataset_epoch, "infomax": lambda k: im_run(
+        dataset.x_data, dataset.y_data,
+        torch.Generator(device=dev).manual_seed(400 + k))}, steps, card)
+    profiled_steps("InfoMax step", lambda: [
+        im_step(dataset.x_data[i], dataset.y_data[i], generator=generator)
+        for i in order], len(order), med["infomax"])
+    probe_host("phase 12")
+
+    # 13. eval: the CDM classifier, the metric on phase 8's and phase 11's
+    # checkpoints (exact structural zeros), cdm_matrices on the card against
+    # the CPU, the inference diagnostics
+    clf_dir, cdm_dir, inf_dir = work / "clf", work / "cdm", work / "inference"
+    renderer_cuda.launches = 0
+    _, _, clf_s = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "2",
+                           "--assets_dir", str(clf_dir)], "main_classifier")
+    clf_ckpt = clf_dir / "CDMClassifier"
+    finite_falling("classifier", read_records(clf_dir / "metrics.jsonl"))
+    metric_s = {}
+    for name, ck_dir, tag in (("CDG-VAE, phase 8", ckpt, "CDGVAE_linear_0"),
+                              ("semi, phase 11", semi_ckpt,
+                               "CDGVAEsemi_nonlinear_0")):
+        _, (lower, upper), metric_s[name] = run_cli(
+            ["--checkpoint", str(ck_dir), "--classifier_checkpoint",
+             str(clf_ckpt), "--assets_dir", str(cdm_dir)], "metric")
+        for which, mat in (("lower", lower), ("upper", upper)):
+            text = read_csv_matrix(cdm_dir / f"{which}_{tag}.csv")
+            for s, c in STRUCTURAL_ZEROS:
+                check(mat[s, c] == 0.0 and text[s + 1][c + 1] == "0.0",
+                      f"CDM {which} ({name}) [{s}, {c}] = {mat[s, c]!r}, "
+                      f"csv {text[s + 1][c + 1]}")
+        check(upper[0, 0] > 0 and upper[1, 1] > 0,
+              f"CDM ({name}): an intervened factor moves no score")
+        print(f"CDM ({name}): the {len(STRUCTURAL_ZEROS)} structural zeros "
+              f"read exactly 0.0 in lower and upper")
+    clf_params = load_checkpoint(str(clf_ckpt))["params"]
+    cdm = {}
+    for d in ("cpu", "cuda"):
+        clf = FactorClassifier(classifier_masks(64, 4), 4, 64, device=d)
+        load_jax_params(clf, clf_params)
+        cdm[d] = cdm_matrices(LoadedModel.load(str(semi_ckpt), device=d).model,
+                              clf, dataset.x_data[:512].to(d))
+    cdm_err = max(float(np.abs(cdm["cuda"][i] - cdm["cpu"][i]).max())
+                  for i in (0, 1))
+    print(f"cdm_matrices on 512 images, cuda against cpu: max |d| "
+          f"{cdm_err:.3e} (limit {CDM_TOL})")
+    check(cdm_err <= CDM_TOL, "cdm_matrices on the card disagrees with the "
+          "CPU")
+    _, grid, inf_s = run_cli(["--checkpoint", str(semi_ckpt), "--assets_dir",
+                              str(inf_dir)], "inference")
+    check(grid.shape == (4, 7, 64, 64, 3) and np.isfinite(grid).all(),
+          f"do grid {grid.shape}")
+    for png in INFERENCE_PNGS:
+        check((inf_dir / png).is_file(), f"inference wrote no {png}")
+    path_launches["eval"] = renderer_cuda.launches
+    check(path_launches["eval"] == 4, f"eval: {path_launches['eval']} render "
+          "launches, not 4 (classifier 1, metric 2, inference 1)")
+    print(f"eval cli wall (host clock, dataset builds included): "
+          f"main_classifier 2 epochs {clf_s:.3f} s; metric "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in metric_s.items())
+          + f"; inference {inf_s:.3f} s; launches {{'render': "
+          f"{path_launches['eval']}}} [{card}]")
     shutil.rmtree(work, ignore_errors=True)
 
     launches = sum(path_launches.values())

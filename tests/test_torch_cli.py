@@ -1,7 +1,7 @@
 """The port's pendulum CLI on the CPU: artifacts, the metric log's record
 shape against the JAX package's, a resumed run against the uninterrupted
-one (bit for bit), the resume guard, the eager protocol, --online and the
-flags that are not ported. 16 px, 96 DGP samples (a 72-image train
+one (bit for bit), the resume guard, the eager protocol, --online,
+InfoMax and --labeled_ratio, and the flags that are not ported. 16 px, 96 DGP samples (a 72-image train
 split), batch 32.
 """
 import json
@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from cdgvae_tpu.train import loop as jloop
 from cdgvae_tpu.train import steps as jsteps
 from cdgvae_tpu.utils.logging import MetricLogger as JMetricLogger
-from cdgvae_torch.cli import main
+from cdgvae_torch.cli import main, main_semi
 from cdgvae_torch.utils.checkpoint import load_checkpoint
 
 SMALL = ["--device", "cpu", "--image_size", "16", "--n_samples", "96",
@@ -77,11 +77,10 @@ def test_metric_log_keys_match_jax(tmp_path):
         list(_records(tmp_path / "jax")[0])
 
 
-def _state(out):
-    with open(os.path.join(out, CKPT, "state.pkl"), "rb") as f:
+def _state(out, ckpt=CKPT):
+    with open(os.path.join(out, ckpt, "state.pkl"), "rb") as f:
         raw = f.read()
-    ck = load_checkpoint(os.path.join(out, CKPT))
-    return raw, ck
+    return raw, load_checkpoint(os.path.join(out, ckpt))
 
 
 def _assert_trees_equal(a, b):
@@ -97,20 +96,39 @@ def _assert_trees_equal(a, b):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("mode", ["dataset", "online"])
+SEMI = ["--labeled_ratio", "0.3", "--batch_sizeL", "8"]
+# mode: (entry point, flags, checkpoint directory)
+RESUMABLE = {
+    "dataset": (main, [], CKPT),
+    "online": (main, ["--online"], CKPT),
+    "semi": (main_semi, SEMI, "model_CDGVAEsemi_nonlinear"),
+    "semi online": (main_semi, SEMI + ["--online"],
+                    "model_CDGVAEsemi_nonlinear"),
+    "InfoMax": (main, ["--model", "InfoMax"], "model_InfoMax_linear"),
+}
+
+
+@pytest.mark.parametrize("mode", list(RESUMABLE))
 def test_resume_reproduces_the_uninterrupted_run(tmp_path, capsys, mode):
-    extra = ["--online"] if mode == "online" else []
-    _main(tmp_path / "a", "--epochs", "2", *extra)
-    _main(tmp_path / "a", "--epochs", "4", "--resume",
-          str(tmp_path / "a" / CKPT), *extra)
-    assert f"resumed from {tmp_path / 'a' / CKPT} at epoch 2" in \
+    cli, extra, ckpt = RESUMABLE[mode]
+
+    def run(out, *args):
+        cli.main(SMALL + ["--assets_dir", str(out), *extra, *args])
+
+    run(tmp_path / "a", "--epochs", "2")
+    run(tmp_path / "a", "--epochs", "4", "--resume",
+        str(tmp_path / "a" / ckpt))
+    assert f"resumed from {tmp_path / 'a' / ckpt} at epoch 2" in \
         capsys.readouterr().out
-    _main(tmp_path / "b", "--epochs", "4", *extra)
-    raw_a, ck_a = _state(tmp_path / "a")
-    raw_b, ck_b = _state(tmp_path / "b")
+    run(tmp_path / "b", "--epochs", "4")
+    raw_a, ck_a = _state(tmp_path / "a", ckpt)
+    raw_b, ck_b = _state(tmp_path / "b", ckpt)
     assert ck_a["step"] == ck_b["step"] == 4
     _assert_trees_equal(ck_a["params"], ck_b["params"])
     _assert_trees_equal(ck_a["opt_state"], ck_b["opt_state"])
+    assert (ck_a["extras"] is None) == (mode != "InfoMax")
+    if mode == "InfoMax":
+        _assert_trees_equal(ck_a["extras"], ck_b["extras"])
     assert raw_a == raw_b
     strip = [{k: v for k, v in r.items() if k != "time"}
              for r in _records(tmp_path / "a")]
@@ -141,8 +159,8 @@ def test_online_loss_falls(tmp_path):
 
 
 @pytest.mark.parametrize("args,why", [
-    (["--model", "InfoMax"], "item 8"),
-    (["--labeled_ratio", "0.5"], "item 8"),
+    (["--model", "InfoMax", "--free_bits", "0.5"], "--free_bits"),
+    (["--online", "--labeled_ratio", "0.5"], "--online supports"),
     (["--data_dir", "pngs"], "item 7"),
     (["--platform", "cpu"], "item 15"),
     (["--dp", "2"], "item 14"),
@@ -157,6 +175,31 @@ def test_unported_flags_are_refused(tmp_path, capsys, args, why):
     assert not os.path.exists(tmp_path / CKPT)
 
 
+@pytest.mark.parametrize("args", [["--model", "InfoMax"],
+                                  ["--labeled_ratio", "0.5"]])
+def test_infomax_and_labeled_ratio_train(tmp_path, args):
+    """Flags the first slices refused: InfoMax trains the VAE with its
+    discriminator, and ``--labeled_ratio`` cuts the train split as the
+    JAX CLI does."""
+    _main(tmp_path, "--epochs", "1", *args)
+    infomax = args[1] == "InfoMax"
+    ck = load_checkpoint(str(tmp_path / ("model_InfoMax_linear" if infomax
+                                         else CKPT)))
+    assert ck["config"][args[0][2:]] == (args[1] if infomax else 0.5)
+    record = _records(tmp_path)[0]
+    assert np.isfinite(record["loss"])
+    assert ("MutualInfo" in record) == infomax
+    if infomax:
+        # 72 images at batch 32: 2 steps for both Adams
+        assert int(ck["opt_state"][0].count) == 2
+        assert int(ck["extras"]["opt_state_d"][0].count) == 2
+        assert set(ck["extras"]["d_params"]) == {"net"}
+    else:
+        # the first half of the 72-image split: 36 images, 1 step
+        assert int(ck["opt_state"][0].count) == 1
+        assert ck["extras"] is None
+
+
 def test_state_pickle_names_optax_classes(tmp_path):
     """What the JAX package's unpickler looks up."""
     _main(tmp_path, "--epochs", "1")
@@ -169,3 +212,88 @@ def test_state_pickle_names_optax_classes(tmp_path):
             "EmptyState"} <= names
     assert "cdgvae_torch.utils.interop" not in names
     assert isinstance(pickle.loads(raw)["params"], dict)
+
+
+def test_cli_chain_semi_infomax_classifier_metric_inference(tmp_path,
+                                                            capsys):
+    """The port's eval chain on what its trainers wrote (16 px, 200 DGP
+    samples): the CDM structural zeros read exactly 0.0 for the supervised
+    and the semi-supervised CDG-VAE, the two packages' metric CLIs agree
+    across checkpoints each other wrote, and the inference CLI writes its
+    figures."""
+    import pandas as pd
+    from cdgvae_tpu.cli import main_classifier as jax_main_classifier
+    from cdgvae_tpu.cli import metric as jmetric
+    from cdgvae_torch.api import LoadedModel
+    from cdgvae_torch.cli import inference, main_classifier, metric
+
+    small = ["--device", "cpu", "--image_size", "16", "--n_samples", "200",
+             "--batch_size", "32", "--epochs", "1"]
+    main.main(small + ["--assets_dir", str(tmp_path)])
+    main_semi.main(small + SEMI + ["--eager", "--assets_dir", str(tmp_path)])
+    main.main(small + ["--model", "InfoMax", "--assets_dir", str(tmp_path)])
+    main_classifier.main(small + ["--assets_dir", str(tmp_path / "clf")])
+    clf = str(tmp_path / "clf" / "CDMClassifier")
+    assert load_checkpoint(clf)["config"]["image_size"] == 16
+    # the semi model is scored with the JAX package's classifier, by both
+    # packages' metric CLIs: each reads a checkpoint the other wrote
+    jax_main_classifier.main(small[2:] + ["--assets_dir",
+                                          str(tmp_path / "jclf")])
+    jclf = str(tmp_path / "jclf" / "CDMClassifier")
+
+    cdm = tmp_path / "cdm"
+    for name in ("CDGVAE_linear", "CDGVAEsemi_nonlinear", "InfoMax_linear"):
+        ckpt = str(tmp_path / f"model_{name}")
+        clf_used = jclf if name == "CDGVAEsemi_nonlinear" else clf
+        lower, upper = metric.main(["--device", "cpu", "--checkpoint", ckpt,
+                                    "--classifier_checkpoint", clf_used,
+                                    "--assets_dir", str(cdm)])
+        assert np.isfinite(lower).all() and np.isfinite(upper).all()
+        csv = pd.read_csv(cdm / f"upper_{name}_0.csv", index_col=0)
+        assert list(csv.columns) == ["light", "angle", "length", "position"]
+        assert (cdm / f"lower_{name}_0.png").is_file()
+        if name != "InfoMax_linear":
+            for s, c in [(2, 0), (2, 1), (3, 0), (3, 1), (0, 1), (1, 0)]:
+                assert lower[s, c] == 0.0 and upper[s, c] == 0.0, (s, c)
+                assert csv.iloc[s, c] == 0.0
+        if name == "CDGVAEsemi_nonlinear":
+            want = jmetric.main(["--checkpoint", ckpt,
+                                 "--classifier_checkpoint", jclf,
+                                 "--assets_dir", str(tmp_path / "jcdm")])
+            for g, w in zip((lower, upper), want):
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
+
+    ckpt = str(tmp_path / "model_CDGVAEsemi_nonlinear")
+    grid = inference.main(["--device", "cpu", "--checkpoint", ckpt,
+                           "--assets_dir", str(tmp_path / "inf")])
+    assert grid.shape == (4, 7, 16, 16, 3) and np.isfinite(grid).all()
+    assert sorted(os.listdir(tmp_path / "inf")) == sorted(
+        ["latent_maxmin_orig.png", "latent_maxmin.png",
+         "posterior_variance.png", "crossentropy.png",
+         "original_and_recon.png", "gam.png", "do.png"])
+    x = np.zeros((2, 16, 16, 3), np.float32)
+    assert LoadedModel.load(ckpt, device="cpu").reconstruct(x).shape == \
+        x.shape
+    with pytest.raises(SystemExit):
+        metric.main(["--checkpoint", ckpt, "--classifier_checkpoint", clf,
+                     "--platform", "cpu"])
+    assert "--platform is not supported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cli,args", [
+    ("main_semi", ["--image_size", "16", "--n_samples", "96"]),
+    ("main_classifier", ["--image_size", "16", "--n_samples", "96"]),
+    ("metric", ["--checkpoint", "x", "--classifier_checkpoint", "y"]),
+    ("inference", ["--checkpoint", "x"])])
+def test_new_entry_points_need_the_card_by_default(tmp_path, cli, args):
+    """No --device means cuda; without a card they stop before any work
+    instead of running on the CPU."""
+    import importlib
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    module = importlib.import_module(f"cdgvae_torch.cli.{cli}")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        module.main(args + ["--assets_dir", str(tmp_path)])
+    assert os.listdir(tmp_path) == []

@@ -1,6 +1,6 @@
 """The port stands alone: importing every cdgvae_torch module loads neither
-JAX, optax, matplotlib nor anything of cdgvae_tpu (the GPU machine has
-none of them)."""
+JAX, optax, matplotlib, pandas nor anything of cdgvae_tpu (the GPU machine
+has none of them)."""
 import json
 import subprocess
 import sys
@@ -17,7 +17,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "cdgvae_tpu",
-                                    "matplotlib", "wandb"))
+                                    "matplotlib", "pandas", "wandb"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -33,7 +33,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.api", "cdgvae_torch.cli.common",
                  "cdgvae_torch.train.online", "cdgvae_torch.train.loop",
                  "cdgvae_torch.utils.checkpoint",
-                 "cdgvae_torch.utils.logging", "cdgvae_torch.utils.viz"):
+                 "cdgvae_torch.utils.logging", "cdgvae_torch.utils.viz",
+                 "cdgvae_torch.cli.main_semi",
+                 "cdgvae_torch.cli.main_classifier",
+                 "cdgvae_torch.cli.metric", "cdgvae_torch.cli.inference",
+                 "cdgvae_torch.eval.inference", "cdgvae_torch.eval.metric",
+                 "cdgvae_torch.models.classifier"):
         assert name in result["modules"]
 
 

@@ -193,8 +193,27 @@ def test_factory_builds_the_flagship_layout():
 
 
 @pytest.mark.parametrize("config,spurious", [
-    (dict(model="InfoMax"), False), (dict(model="CDGVAE"), True)])
+    (dict(model="InfoMax"), True), (dict(model="CDGVAE"), True)])
 def test_factory_names_what_waits(config, spurious):
+    """The DR wiring (InfoMax's and CDG-VAE's) waits for its item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfactory.build_pendulum_model(config, spurious=spurious,
                                       device="cpu")
+
+
+@pytest.mark.parametrize("name", ["InfoMax", "CDGVAEsemi"])
+def test_factory_builds_infomax_and_semi(name):
+    """InfoMax is the VAE with a discriminator, CDGVAEsemi the CDG-VAE; the
+    param trees have the JAX factory's shapes."""
+    config = dict(model=name, node=4, scm="nonlinear", flow_num=1,
+                  inverse_loop=100, factor=[1, 1, 2], image_size=SIZE)
+    tm, disc = tfactory.build_pendulum_model(config, device="cpu", seed=3)
+    jm, jdisc = jax_build_model(config)
+    want = jax.tree.map(lambda a: a.shape, jm.init(jax.random.key(0)))
+    assert jax.tree.map(lambda a: a.shape, export_params(tm)) == want
+    if name == "InfoMax":
+        assert isinstance(tm, tvae.VAE)
+        want = jax.tree.map(lambda a: a.shape, jdisc.init(jax.random.key(1)))
+        assert jax.tree.map(lambda a: a.shape, export_params(disc)) == want
+    else:
+        assert isinstance(tm, tvae.CDGVAE) and disc is None

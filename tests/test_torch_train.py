@@ -240,8 +240,7 @@ def test_cli_without_gpu_exits_nonzero():
 
 
 def test_cli_rejects_what_is_not_ported():
-    for args in (["--model", "InfoMax"], ["--labeled_ratio", "0.5"],
-                 ["--dp", "2"]):
+    for args in (["--data_dir", "pngs"], ["--dp", "2"]):
         proc = _cli("--device", "cpu", *args)
         assert proc.returncode != 0 and "[epoch" not in proc.stdout
         assert "ROADMAP Queue 1 item" in proc.stderr

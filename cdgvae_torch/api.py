@@ -15,9 +15,11 @@ batch sizes reuse compiled XLA programs; PyTorch runs eagerly and every
 path here is per sample, so the port runs each batch as it comes, with no
 padding.
 
-A checkpoint of another family (tabular, TVAE, CelebA, the DR node-5
-wiring) or a ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+A DR checkpoint (the node-5 spurious wiring) is built as the JAX package
+builds it: from its ``spurious`` marker, or, in a checkpoint written
+before the marker existed, from node == 5. A checkpoint of another family
+(tabular, TVAE, CelebA) or a ``mesh=`` raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -38,10 +40,13 @@ def _unported_family(config: dict) -> str | None:
         return "the tabular family: ROADMAP Queue 1 item 12"
     if "causal_structure" in config:
         return "the CelebA family: ROADMAP Queue 1 item 13"
-    if bool(config.get("spurious", config.get("node", 4) == 5)):
-        return "the DR family (node-5 spurious wiring): ROADMAP Queue 1 " \
-               "item 11"
     return None
+
+
+def is_dr(config: dict) -> bool:
+    """Whether a pendulum-family checkpoint's config is the DR wiring: its
+    ``spurious`` marker, else node == 5."""
+    return bool(config.get("spurious", config.get("node", 4) == 5))
 
 
 class LoadedModel:
@@ -74,7 +79,8 @@ class LoadedModel:
         device = resolve_device(device)
         build = dict(config, model=_MODEL_CLASS.get(config["model"],
                                                     config["model"]))
-        model, _ = build_pendulum_model(build, device=device)
+        model, _ = build_pendulum_model(build, spurious=is_dr(config),
+                                        device=device)
         load_jax_params(model, ck["params"])
         return cls(model, config)
 

@@ -9,8 +9,10 @@ the model and writes the reference's diagnostic set to ``--assets_dir``:
 ``posterior_variance.png`` and ``crossentropy.png`` (bars, their values
 printed), ``original_and_recon.png`` (the 8th image), ``gam.png`` (the
 per-block GAM outputs, CDG-VAE only) and ``do.png`` (the node x 7
-do-intervention grid). The model loads as ``api.LoadedModel`` does, so a
-DR checkpoint raises ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+do-intervention grid). The model loads as ``api.LoadedModel`` does, a DR
+checkpoint with its spurious wiring; as in the reference, its diagnostics
+still run on the plain pendulum dataset, whose name list gives the 5th
+latent the label "target".
 """
 from __future__ import annotations
 

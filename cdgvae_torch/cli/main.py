@@ -1,6 +1,7 @@
 """Pendulum training entry point, the VAE, InfoMax and CDGVAE paths of
 ``cdgvae_tpu/cli/main.py:30-334`` with the same flag names and defaults,
-plus ``--device``.
+plus ``--device``; :func:`train` is also the DR family's trainer
+(``cli/dr_main.py``).
 
 Usage: python -m cdgvae_torch.cli.main --model CDGVAE --device cuda ...
 
@@ -29,8 +30,10 @@ import numpy as np
 import torch
 
 from ..data.pendulum import PendulumDataset
+from ..data.pendulum_dr import PendulumDRDataset
 from ..factory import build_pendulum_model
 from ..train.loop import format_epoch, train_epoch
+from ..train.online import dr_batch_fn, pendulum_batch_fn
 from ..train.steps import (make_infomax_loss_fn, make_infomax_step,
                            make_optimizer, make_train_step,
                            pair_infomax_optimizer)
@@ -46,7 +49,8 @@ from .common import (add_infra_args, add_png_data_dir_arg, add_resume_arg,
                      run_online_training, run_scanned_training)
 
 
-def get_args(argv=None):
+def get_args(argv=None, **defaults):
+    """The flags; ``defaults`` overrides their defaults (the DR CLI's)."""
     parser = argparse.ArgumentParser("parameters")
     parser.add_argument("--seed", type=int, default=1,
                         help="seed for repeatable results")
@@ -96,6 +100,7 @@ def get_args(argv=None):
     add_png_data_dir_arg(parser)
     add_resume_arg(parser)
     add_infra_args(parser)
+    parser.set_defaults(**defaults)
     return parser.parse_args(argv)
 
 
@@ -112,28 +117,40 @@ def _refuse_unsupported(config: dict):
 
 def main(argv=None):
     config = vars(get_args(argv))
-    _refuse_unsupported(config)
     config["spurious"] = False  # family marker for checkpoint loaders (api.py)
+    return train(config)
+
+
+def train(config: dict):
+    """Train the model of ``config`` (the parsed flags) and save it. The
+    family marker ``config["spurious"]`` picks the data: the pendulum
+    family, or the DR family (``PendulumDRDataset`` or ``dr_batch_fn``,
+    the spurious decoder wiring, the checkpoint ``model_DR_<model>_<scm>``
+    and, as the reference's DR trainer, neither mid-run checkpoints nor
+    ``recon.png``)."""
+    _refuse_unsupported(config)
+    dr = config["spurious"]
     device = resolve_device(config["device"])
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
     seed, bs = config["seed"], config["batch_size"]
     infomax = config["model"] == "InfoMax"
     logger = MetricLogger(logdir=config["assets_dir"],
-                          use_wandb=config["wandb"], tags=["VAEBased"],
+                          use_wandb=config["wandb"],
+                          tags=["VAEBased", "DR"] if dr else ["VAEBased"],
                           config=config)
     if config["wandb"]:
         print("--wandb: metrics are logged; publishing the model artifact "
               "is not ported yet (ROADMAP Queue 1 item 7)")
 
     if not config["online"]:
-        dataset = PendulumDataset(
+        dataset = (PendulumDRDataset if dr else PendulumDataset)(
             image_size=config["image_size"], train=True,
             labeled_ratio=config["labeled_ratio"],
             label_normalization=config["label_normalization"],
             seed=seed, n=config["n_samples"], device=device)
-    model, discriminator = build_pendulum_model(config, device=device,
-                                                seed=seed)
+    model, discriminator = build_pendulum_model(config, spurious=dr,
+                                                device=device, seed=seed)
     optimizer = make_optimizer(model, config["lr"])
     beta, lam = config["beta"], config["lambda"]
     if infomax:
@@ -149,19 +166,17 @@ def main(argv=None):
     shuffle_rng = np.random.default_rng(seed + start_epoch)
     os.makedirs(config["assets_dir"], exist_ok=True)
     ckpt = os.path.join(config["assets_dir"],
-                        f"model_{config['model']}_{config['scm']}")
+                        f"model_{'DR_' if dr else ''}{config['model']}_"
+                        f"{config['scm']}")
 
     # the viz batch: a training-batch-sized slice, or under --online one
     # draw of the online DGP (a batch function of its own, so the
     # trainer's image buffer never overwrites it)
     if config["online"]:
-        from ..train.online import pendulum_batch_fn
-
         def sample_builder(batch_size):
-            return pendulum_batch_fn(batch_size, config["image_size"],
-                                     norm_seed=seed,
-                                     norm_n=config["n_samples"],
-                                     device=device)
+            return (dr_batch_fn if dr else pendulum_batch_fn)(
+                batch_size, config["image_size"], norm_seed=seed,
+                norm_n=config["n_samples"], device=device)
         x_viz = sample_builder(bs)(
             derived_generator(seed, VIZ_BATCH, device=device))[0]
     else:
@@ -184,7 +199,8 @@ def main(argv=None):
                         step=step, config=config, extras=extras)
 
     def ckpt_due(epoch):
-        return (epoch + 1) % 25 == 0 and epoch + 1 < config["epochs"]
+        return (not dr and (epoch + 1) % 25 == 0
+                and epoch + 1 < config["epochs"])
 
     def viz_due(epoch):
         return epoch % 10 == 0
@@ -231,8 +247,10 @@ def main(argv=None):
             on_epoch(epoch, metrics)
             post_epoch(epoch)
 
-    viz(f"{config['assets_dir']}/recon.png")
-    logger.log_image("reconstruction", f"{config['assets_dir']}/recon.png")
+    if not dr:
+        viz(f"{config['assets_dir']}/recon.png")
+        logger.log_image("reconstruction",
+                         f"{config['assets_dir']}/recon.png")
     save(config["epochs"])
     print(f"checkpoint saved to {ckpt}")
     logger.finish()

@@ -1,5 +1,6 @@
 """Semi-supervised pendulum training (port of ``cdgvae_tpu/cli/
-main_semi.py:1-173``, same flags and defaults, plus ``--device``).
+main_semi.py:1-173``, same flags and defaults, plus ``--device``);
+:func:`train` is also the DR family's (``cli/dr_main_semi.py``).
 
 Usage: python -m cdgvae_torch.cli.main_semi --device cuda ...
 
@@ -27,8 +28,10 @@ import numpy as np
 import torch
 
 from ..data.pendulum import PendulumDataset
+from ..data.pendulum_dr import PendulumDRDataset
 from ..factory import build_pendulum_model
 from ..train.loop import format_epoch, train_epoch_semi
+from ..train.online import dr_batch_fn, pendulum_batch_fn
 from ..train.steps import make_optimizer, make_semi_loss_fn, make_semi_step
 from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
@@ -42,7 +45,8 @@ from .common import (add_infra_args, add_png_data_dir_arg, add_resume_arg,
                      run_online_training, run_scanned_training_semi)
 
 
-def get_args(argv=None):
+def get_args(argv=None, **defaults):
+    """The flags; ``defaults`` overrides their defaults (the DR CLI's)."""
     parser = argparse.ArgumentParser("parameters")
     parser.add_argument("--seed", type=int, default=1)
     parser.add_argument("--model", type=str, default="CDGVAEsemi")
@@ -71,35 +75,49 @@ def get_args(argv=None):
     add_png_data_dir_arg(parser)
     add_resume_arg(parser)
     add_infra_args(parser)
+    parser.set_defaults(**defaults)
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     config = vars(get_args(argv))
+    config["spurious"] = False  # family marker for checkpoint loaders (api.py)
+    return train(config)
+
+
+def train(config: dict):
+    """Train the semi-supervised model of ``config`` (the parsed flags)
+    and save it. ``config["spurious"]`` picks the family: the pendulum
+    family, or the DR family (``PendulumDRDataset`` or ``dr_batch_fn``,
+    the spurious decoder wiring, the checkpoint ``model_DR_<model>_<scm>``
+    and, as the reference's DR trainer, no ``recon.png``)."""
     if config["online"] and config["eager"]:
         raise SystemExit("--online supports the scanned path on the "
                          "synthetic DGP only")
-    config["spurious"] = False  # family marker for checkpoint loaders (api.py)
+    dr = config["spurious"]
     device = resolve_device(config["device"])
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
     seed = config["seed"]
     logger = MetricLogger(logdir=config["assets_dir"],
                           use_wandb=config["wandb"],
-                          tags=["VAEBased", "semi"], config=config)
+                          tags=["VAEBased", "DR", "semi"] if dr
+                          else ["VAEBased", "semi"], config=config)
 
-    labeled = PendulumDataset(
+    dataset_cls = PendulumDRDataset if dr else PendulumDataset
+    labeled = dataset_cls(
         image_size=config["image_size"], train=True,
         labeled_ratio=config["labeled_ratio"],
         label_normalization=config["label_normalization"], seed=seed,
         n=config["n_samples"], device=device)
     x_l, y_l = labeled.x_data, labeled.y_data
     if not config["online"]:
-        x_u = PendulumDataset(image_size=config["image_size"], train=True,
-                              seed=seed, n=config["n_samples"],
-                              device=device).x_data
+        x_u = dataset_cls(image_size=config["image_size"], train=True,
+                          seed=seed, n=config["n_samples"],
+                          device=device).x_data
 
-    model, _ = build_pendulum_model(config, device=device, seed=seed)
+    model, _ = build_pendulum_model(config, spurious=dr, device=device,
+                                    seed=seed)
     optimizer = make_optimizer(model, config["lr"])
     (model, optimizer), start_epoch = apply_resume(config,
                                                    (model, optimizer))
@@ -111,13 +129,10 @@ def main(argv=None):
 
     beta, lam = config["beta"], config["lambda"]
     if config["online"]:
-        from ..train.online import pendulum_batch_fn
-
         def sample_builder(batch_size):
-            return pendulum_batch_fn(batch_size, config["image_size"],
-                                     norm_seed=seed,
-                                     norm_n=config["n_samples"],
-                                     device=device)
+            return (dr_batch_fn if dr else pendulum_batch_fn)(
+                batch_size, config["image_size"], norm_seed=seed,
+                norm_n=config["n_samples"], device=device)
         run_online_training(
             config, loss_fn=make_semi_loss_fn(model, beta, lam),
             optimizer=optimizer, device=device, start_epoch=start_epoch,
@@ -138,17 +153,21 @@ def main(argv=None):
             data=(x_u, x_l, y_l), start_epoch=start_epoch,
             on_epoch=on_epoch)
 
-    # under --online there is no unlabeled dataset: a fresh 9-image draw
-    x_viz = (sample_builder(9)(derived_generator(seed, VIZ_BATCH,
-                                                 device=device))[0]
-             if config["online"] else x_u[:9])
-    with torch.no_grad():
-        xhat = model(x_viz, generator=derived_generator(
-            seed, VIZ_NOISE, device=device), fast=True).xhat
-    viz_recon_grid(xhat.cpu().numpy(), f"{config['assets_dir']}/recon.png")
+    if not dr:
+        # under --online there is no unlabeled dataset: a fresh 9-image
+        # draw
+        x_viz = (sample_builder(9)(derived_generator(seed, VIZ_BATCH,
+                                                     device=device))[0]
+                 if config["online"] else x_u[:9])
+        with torch.no_grad():
+            xhat = model(x_viz, generator=derived_generator(
+                seed, VIZ_NOISE, device=device), fast=True).xhat
+        viz_recon_grid(xhat.cpu().numpy(),
+                       f"{config['assets_dir']}/recon.png")
 
     ckpt = os.path.join(config["assets_dir"],
-                        f"model_{config['model']}_{config['scm']}")
+                        f"model_{'DR_' if dr else ''}{config['model']}_"
+                        f"{config['scm']}")
     save_checkpoint(ckpt, export_params(model),
                     opt_state=export_opt_state(optimizer, model),
                     step=config["epochs"], config=config)

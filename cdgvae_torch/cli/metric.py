@@ -10,8 +10,9 @@ the rendered train split, prints them, and writes
 ``lower_<tag>.csv``/``upper_<tag>.csv`` (the text ``pandas.DataFrame(m.
 round(3), columns=names, index=names).to_csv`` writes, through the
 ``csv`` module) and their heatmaps, ``tag = <model>_<scm>_<num>``. The
-model loads as ``api.LoadedModel`` does, so a DR checkpoint raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11).
+model loads as ``api.LoadedModel`` does. A DR checkpoint is refused: the
+JAX metric cannot build one either (it builds the model without the
+spurious wiring, and node 5 is not the sum of the 4 factor latents).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-from ..api import LoadedModel
+from ..api import LoadedModel, is_dr
 from ..data.pendulum import PendulumDataset
 from ..eval.metric import cdm_matrices
 from ..models.classifier import FactorClassifier
@@ -62,6 +63,11 @@ def main(argv=None):
     args = get_args(argv)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # exact structural zeros
+    if is_dr(load_checkpoint(args.checkpoint)["config"] or {}):
+        raise SystemExit(
+            f"{args.checkpoint} is a DR checkpoint (node 5, spurious "
+            "latent): the CDM metric scores the pendulum family only, as "
+            "the JAX package's metric does")
     loaded = LoadedModel.load(args.checkpoint, device=device)
     model, config = loaded.model, loaded.config
     set_random_seed(config["seed"])

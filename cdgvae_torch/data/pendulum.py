@@ -33,10 +33,10 @@ def shadow_physics(light_angle: np.ndarray, pendulum_angle: np.ndarray,
     return right - left, (right + left) / 2.0
 
 
-def sample_factors_real(seed: int = 1, n: int = 10000):
-    """The pendulum_real DGP. Returns (factors [n,5], is_test [n]) where
-    factor columns are (light, angle, length, position, target)."""
-    rng = np.random.RandomState(seed)
+def shadow_draws(rng: np.random.RandomState, n: int):
+    """The draws that the pendulum_real and DR DGPs share, in their order:
+    (light, angle, length, position) of ``n`` rows, the shadow measured
+    with error and every 5th row's resampled."""
     light = rng.uniform(math.pi / 4, math.pi / 2, n)
     angle = rng.uniform(0, math.pi / 4, n)
     length, position = shadow_physics(light, angle)
@@ -49,7 +49,14 @@ def sample_factors_real(seed: int = 1, n: int = 10000):
     corrupt = (np.arange(n) + 1) % 5 == 0
     length = np.where(corrupt, rng.uniform(0, 12, n), length)
     position = np.where(corrupt, rng.uniform(0, 12, n), position)
+    return light, angle, length, position
 
+
+def sample_factors_real(seed: int = 1, n: int = 10000):
+    """The pendulum_real DGP. Returns (factors [n,5], is_test [n]) where
+    factor columns are (light, angle, length, position, target)."""
+    rng = np.random.RandomState(seed)
+    light, angle, length, position = shadow_draws(rng, n)
     logit = np.stack([light, angle, length, position], 1) @ _BETA
     p = 1.0 / (1.0 + np.exp(-logit + 2.0 * np.sin(logit)))
     target = rng.binomial(1, p).astype(np.float64)
@@ -125,12 +132,21 @@ class PendulumDataset:
 
 
 def _render_images(factors: np.ndarray, image_size: int, device,
+                   background: np.ndarray | None = None,
                    chunk: int = 2048) -> torch.Tensor:
-    """Render every image once on ``device``. The CUDA kernel needs no
+    """Render every image of ``factors`` [n, 4] (and the DR family's
+    ``background`` bits [n]) once on ``device``. The CUDA kernel needs no
     scratch, so the whole split is one launch that writes each image in
     place; the plain version on the CPU goes in chunks, which bound its
     temporaries."""
-    f = torch.as_tensor(factors, dtype=torch.float32, device=device)
+    f = torch.as_tensor(np.ascontiguousarray(factors), dtype=torch.float32,
+                        device=device)
+    bg = None if background is None else torch.as_tensor(
+        np.ascontiguousarray(background), dtype=torch.float32, device=device)
     if f.device.type == "cuda":
-        return render(f, size=image_size)
-    return torch.cat([render(c, size=image_size) for c in f.split(chunk)])
+        return render(f, size=image_size, background=bg)
+    return torch.cat([render(c, size=image_size,
+                             background=None if bg is None
+                             else bg[i: i + chunk])
+                      for i, c in zip(range(0, len(f), chunk),
+                                      f.split(chunk))])

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from .models.classifier import Discriminator
-from .models.vae import CDGVAE, VAE, pendulum_masks
+from .models.vae import CDGVAE, VAE, default_block_indices, pendulum_masks
 from .ops.causal import CausalGraph, scale_adjacency
 from .utils.device import resolve_device
 
@@ -33,11 +33,10 @@ def build_pendulum_model(config: dict, spurious: bool = False, *,
                          device="cuda", seed: int = 0):
     """Build the pendulum-family model named by ``config['model']`` on
     ``device``, with weights drawn from ``seed``. Returns (model,
-    discriminator), the discriminator for InfoMax and None otherwise."""
-    if spurious:
-        raise NotImplementedError(
-            "the DR wiring (spurious=True) is not ported yet: ROADMAP "
-            "Queue 1 item 11 (DR family)")
+    discriminator), the discriminator for InfoMax and None otherwise.
+    ``spurious=True`` is the DR wiring: every CDG-VAE decoder block also
+    sees the last (spurious background) latent, ``[[0, 4], [1, 4], [2, 3,
+    4]]`` at node 5."""
     name = config["model"]
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
@@ -56,6 +55,11 @@ def build_pendulum_model(config: dict, spurious: bool = False, *,
     if name in ("CDGVAE", "CDGVAEsemi"):
         factor = config["factor"]
         masks = pendulum_masks(image_size, k=len(factor))
+        block_indices = None
+        if spurious:
+            block_indices = [block + [node - 1]
+                             for block in default_block_indices(factor)]
         return CDGVAE(graph, masks, factor, image_size=image_size,
-                      generator=generator, device=device), None
+                      block_indices=block_indices, generator=generator,
+                      device=device), None
     raise ValueError("Not supported model!")

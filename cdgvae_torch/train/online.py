@@ -1,5 +1,5 @@
-"""Online (fresh-data-per-step) training for the pendulum family, single
-device (port of ``cdgvae_tpu/train/online.py:45-124,187-312``).
+"""Online (fresh-data-per-step) training for the pendulum and DR families,
+single device (port of ``cdgvae_tpu/train/online.py:45-184,187-312``).
 
 Every step draws a fresh batch from the pendulum_real DGP on the device,
 renders it and takes a train step: no dataset, no input pipeline. On CUDA
@@ -21,8 +21,10 @@ Step i of a run draws its data and its noise from a generator derived from
 run would. Nothing in a step waits for the device or copies to it:
 metrics stay on it until the caller reads them. The semi-supervised
 trainer takes a fresh unlabeled batch every step and a subsample of a
-labeled set that lies on the device. DR and sharded online training are
-not ported yet (ROADMAP Queue 1 items 11 and 14).
+labeled set that lies on the device. The DR DGP (:func:`dr_batch_fn`)
+draws one more uniform, the background's, and renders the background bit
+through the same kernel launch. Sharded online training is not ported yet
+(ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..data.pendulum import _BETA, sample_factors_real, shadow_physics
+from ..data.pendulum_dr import sample_factors_dr
 from ..ops.renderer import render
 from ..utils.simulation import ONLINE_STEP, derived_seed
 from .scanned import make_supervised_loss_fn
@@ -86,19 +89,23 @@ def _physics_with_corruption(d: Draws, index_offset: int = 0):
     return d.light, d.angle, length, position
 
 
+def _target(factors, target_u: torch.Tensor) -> torch.Tensor:
+    """The target Bernoulli(p), p = sigmoid(logit - 2 sin(logit)), logit =
+    ``factors`` (four columns) @ _BETA, as ``target_u < p`` float32."""
+    # Python-float weights: a weight tensor would be a blocking
+    # host-to-device copy every step
+    logit = (factors[0] * _BETA_F[0] + factors[1] * _BETA_F[1]
+             + factors[2] * _BETA_F[2] + factors[3] * _BETA_F[3])
+    p = 1.0 / (1.0 + torch.exp(-logit + 2.0 * torch.sin(logit)))
+    return (target_u < p).to(torch.float32)
+
+
 def factors_from_draws(d: Draws, index_offset: int = 0) -> torch.Tensor:
     """The pendulum_real DGP as a function of its draws: [n, 5] float32
     (light, angle, length, position, target), the target Bernoulli(p) with
     the -2 sin(logit) nonlinearity."""
-    light, angle, length, position = _physics_with_corruption(d,
-                                                              index_offset)
-    # [light, angle, length, position] @ _BETA with Python-float weights: a
-    # weight tensor would be a blocking host-to-device copy every step
-    logit = (light * _BETA_F[0] + angle * _BETA_F[1] + length * _BETA_F[2]
-             + position * _BETA_F[3])
-    p = 1.0 / (1.0 + torch.exp(-logit + 2.0 * torch.sin(logit)))
-    target = (d.target_u < p).to(torch.float32)
-    return torch.stack([light, angle, length, position, target], dim=1)
+    f4 = _physics_with_corruption(d, index_offset)
+    return torch.stack([*f4, _target(f4, d.target_u)], dim=1)
 
 
 def sample_factors_device(generator: torch.Generator, n: int,
@@ -140,6 +147,72 @@ def pendulum_batch_fn(batch_size: int, image_size: int = 64,
         x = render(factors[:, :4].contiguous(), size=image_size, out=images)
         y = ((factors - mu) - mn) / (mx - mn)
         return x, y
+    return sample
+
+
+def dr_label_norm_stats(seed: int = 1, n: int = 10000,
+                        device: str | torch.device = "cpu"):
+    """The DR family's frozen constants, from a host draw of its train
+    split: the mean of the four physics factors (it centres the target
+    logit and the labels) and the centred min and max, float32 on
+    ``device``. The background and target columns are 0/1 and stay raw."""
+    train, _ = sample_factors_dr(seed, n)
+    mu4 = train[:, :4].mean(axis=0)
+    centered = train[:, :4] - mu4
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in (mu4, centered.min(axis=0), centered.max(axis=0)))
+
+
+def dr_factors_from_draws(d: Draws, background_u: torch.Tensor,
+                          mu4: torch.Tensor, p1: float = 0.8,
+                          p0: float = 0.2,
+                          index_offset: int = 0) -> torch.Tensor:
+    """The DR DGP's train split as a function of its draws: the pendulum
+    physics, the target tau = ``target_u < p`` from the logit of the
+    factors centred by the frozen train mean ``mu4`` [4] (a tensor on the
+    draws' device), and the spurious background = ``background_u`` [n] <
+    (p1 if tau else p0). No rounding to 4 decimals, as the reference's
+    device twin. Returns [n, 6] float32 (light, angle, length, position,
+    background, target)."""
+    f4 = torch.stack(_physics_with_corruption(d, index_offset), dim=1)
+    tau = _target((f4 - mu4).unbind(1), d.target_u)
+    background = (background_u < torch.where(tau == 1.0, p1, p0)).to(
+        torch.float32)
+    return torch.cat([f4, background[:, None], tau[:, None]], dim=1)
+
+
+def sample_factors_dr_device(generator: torch.Generator, n: int,
+                             mu4: torch.Tensor, p1: float = 0.8,
+                             p0: float = 0.2,
+                             index_offset: int = 0) -> torch.Tensor:
+    """Device-side DR DGP: [n, 6] float32 on the generator's device."""
+    draws = sample_draws(generator, n)
+    background_u = torch.rand((n,), generator=generator,
+                              device=generator.device)
+    return dr_factors_from_draws(draws, background_u, mu4, p1, p0,
+                                 index_offset)
+
+
+def dr_batch_fn(batch_size: int, image_size: int = 64, norm_seed: int = 1,
+                norm_n: int = 10000, *,
+                device: str | torch.device = "cuda") -> Callable:
+    """``sample_batch(generator, index_offset=0) -> (x, y)`` for the DR
+    family: device DGP draw -> render with the background bit ->
+    frozen-constant normalization of the four physics labels (background
+    and target stay 0/1). As :func:`pendulum_batch_fn`, the constants are
+    computed once, here, and ``x`` is one buffer rendered in place."""
+    device = torch.device(device)
+    mu4, mn, mx = dr_label_norm_stats(norm_seed, norm_n, device=device)
+    images = torch.empty((batch_size, image_size, image_size, 3),
+                         dtype=torch.float32, device=device)
+
+    def sample(generator: torch.Generator, index_offset: int = 0):
+        f = sample_factors_dr_device(generator, batch_size, mu4,
+                                     index_offset=index_offset)
+        x = render(f[:, :4].contiguous(), size=image_size,
+                   background=f[:, 4].contiguous(), out=images)
+        y4 = ((f[:, :4] - mu4) - mn) / (mx - mn)
+        return x, torch.cat([y4, f[:, 4:]], dim=1)
     return sample
 
 

@@ -30,11 +30,14 @@ def _metrics(loss, recon, kl, align, logvar, node, extra=None) -> dict:
     return m
 
 
-def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+def make_optimizer(model: torch.nn.Module, lr: float,
+                   capturable: bool = False) -> torch.optim.Adam:
     """Adam with optax.adam's defaults, whose update is algebraically the
-    same: b1 0.9, b2 0.999, eps 1e-8 added outside the square root."""
+    same: b1 0.9, b2 0.999, eps 1e-8 added outside the square root.
+    ``capturable=True`` keeps its step counts on the device, so that a CUDA
+    graph can hold the update."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+                            eps=1e-8, capturable=capturable)
 
 
 def step_from_loss(loss_fn: Callable, optimizer) -> Callable:

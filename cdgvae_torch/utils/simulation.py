@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 # streams of derived generators, so that no two uses share a seed
-EPOCH, ONLINE_STEP, VIZ_BATCH, VIZ_NOISE = range(4)
+EPOCH, ONLINE_STEP, VIZ_BATCH, VIZ_NOISE, DOWNSTREAM = range(5)
 
 
 def set_random_seed(seed: int):

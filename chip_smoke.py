@@ -53,10 +53,23 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 13. eval: ``cli.main_classifier`` for 2 epochs, ``cli.metric`` on phase 8's
     and phase 11's checkpoints, whose structural-zero CDM entries must read
     exactly 0.0; ``cdm_matrices`` on 512 images on the card against the
-    CPU; ``cli.inference`` writes its seven figures; the CLIs' wall times.
+    CPU; ``cli.inference`` writes its seven figures; the CLIs' wall times;
+14. DR and downstream: the DR train split rendered in one launch with the
+    background bit and held against ``render_reference``, the kernel with
+    the bit timed at 3,712 and 128 images beside its bound and the time
+    without the bit; ``cli.dr_main`` (node 5, lambda 20) for 2 epochs,
+    ``--resume`` to 3, ``--eager``, ``--online`` and ``--model InfoMax``,
+    and ``cli.dr_main_semi`` fixed and ``--online``, losses finite and
+    falling; the online DR batch against ``render_reference``; the
+    full-width DR loss and the served DR checkpoint on the card against
+    the CPU; host time a step of the DR dataset, online and semi steps
+    interleaved with the dataset step, and their profiled windows (no
+    host wait or copy); ``cli.dr_robustness``, ``cli.sample_efficiency``
+    (phase 8's checkpoint), ``cli.toy_dr`` and ``cli.inference`` on the DR
+    checkpoint, with their walls and what a run at the defaults takes.
 
 The render kernel's launches are counted around each path (phases 4, 8
-and 10-13) and summed in the ``{"kernels": [...]}`` JSON line, which is
+and 10-14) and summed in the ``{"kernels": [...]}`` JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -106,6 +119,14 @@ MAX_ABS_TOL_512 = 2e-4
 SERVE_TOL = 1e-4
 SERVE_BATCHES = (1, 7, 128)
 BATCH_L, LR_D, GAMMA = 32, 1e-4, 1.0  # main_semi's and InfoMax's defaults
+DR_LAM = 20.0  # dr_main's default; dr_main_semi keeps LAM
+# the downstream evals at a cut that fits the time limit (their defaults
+# are 10 repeats and 500 robustness epochs; phase 14 prints what those
+# would take)
+EVAL_REPEATS, ROBUSTNESS_EPOCHS = 3, 100
+# the downstream fit on the card (CUDA-graph epochs) against the CPU's
+# eager steps: 2 epochs of float32 products summed in other orders
+FIT_TOL = 1e-5
 # CDM on the card against the CPU: scores are sigmoids of float32 sums over
 # 12,288 pixels in other orders, averaged over the images
 CDM_TOL = 1e-4
@@ -251,6 +272,11 @@ def read_records(path: Path) -> list[dict]:
         return [json.loads(line) for line in f]
 
 
+def read_text_lines(path: Path) -> list[str]:
+    with open(path) as f:
+        return f.read().splitlines()
+
+
 def render_bound_ms(n: int, size: int, background: bool) -> tuple[float, str]:
     """Least time for the render: each input read once, the output written
     once, against the float32 operations it must do."""
@@ -258,6 +284,375 @@ def render_bound_ms(n: int, size: int, background: bool) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n * size * size * RENDER_OPS_PER_PIXEL / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
+                      online_steps: int, path_launches: dict,
+                      pendulum_ckpt: Path, pendulum_rows: dict,
+                      dataset_epoch, check_render, finite_falling,
+                      profiled_steps) -> float:
+    """Phase 14: the render kernel on DR data (the background bit set on
+    about half the images), the DR trainers through ``cli.dr_main`` and
+    ``cli.dr_main_semi``, the full-width DR model and its serving on the
+    card against the CPU, the DR steps' host and device time, and the
+    downstream evals. Adds the DR paths' render launches to
+    ``path_launches``; returns the largest max |d| of its render checks."""
+    from cdgvae_torch.api import LoadedModel
+    from cdgvae_torch.data.pendulum_dr import PendulumDRDataset
+    from cdgvae_torch.eval.downstream import train_downstream
+    from cdgvae_torch.factory import build_pendulum_model
+    from cdgvae_torch.models.classifier import DownstreamClassifier
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.ops.renderer import render_reference
+    from cdgvae_torch.train.online import (dr_batch_fn, dr_label_norm_stats,
+                                           make_online_scanned_steps,
+                                           sample_factors_dr_device,
+                                           train_split_size)
+    from cdgvae_torch.train.scanned import (Averager, epoch_batches,
+                                            labeled_batches,
+                                            make_epoch_runner,
+                                            make_scanned_epochs_semi,
+                                            make_supervised_loss_fn)
+    from cdgvae_torch.train.steps import (make_optimizer, make_semi_step,
+                                          make_train_step)
+    from cdgvae_torch.utils.checkpoint import load_checkpoint
+
+    # the DR train split: one launch with the background column
+    renderer_cuda.launches = 0
+    t0 = time.perf_counter()
+    dr_ds = PendulumDRDataset(n=N_SAMPLES, device=dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    check(renderer_cuda.launches == 1 and len(dr_ds) == 3712,
+          f"DR dataset: {renderer_cuda.launches} launches, {len(dr_ds)} "
+          "images")
+    f_dr = torch.as_tensor(dr_ds.factors[:, :4], dtype=torch.float32,
+                           device=dev)
+    bg_dr = torch.as_tensor(dr_ds.factors[:, 4], dtype=torch.float32,
+                            device=dev)
+    print(f"DR dataset build ({len(dr_ds)} train images, "
+          f"{dr_ds.factors[:, 4].mean():.3f} of them with the background "
+          f"bit): {build_ms:.3f} ms (host clock) [{card}]")
+    max_err = check_render("DR dataset B=3712 bg", dr_ds.x_data, f_dr, 64,
+                           bg_dr)
+    for n in (3712, 128):
+        f, bg = f_dr[:n], bg_dr[:n]
+        max_err = max(max_err, check_render(
+            f"DR B={n} bg", renderer_cuda.render_cuda(f, 64, bg), f, 64, bg))
+        k_ms = time_ms(lambda: renderer_cuda.render_cuda(f, 64, bg))
+        k_plain_bits = time_ms(lambda: renderer_cuda.render_cuda(f, 64))
+        p_ms = time_ms(lambda: render_reference(f, 64, bg), reps=5)
+        b_ms, b_by = render_bound_ms(n, 64, background=True)
+        out = torch.empty((n, 64, 64, 3), device=dev)
+        busy, _, _, _, _ = profile_window(
+            lambda: [renderer_cuda.render_cuda(f, 64, bg, out=out)
+                     for _ in range(20)])
+        device_us = f"{busy / 20 * 1e6:.2f} us" if busy > 0 else \
+            "not measured"
+        print(f"render DR B={n} with the background bit: kernel "
+              f"{k_ms * 1e3:.2f} us (device {device_us}), plain "
+              f"{p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}); "
+              f"the same factors without the bit {k_plain_bits * 1e3:.2f} "
+              f"us; phase 6 (pendulum factors, no bit) "
+              f"{pendulum_rows[n][0] * 1e3:.2f} us [{card}]")
+
+    # cli.dr_main: 2 epochs, --resume to 3, --eager 1 epoch, --online,
+    # --model InfoMax
+    dr_dir = work / "dr"
+    dr_ckpt = dr_dir / "model_DR_CDGVAE_linear"
+    args = ["--n_samples", str(N_SAMPLES)]
+    renderer_cuda.launches = 0
+    _, _, dr_s = run_cli(args + ["--epochs", "2", "--assets_dir",
+                                 str(dr_dir)], "dr_main")
+    said, _, _ = run_cli(args + ["--epochs", "3", "--assets_dir",
+                                 str(dr_dir), "--resume", str(dr_ckpt)],
+                         "dr_main")
+    check(f"resumed from {dr_ckpt} at epoch 2" in said, "DR: no 'resumed' "
+          "line")
+    ck = load_checkpoint(str(dr_ckpt))
+    cfg = ck["config"]
+    check(ck["step"] == 3 and int(ck["opt_state"][0].count) == 3 * steps,
+          f"DR checkpoint at step {ck['step']}, Adam count "
+          f"{int(ck['opt_state'][0].count)}")
+    check(cfg["spurious"] is True and cfg["node"] == 5
+          and cfg["lambda"] == 20, f"DR checkpoint config {cfg}")
+    losses = finite_falling("DR", read_records(dr_dir / "metrics.jsonl"))
+    eager_dir = work / "dr_eager"
+    _, _, eager_s = run_cli(args + ["--eager", "--epochs", "1",
+                                    "--assets_dir", str(eager_dir)],
+                            "dr_main")
+    eager = [r["loss"] for r in read_records(eager_dir / "metrics.jsonl")]
+    check(len(eager) == 1 and math.isfinite(eager[0]),
+          f"DR --eager losses {eager}")
+    path_launches["dr"] = renderer_cuda.launches
+    check(path_launches["dr"] == 3, f"DR: {path_launches['dr']} render "
+          "launches, not 3 (2 epochs, the resume, --eager)")
+    print(f"DR cli: 2 epochs in {dr_s:.3f} s, resumed to 3, --eager 1 epoch "
+          f"in {eager_s:.3f} s (host clock, dataset builds included); "
+          f"losses {losses}, eager {eager}; launches {{'render': "
+          f"{path_launches['dr']}}} [{card}]")
+
+    online_dir = work / "dr_online"
+    renderer_cuda.launches = 0
+    _, _, online_s = run_cli(args + ["--online", "--epochs", "2",
+                                     "--assets_dir", str(online_dir)],
+                             "dr_main")
+    path_launches["dr online"] = renderer_cuda.launches
+    check(path_launches["dr online"] >= online_steps,
+          f"DR online: {path_launches['dr online']} render launches for "
+          f"{online_steps} steps")
+    losses = finite_falling("DR online",
+                            read_records(online_dir / "metrics.jsonl"))
+    print(f"DR online cli: {online_steps} steps in {online_s:.3f} s (host "
+          f"clock), losses {losses}; launches {{'render': "
+          f"{path_launches['dr online']}}} [{card}]")
+
+    im_dir = work / "dr_infomax"
+    renderer_cuda.launches = 0
+    _, _, im_s = run_cli(args + ["--model", "InfoMax", "--epochs", "2",
+                                 "--assets_dir", str(im_dir)], "dr_main")
+    path_launches["dr infomax"] = renderer_cuda.launches
+    check(path_launches["dr infomax"] == 1, f"DR InfoMax: "
+          f"{path_launches['dr infomax']} render launches, not 1")
+    extras = load_checkpoint(str(im_dir / "model_DR_InfoMax_linear"))[
+        "extras"] or {}
+    check({"d_params", "opt_state_d"} <= set(extras),
+          f"DR InfoMax checkpoint extras {sorted(extras)}")
+    records = read_records(im_dir / "metrics.jsonl")
+    check(all(math.isfinite(r["MutualInfo"]) for r in records),
+          "DR InfoMax: non-finite MutualInfo")
+    losses = finite_falling("DR InfoMax", records)
+    print(f"DR InfoMax cli: 2 epochs in {im_s:.3f} s (host clock), losses "
+          f"{losses}; launches {{'render': {path_launches['dr infomax']}}} "
+          f"[{card}]")
+
+    # the online DR batch, drawn and rendered into the batch function's
+    # buffer, against render_reference of the same draw, background included
+    sample = dr_batch_fn(BATCH, 64, device=dev)
+    x_online, y_online = sample(torch.Generator(device=dev).manual_seed(5))
+    f_online = sample_factors_dr_device(
+        torch.Generator(device=dev).manual_seed(5), BATCH,
+        dr_label_norm_stats(device=dev)[0])
+    check(y_online.shape == (BATCH, 6), f"DR online labels {y_online.shape}")
+    max_err = max(max_err, check_render(
+        f"DR online batch B={BATCH} (dr_batch_fn)", x_online,
+        f_online[:, :4].contiguous(), 64, f_online[:, 4].contiguous()))
+
+    # cli.dr_main_semi: 2 epochs, then --online
+    semi_args = args + ["--labeled_ratio", "0.1", "--batch_sizeL",
+                        str(BATCH_L)]
+    semi_dir, semi_online_dir = work / "dr_semi", work / "dr_semi_online"
+    renderer_cuda.launches = 0
+    _, _, semi_s = run_cli(semi_args + ["--epochs", "2", "--assets_dir",
+                                        str(semi_dir)], "dr_main_semi")
+    path_launches["dr semi"] = renderer_cuda.launches
+    check(path_launches["dr semi"] == 2, f"DR semi: "
+          f"{path_launches['dr semi']} render launches, not 2")
+    semi_cfg = load_checkpoint(str(
+        semi_dir / "model_DR_CDGVAEsemi_nonlinear"))["config"]
+    check(semi_cfg["lambda"] == 5 and semi_cfg["node"] == 5,
+          f"DR semi config lambda {semi_cfg['lambda']} node "
+          f"{semi_cfg['node']}")
+    losses = finite_falling("DR semi", read_records(semi_dir /
+                                                    "metrics.jsonl"))
+    renderer_cuda.launches = 0
+    _, _, semi_online_s = run_cli(semi_args + [
+        "--online", "--epochs", "2", "--assets_dir", str(semi_online_dir)],
+        "dr_main_semi")
+    path_launches["dr semi online"] = renderer_cuda.launches
+    check(path_launches["dr semi online"] >= online_steps + 1,
+          f"DR semi online: {path_launches['dr semi online']} render "
+          f"launches for {online_steps} steps")
+    online_losses = finite_falling(
+        "DR semi online", read_records(semi_online_dir / "metrics.jsonl"))
+    print(f"DR semi cli: 2 epochs in {semi_s:.3f} s, losses {losses}; "
+          f"--online {online_steps} steps in {semi_online_s:.3f} s, losses "
+          f"{online_losses} (host clock); launches {{'render': "
+          f"{path_launches['dr semi']}}} and {{'render': "
+          f"{path_launches['dr semi online']}}} [{card}]")
+
+    # the full-width DR model on the card against the CPU (same weights,
+    # batch and noise), then serving the DR checkpoint on both
+    dr_cfg = dict(FLAGSHIP, node=5)
+    noise = torch.as_tensor(rng.standard_normal((BATCH, 5)),
+                            dtype=torch.float32)
+    result = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        m, _ = build_pendulum_model(dr_cfg, spurious=True, device=d, seed=0)
+        loss, _ = make_supervised_loss_fn(m, BETA, DR_LAM)(
+            dr_ds.x_data[:BATCH].to(d), dr_ds.y_data[:BATCH].to(d),
+            noise=noise.to(d))
+        result[name] = loss.item()
+    rel = abs(result["cuda"] - result["cpu"]) / abs(result["cpu"])
+    print(f"full-width DR loss cuda {result['cuda']:.6f} cpu "
+          f"{result['cpu']:.6f} rel {rel:.2e}")
+    check(rel <= 1e-5, "full-width DR loss on the card disagrees with the "
+          "CPU")
+    served = {"cuda": LoadedModel.load(str(dr_ckpt), device=dev),
+              "cpu": LoadedModel.load(str(dr_ckpt), device="cpu")}
+    check(served["cuda"].model.kmax == 3, "the served DR model is not the "
+          "spurious wiring")
+    x_host = dr_ds.x_data[:BATCH].cpu().numpy()
+    requests = {"encode": lambda m, x: m.encode(x),
+                "reconstruct": lambda m, x: m.reconstruct(x)}
+    for d in range(5):
+        requests[f"counterfactual do{d}"] = (
+            lambda m, x, d=d: m.counterfactual(x, d, 0.5))
+    serve_err = 0.0
+    for b in (7, BATCH):
+        for name, req in requests.items():
+            got, want = req(served["cuda"], x_host[:b]), req(served["cpu"],
+                                                              x_host[:b])
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"DR serve {name} b={b}: shape {got.shape} or non-finite")
+            err = float(np.abs(got - want).max())
+            serve_err = max(serve_err, err)
+            check(err <= SERVE_TOL, f"DR serve {name} b={b}: cuda against "
+                  f"cpu max |d| {err} > {SERVE_TOL}")
+    print(f"DR serving (encode, reconstruct, counterfactual on 5 nodes, "
+          f"batch 7 and {BATCH}): max |d| cuda against cpu {serve_err:.3e} "
+          f"(limit {SERVE_TOL})")
+
+    # host time a step of the DR paths, interleaved with the pendulum
+    # dataset step, then profiled windows of 10 steps
+    def dr_model():
+        m, _ = build_pendulum_model(dr_cfg, spurious=True, device=dev, seed=0)
+        return m, make_optimizer(m, LR)
+
+    model, opt = dr_model()
+    dr_step = make_train_step(model, opt, BETA, DR_LAM)
+    dr_epoch = make_epoch_runner(dr_step, BATCH)
+    model, opt = dr_model()
+    online_run = {n: make_online_scanned_steps(
+        model, opt, BETA, DR_LAM, BATCH, n, 64, sample_batch=sample, seed=1,
+        device=dev) for n in (steps, 10)}
+    model, opt = dr_model()
+    semi_step = make_semi_step(model, opt, BETA, LAM)
+    semi_epoch = make_scanned_epochs_semi(semi_step, BATCH, BATCH_L)
+    n_l = int(len(dr_ds) * 0.1)
+    x_l, y_l = dr_ds.x_data[:n_l], dr_ds.y_data[:n_l]
+
+    def online_epoch(k):
+        avg = Averager()
+        avg.add(online_run[steps](k * steps))
+        return avg.result()
+
+    med = interleaved_ms({
+        "dataset": dataset_epoch,
+        "DR dataset": lambda k: dr_epoch(
+            dr_ds.x_data, dr_ds.y_data,
+            torch.Generator(device=dev).manual_seed(500 + k)),
+        "DR online": online_epoch,
+        "DR semi": lambda k: semi_epoch(
+            dr_ds.x_data, x_l, y_l,
+            torch.Generator(device=dev).manual_seed(600 + k))}, steps, card)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    order = epoch_batches(len(dr_ds), BATCH, gen)[:10]
+    profiled_steps("DR dataset step", lambda: [
+        dr_step(dr_ds.x_data[i], dr_ds.y_data[i], generator=gen)
+        for i in order], 10, med["DR dataset"])
+    kernels = profiled_steps("DR online step", lambda: online_run[10](0), 10,
+                             med["DR online"])
+    render_us = sum(k.self_device_time_total for k in kernels
+                    if "render_kernel" in k.key) / 10
+    print(f"DR online step: render kernel {render_us:.2f} us device time a "
+          f"step [{card}]")
+    batches = list(zip(order, labeled_batches(n_l, 10, BATCH_L, gen)))
+    profiled_steps("DR semi step", lambda: [
+        semi_step(dr_ds.x_data[u], x_l[lb], y_l[lb], generator=gen)
+        for u, lb in batches], 10, med["DR semi"])
+
+    # the downstream evals: robustness on this phase's DR checkpoint,
+    # sample efficiency on phase 8's, the toy experiment, and inference on
+    # the DR checkpoint
+    renderer_cuda.launches = 0
+    rob_dir, se_dir = work / "robustness", work / "sample_efficiency"
+    _, rob, rob_s = run_cli(["--checkpoint", str(dr_ckpt), "--repeats",
+                             str(EVAL_REPEATS), "--epochs",
+                             str(ROBUSTNESS_EPOCHS), "--assets_dir",
+                             str(rob_dir)], "dr_robustness")
+    check(0.0 <= rob["worst_group_accuracy"] <= rob["avg_accuracy"] <= 1.0,
+          f"robustness {rob}")
+    check(len(read_text_lines(rob_dir / "CDGVAE_linear_0.txt")) == 2,
+          "dr_robustness did not write its two lines")
+    _, se, se_s = run_cli(["--checkpoint", str(pendulum_ckpt), "--repeats",
+                           str(EVAL_REPEATS), "--assets_dir", str(se_dir)],
+                          "sample_efficiency")
+    check(all(0.0 <= se[k] <= 1.0 for k in ("accuracy_100",
+                                             "accuracy_all")),
+          f"sample efficiency {se}")
+    check(len(read_text_lines(se_dir / "CDGVAE_linear_0.txt")) == 3,
+          "sample_efficiency did not write its three lines")
+    _, toy, toy_s = run_cli([], "toy_dr")
+    check(all(0.0 <= a <= 1.0 for pair in toy.values() for a in pair),
+          f"toy_dr accuracies {toy}")
+    _, grid, inf_s = run_cli(["--checkpoint", str(dr_ckpt), "--assets_dir",
+                              str(work / "dr_inference")], "inference")
+    check(grid.shape == (5, 7, 64, 64, 3) and np.isfinite(grid).all(),
+          f"DR do grid {grid.shape}")
+    path_launches["dr eval"] = renderer_cuda.launches
+    check(path_launches["dr eval"] == 5, f"DR eval: "
+          f"{path_launches['dr eval']} render launches, not 5 (robustness "
+          "2, sample efficiency 2, inference 1)")
+    print(f"downstream cli wall (host clock, dataset builds included): "
+          f"dr_robustness --repeats {EVAL_REPEATS} --epochs "
+          f"{ROBUSTNESS_EPOCHS} {rob_s:.3f} s (average "
+          f"{rob['avg_accuracy']:.4f}, worst group "
+          f"{rob['worst_group_accuracy']:.4f}); sample_efficiency --repeats "
+          f"{EVAL_REPEATS} {se_s:.3f} s ({se}); toy_dr {toy_s:.3f} s; "
+          f"inference on the DR checkpoint {inf_s:.3f} s; launches "
+          f"{{'render': {path_launches['dr eval']}}} [{card}]")
+
+    # a default run's fits: 10 repeats stacked, 7,500 train rows at batch
+    # 64 (117 steps an epoch). The fit on the card (a CUDA graph an epoch)
+    # against the CPU's eager steps from the same init and row orders, then
+    # its set-up (warm-up step and capture) and its time a step, replayed
+    n_rows, members = train_split_size(10000), 10
+    g = torch.Generator(device=dev).manual_seed(0)
+    reps = torch.randn((members, n_rows, 4), generator=g, device=dev)
+    targets = (torch.rand((members, n_rows, 1), generator=g, device=dev)
+               < torch.sigmoid(2 * reps[..., :1])).float()
+    perms = torch.rand((2, members, n_rows), generator=g,
+                       device=dev).argsort(dim=2)
+    fits = {}
+    for d in ("cpu", dev):
+        init = DownstreamClassifier(4, members, generator=torch.Generator()
+                                    .manual_seed(0), device=d)
+        fits[d] = train_downstream(reps.to(d), targets.to(d), 0, epochs=2,
+                                   batch_size=64, init=init,
+                                   perms=perms.to(d)).trees()
+    fit_err = max(float(np.abs(a["classify"][layer][k]
+                               - b["classify"][layer][k]).max())
+                  for a, b in zip(fits[dev], fits["cpu"])
+                  for layer in ("layer0", "layer1") for k in ("w", "b"))
+    print(f"downstream fit, 10 repeats x 2 epochs of {n_rows // 64} steps: "
+          f"params cuda against cpu max |d| {fit_err:.3e} (limit "
+          f"{FIT_TOL})")
+    check(fit_err <= FIT_TOL, "the downstream fit on the card disagrees "
+          "with the CPU")
+    walls = {}
+    for epochs in (1, 21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_downstream(reps, targets, 0, epochs=epochs, batch_size=64)
+        torch.cuda.synchronize()
+        walls[epochs] = time.perf_counter() - t0
+    per_epoch = n_rows // 64
+    step_s = (walls[21] - walls[1]) / (20 * per_epoch)
+    setup_s = walls[1] - per_epoch * step_s
+    rob_steps = 500 * per_epoch
+    se_steps = 100 * (100 // 32) + 100 * per_epoch
+    print(f"downstream fit: {step_s * 1e6:.2f} us a step of 10 stacked "
+          f"repeats (host clock over 20 replayed epochs of {per_epoch}), "
+          f"{setup_s * 1e3:.1f} ms of set-up a fit (warm-up step and "
+          f"capture). At the defaults (10,000 samples, 10 repeats), "
+          f"dr_robustness fits 500 epochs x {per_epoch} = {rob_steps} steps, "
+          f"about {setup_s + rob_steps * step_s:.2f} s at these rates, and "
+          f"renders 2 launches; sample_efficiency fits 100 x {100 // 32} + "
+          f"100 x {per_epoch} = {se_steps} steps in two fits, about "
+          f"{2 * setup_s + se_steps * step_s:.2f} s, and renders 2 launches "
+          f"[{card}]")
+    return max_err
 
 
 def main() -> int:
@@ -641,10 +1036,11 @@ def main() -> int:
               f"{name}: losses not finite and falling: {losses}")
         return losses
 
-    def profiled_steps(name: str, fn, n: int, step_s: float):
+    def profiled_steps(name: str, fn, n: int, step_s: float) -> list:
         """Profile ``fn`` (n steps): busy share against the unprofiled host
-        time a step ``step_s``; fail on a host wait or copy."""
-        busy, wall, table, _, waits = profile_window(fn)
+        time a step ``step_s``; fail on a host wait or copy. Returns the
+        window's kernels, sorted by device time."""
+        busy, wall, table, kernels, waits = profile_window(fn)
         if busy > 0:
             print(f"{name}, profiled {n} steps: device busy {busy * 1e3:.3f} "
                   f"ms of {wall * 1e3:.3f} ms wall; per step "
@@ -657,6 +1053,7 @@ def main() -> int:
                   "measured")
         check(not waits, f"{name} waits for the device or copies to or from "
               f"it: {waits}")
+        return kernels
 
     # 11. semi-supervised training through cli.main_semi: the fixed
     # datasets (labeled 10%, 371 rows), --resume, then --online
@@ -844,6 +1241,15 @@ def main() -> int:
           + "; ".join(f"{k} {v:.3f} s" for k, v in metric_s.items())
           + f"; inference {inf_s:.3f} s; launches {{'render': "
           f"{path_launches['eval']}}} [{card}]")
+    probe_host("phase 13")
+
+    # 14. DR and downstream
+    max_err = max(max_err, dr_and_downstream(
+        work=work, card=card, dev=dev, rng=rng, steps=steps,
+        online_steps=online_steps, path_launches=path_launches,
+        pendulum_ckpt=ckpt, pendulum_rows=rows, dataset_epoch=dataset_epoch,
+        check_render=check_render, finite_falling=finite_falling,
+        profiled_steps=profiled_steps))
     shutil.rmtree(work, ignore_errors=True)
 
     launches = sum(path_launches.values())

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from cdgvae_tpu.train import loop as jloop
 from cdgvae_tpu.train import steps as jsteps
 from cdgvae_tpu.utils.logging import MetricLogger as JMetricLogger
-from cdgvae_torch.cli import main, main_semi
+from cdgvae_torch.cli import dr_main, main, main_semi
 from cdgvae_torch.utils.checkpoint import load_checkpoint
 
 SMALL = ["--device", "cpu", "--image_size", "16", "--n_samples", "96",
@@ -105,6 +105,8 @@ RESUMABLE = {
     "semi online": (main_semi, SEMI + ["--online"],
                     "model_CDGVAEsemi_nonlinear"),
     "InfoMax": (main, ["--model", "InfoMax"], "model_InfoMax_linear"),
+    "DR": (dr_main, [], "model_DR_CDGVAE_linear"),
+    "DR online": (dr_main, ["--online"], "model_DR_CDGVAE_linear"),
 }
 
 
@@ -280,11 +282,83 @@ def test_cli_chain_semi_infomax_classifier_metric_inference(tmp_path,
     assert "--platform is not supported" in capsys.readouterr().err
 
 
+def _read_numbers(path):
+    """The numbers after the colons of a downstream eval's text file."""
+    with open(path) as f:
+        return {line.split(":")[0]: float(line.split(":")[1])
+                for line in f}
+
+
+def test_dr_cli_chain(tmp_path, capsys):
+    """The DR family's CLIs on what they trained (16 px, 200 DGP samples):
+    dr_main (and InfoMax) and dr_main_semi --online write their DR
+    checkpoints, dr_robustness and inference read one, metric refuses it;
+    then main -> sample_efficiency and toy_dr."""
+    from cdgvae_torch.cli import (dr_main_semi, dr_robustness, inference,
+                                  metric, sample_efficiency, toy_dr)
+
+    small = ["--device", "cpu", "--image_size", "16", "--n_samples", "200",
+             "--batch_size", "32", "--epochs", "1", "--assets_dir",
+             str(tmp_path)]
+    dr_main.main(small)
+    dr_main.main(small + ["--model", "InfoMax"])
+    dr_main_semi.main(small + SEMI + ["--online"])
+    ckpt = str(tmp_path / "model_DR_CDGVAE_linear")
+    cfg = load_checkpoint(ckpt)["config"]
+    assert cfg["spurious"] is True and (cfg["node"], cfg["lambda"]) == (5, 20)
+    ex = load_checkpoint(str(tmp_path / "model_DR_InfoMax_linear"))["extras"]
+    assert set(ex) == {"d_params", "opt_state_d"} and set(
+        ex["d_params"]) == {"net"}
+    semi = load_checkpoint(str(tmp_path / "model_DR_CDGVAEsemi_nonlinear"))
+    assert (semi["config"]["node"], semi["config"]["lambda"]) == (5, 5)
+    assert semi["config"]["spurious"] is True
+    records = _records(tmp_path)
+    assert len(records) == 3 and all(np.isfinite(r["loss"]) for r in records)
+    assert not (tmp_path / "recon.png").exists()  # as the reference's DR
+
+    out = dr_robustness.main(["--device", "cpu", "--checkpoint", ckpt,
+                              "--repeats", "1", "--epochs", "5",
+                              "--assets_dir", str(tmp_path / "rob")])
+    said = _read_numbers(tmp_path / "rob" / "CDGVAE_linear_0.txt")
+    assert list(said) == ["average accuracy", "worst-group accuracy"]
+    assert 0 <= out["worst_group_accuracy"] <= out["avg_accuracy"] <= 1
+    grid = inference.main(["--device", "cpu", "--checkpoint", ckpt,
+                           "--assets_dir", str(tmp_path / "inf")])
+    assert grid.shape == (5, 7, 16, 16, 3) and np.isfinite(grid).all()
+    with pytest.raises(SystemExit, match="DR checkpoint"):
+        metric.main(["--device", "cpu", "--checkpoint", ckpt,
+                     "--classifier_checkpoint", ckpt])
+
+    main.main(small[:-1] + [str(tmp_path / "p")])
+    with pytest.raises(SystemExit, match="not a DR checkpoint"):
+        dr_robustness.main(["--device", "cpu", "--checkpoint",
+                            str(tmp_path / "p" / "model_CDGVAE_linear")])
+    out = sample_efficiency.main([
+        "--device", "cpu", "--checkpoint",
+        str(tmp_path / "p" / "model_CDGVAE_linear"), "--repeats", "1",
+        "--assets_dir", str(tmp_path / "se")])
+    said = _read_numbers(tmp_path / "se" / "CDGVAE_linear_0.txt")
+    assert list(said) == ["100 samples accuracy", "all samples accuracy",
+                          "sample efficiency"]
+    assert 0 <= out["accuracy_100"] <= 1 and 0 <= out["accuracy_all"] <= 1
+    capsys.readouterr()
+    results = toy_dr.main(["--device", "cpu", "--n", "1000"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(" model")[0] for ln in lines] == [
+        "Disentangled", "ERM", "Entangled"]
+    assert all(0 <= a <= 1 for pair in results.values() for a in pair)
+
+
 @pytest.mark.parametrize("cli,args", [
     ("main_semi", ["--image_size", "16", "--n_samples", "96"]),
     ("main_classifier", ["--image_size", "16", "--n_samples", "96"]),
     ("metric", ["--checkpoint", "x", "--classifier_checkpoint", "y"]),
-    ("inference", ["--checkpoint", "x"])])
+    ("inference", ["--checkpoint", "x"]),
+    ("dr_main", ["--image_size", "16", "--n_samples", "96"]),
+    ("dr_main_semi", ["--image_size", "16", "--n_samples", "96"]),
+    ("dr_robustness", ["--checkpoint", "x"]),
+    ("sample_efficiency", ["--checkpoint", "x"]),
+    ("toy_dr", ["--n", "100"])])
 def test_new_entry_points_need_the_card_by_default(tmp_path, cli, args):
     """No --device means cuda; without a card they stop before any work
     instead of running on the CPU."""
@@ -294,6 +368,8 @@ def test_new_entry_points_need_the_card_by_default(tmp_path, cli, args):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     module = importlib.import_module(f"cdgvae_torch.cli.{cli}")
+    if cli != "toy_dr":  # the one that writes no files
+        args = args + ["--assets_dir", str(tmp_path)]
     with pytest.raises(SystemExit, match="no CUDA device"):
-        module.main(args + ["--assets_dir", str(tmp_path)])
+        module.main(args)
     assert os.listdir(tmp_path) == []

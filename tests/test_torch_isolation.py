@@ -1,6 +1,6 @@
 """The port stands alone: importing every cdgvae_torch module loads neither
-JAX, optax, matplotlib, pandas nor anything of cdgvae_tpu (the GPU machine
-has none of them)."""
+JAX, optax, matplotlib, pandas, scikit-learn nor anything of cdgvae_tpu
+(the GPU machine has none of them)."""
 import json
 import subprocess
 import sys
@@ -17,7 +17,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "cdgvae_tpu",
-                                    "matplotlib", "pandas", "wandb"))
+                                    "matplotlib", "pandas", "wandb",
+                                    "sklearn"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -38,7 +39,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.cli.main_classifier",
                  "cdgvae_torch.cli.metric", "cdgvae_torch.cli.inference",
                  "cdgvae_torch.eval.inference", "cdgvae_torch.eval.metric",
-                 "cdgvae_torch.models.classifier"):
+                 "cdgvae_torch.models.classifier",
+                 "cdgvae_torch.eval.downstream",
+                 "cdgvae_torch.data.pendulum_dr",
+                 "cdgvae_torch.cli.sample_efficiency",
+                 "cdgvae_torch.cli.dr_main", "cdgvae_torch.cli.dr_main_semi",
+                 "cdgvae_torch.cli.dr_robustness",
+                 "cdgvae_torch.cli.toy_dr"):
         assert name in result["modules"]
 
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from cdgvae_torch.api import LoadedModel
-from cdgvae_torch.data import pendulum
+from cdgvae_torch.data import pendulum, pendulum_dr
 from cdgvae_torch.factory import build_pendulum_model
 from cdgvae_torch.ops import _build, renderer_cuda
 from cdgvae_torch.ops.renderer import render, render_reference
@@ -54,6 +54,8 @@ def test_cpu_tensor_never_touches_the_build(monkeypatch):
     torch.testing.assert_close(render(f, 16), render_reference(f, 16),
                                rtol=0, atol=0)
     ds = pendulum.PendulumDataset(n=12, image_size=16, device="cpu")
+    assert ds.x_data.device.type == "cpu"
+    ds = pendulum_dr.PendulumDRDataset(n=12, image_size=16, device="cpu")
     assert ds.x_data.device.type == "cpu"
     assert renderer_cuda.launches == before
 
@@ -256,6 +258,29 @@ def test_online_batch_renders_through_the_kernel(cuda_device):
 
 
 @pytest.mark.cuda
+def test_dr_data_renders_the_background_through_the_kernel(cuda_device):
+    """The DR dataset (one launch) and the DR online batch (one launch, the
+    background column of a [n, 6] draw) against render_reference."""
+    before = renderer_cuda.launches
+    ds = pendulum_dr.PendulumDRDataset(n=200, image_size=64,
+                                       device=cuda_device)
+    assert renderer_cuda.launches == before + 1
+    f = torch.as_tensor(ds.factors, dtype=torch.float32, device=cuda_device)
+    assert 0 < f[:, 4].mean().item() < 1
+    _assert_matches(ds.x_data, render_reference(f[:, :4], 64, f[:, 4]))
+
+    sample = online.dr_batch_fn(128, 64, device=cuda_device)
+    x, y = sample(torch.Generator(device=cuda_device).manual_seed(3))
+    torch.cuda.synchronize()
+    assert renderer_cuda.launches == before + 2
+    f = online.sample_factors_dr_device(
+        torch.Generator(device=cuda_device).manual_seed(3), 128,
+        online.dr_label_norm_stats(device=cuda_device)[0])
+    _assert_matches(x, render_reference(f[:, :4], 64, f[:, 4]))
+    assert y.shape == (128, 6) and y.device.type == "cuda"
+
+
+@pytest.mark.cuda
 def test_online_step_reuses_one_image_buffer(cuda_device):
     """Each draw renders into the batch function's one buffer: no new
     full-size allocation per step."""
@@ -292,3 +317,33 @@ def test_loaded_model_on_the_card_matches_the_cpu(cuda_device, tmp_path):
               for d in range(4)]
     for got, want in pairs:
         assert np.abs(got - want).max() <= SERVE_MAX_ABS
+
+
+@pytest.mark.cuda
+def test_graphed_downstream_fit_matches_the_eager_fit(cuda_device):
+    """On the card each epoch of the downstream fit is a replayed CUDA
+    graph: from the same init and row orders it ends where the CPU's eager
+    steps end, to the fit's 1e-5, over epochs of several steps and a
+    remainder dropped."""
+    from cdgvae_torch.eval.downstream import train_downstream
+    from cdgvae_torch.models.classifier import DownstreamClassifier
+
+    g = torch.Generator().manual_seed(0)
+    reps = torch.randn((3, 330, 4), generator=g)
+    targets = (reps[..., :1] + 0.5 * torch.randn((3, 330, 1), generator=g)
+               > 0).float()
+    perms = torch.stack([torch.randperm(330, generator=g)
+                         for _ in range(5 * 3)]).reshape(5, 3, 330)
+    fits = {}
+    for d in ("cpu", cuda_device):
+        init = DownstreamClassifier(4, 3, generator=torch.Generator()
+                                    .manual_seed(1), device=d)
+        fits[str(d)] = train_downstream(
+            reps.to(d), targets.to(d), 0, epochs=5, batch_size=32,
+            init=init, perms=perms.to(d)).trees()
+    for got, want in zip(fits["cuda"], fits["cpu"]):
+        for i in range(2):
+            for k in ("w", "b"):
+                a = got["classify"][f"layer{i}"][k]
+                b = want["classify"][f"layer{i}"][k]
+                assert np.abs(a - b).max() <= 1e-5, (i, k)

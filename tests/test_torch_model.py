@@ -195,10 +195,21 @@ def test_factory_builds_the_flagship_layout():
 @pytest.mark.parametrize("config,spurious", [
     (dict(model="InfoMax"), True), (dict(model="CDGVAE"), True)])
 def test_factory_names_what_waits(config, spurious):
-    """The DR wiring (InfoMax's and CDG-VAE's) waits for its item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfactory.build_pendulum_model(config, spurious=spurious,
-                                      device="cpu")
+    """The DR wiring no longer waits: ``spurious=True`` at node 5 gives
+    the CDG-VAE blocks that each see the last latent (kmax 3), and InfoMax
+    the node-5 VAE. The param trees have the JAX factory's shapes."""
+    name = config["model"]
+    config = dict(config, node=5, scm="linear", flow_num=1,
+                  inverse_loop=100, factor=[1, 1, 2], image_size=SIZE)
+    tm, disc = tfactory.build_pendulum_model(config, spurious=spurious,
+                                             device="cpu")
+    jm, jdisc = jax_build_model(config, spurious=spurious)
+    want = jax.tree.map(lambda a: a.shape, jm.init(jax.random.key(0)))
+    assert jax.tree.map(lambda a: a.shape, export_params(tm)) == want
+    assert (disc is None) == (jdisc is None)
+    if name == "CDGVAE":
+        assert tm._gather.tolist() == np.asarray(jm._gather).tolist()
+        assert tm._valid.tolist() == np.asarray(jm._valid).tolist()
 
 
 @pytest.mark.parametrize("name", ["InfoMax", "CDGVAEsemi"])

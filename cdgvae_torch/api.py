@@ -1,5 +1,5 @@
 """Serving API: load a checkpoint, run inference (port of
-``cdgvae_tpu/api.py:25-235`` for the pendulum family).
+``cdgvae_tpu/api.py:25-235`` for the pendulum and tabular families).
 
     from cdgvae_torch.api import LoadedModel
     m = LoadedModel.load("assets/model_CDGVAE_linear")      # on cuda
@@ -17,16 +17,18 @@ padding.
 
 A DR checkpoint (the node-5 spurious wiring) is built as the JAX package
 builds it: from its ``spurious`` marker, or, in a checkpoint written
-before the marker existed, from node == 5. A checkpoint of another family
-(tabular, TVAE, CelebA) or a ``mesh=`` raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+before the marker existed, from node == 5. A tabular checkpoint (its
+config names a ``dataset``) serves VAE, CDG-VAE and InfoMax models; the
+answers are the model's output columns [batch, columns] in topology
+order. A TVAE or CelebA checkpoint, or a ``mesh=``, raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .factory import build_pendulum_model
+from .factory import build_pendulum_model, build_tabular_model
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
 from .utils.interop import load_jax_params
@@ -36,8 +38,8 @@ _MODEL_CLASS = {"InfoMax": "VAE"}
 
 
 def _unported_family(config: dict) -> str | None:
-    if config.get("model") == "TVAE" or "dataset" in config:
-        return "the tabular family: ROADMAP Queue 1 item 12"
+    if config.get("model") == "TVAE":
+        return "the tabular TVAE: ROADMAP Queue 1 item 12"
     if "causal_structure" in config:
         return "the CelebA family: ROADMAP Queue 1 item 13"
     return None
@@ -79,8 +81,11 @@ class LoadedModel:
         device = resolve_device(device)
         build = dict(config, model=_MODEL_CLASS.get(config["model"],
                                                     config["model"]))
-        model, _ = build_pendulum_model(build, spurious=is_dr(config),
-                                        device=device)
+        if "dataset" in config:
+            model, _ = build_tabular_model(build, device=device)
+        else:
+            model, _ = build_pendulum_model(build, spurious=is_dr(config),
+                                            device=device)
         load_jax_params(model, ck["params"])
         return cls(model, config)
 
@@ -99,7 +104,8 @@ class LoadedModel:
 
     @torch.no_grad()
     def reconstruct(self, x) -> np.ndarray:
-        """Reconstructions [batch, H, W, 3] in [-1, 1]."""
+        """Reconstructions: images [batch, H, W, 3] in [-1, 1], or a tabular
+        model's output columns [batch, columns]."""
         latent = self._encode(self._input(x))[4]
         return self.model.decode_fast(latent).cpu().numpy()
 

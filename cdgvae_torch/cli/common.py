@@ -21,8 +21,6 @@ _UNPORTED_FLAGS = {
             "item 14, data parallel)",
     "--profile": "the XLA trace is not ported yet (ROADMAP Queue 1 item "
                  "15, tooling: torch.profiler)",
-    "--data_dir": "reading a PNG dataset tree is not ported yet (ROADMAP "
-                  "Queue 1 item 7, with PNG export)",
 }
 
 
@@ -77,8 +75,14 @@ def _add_unported(parser: argparse.ArgumentParser, flag: str):
 
 
 def add_png_data_dir_arg(parser: argparse.ArgumentParser):
-    """The reference's ``--data_dir`` (a PNG dataset tree), refused."""
-    _add_unported(parser, "--data_dir")
+    """``--data_dir`` for the pendulum and DR image CLIs: a
+    reference-format PNG tree (``<dir>/{train,test}/a_*.png``, labels in
+    the file names, e.g. written by ``cli.generate_data``) to train on
+    instead of rendering the DGP. The training CLIs record it in the
+    checkpoint's config, where the eval CLIs read it."""
+    parser.add_argument("--data_dir", default="", type=str,
+                        help="reference-format PNG dataset tree (default: "
+                             "render the DGP on the device)")
     return parser
 
 

@@ -6,7 +6,8 @@ those two defaults; the trainer is ``cli.main.train`` on the DR data.
 Usage: python -m cdgvae_torch.cli.dr_main --device cuda ...
 
 Trains on the rendered pendulum-DR train split (one render launch with
-the background bit), or with ``--online`` on a fresh DR batch every step
+the background bit), on a PNG tree (``--data_dir``, as ``cli.generate_data
+--dgp dr`` writes one), or with ``--online`` on a fresh DR batch every step
 (``train/online.py::dr_batch_fn``); ``--eager``, ``--model InfoMax`` and
 ``--resume`` as in ``cli.main``. Writes ``metrics.jsonl``, the recon
 figure every 10 epochs, and at the end the checkpoint

@@ -8,7 +8,8 @@ Usage: python -m cdgvae_torch.cli.dr_robustness --checkpoint DIR
        [--device cuda]
 
 Loads a DR checkpoint of either package, renders the DR train and test
-splits with raw labels (``downstream=True``) and writes
+splits with raw labels (``downstream=True``), or reads them from the PNG
+tree the checkpoint's config names in ``data_dir``, and writes
 ``<assets_dir>/<model>_<scm>_<num>.txt`` in the reference's two lines.
 """
 from __future__ import annotations
@@ -55,7 +56,9 @@ def main(argv=None):
     splits = [PendulumDRDataset(image_size=config["image_size"], train=train,
                                 downstream=True, seed=config["seed"],
                                 n=config.get("n_samples", 10000),
-                                device=device) for train in (True, False)]
+                                device=device,
+                                data_dir=config.get("data_dir") or None)
+              for train in (True, False)]
     result = robustness(
         loaded.model, splits[0].x_data, splits[0].y_data.cpu().numpy(),
         splits[1].x_data, splits[1].y_data.cpu().numpy(),

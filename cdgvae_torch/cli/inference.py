@@ -12,7 +12,8 @@ per-block GAM outputs, CDG-VAE only) and ``do.png`` (the node x 7
 do-intervention grid). The model loads as ``api.LoadedModel`` does, a DR
 checkpoint with its spurious wiring; as in the reference, its diagnostics
 still run on the plain pendulum dataset, whose name list gives the 5th
-latent the label "target".
+latent the label "target". The train split is rendered, or read from the
+PNG tree the checkpoint's config names in ``data_dir``.
 """
 from __future__ import annotations
 
@@ -54,7 +55,8 @@ def main(argv=None):
     dataset = PendulumDataset(
         image_size=config["image_size"], train=True, seed=config["seed"],
         label_normalization=config.get("label_normalization", True),
-        n=config.get("n_samples", 10000), device=device)
+        n=config.get("n_samples", 10000), device=device,
+        data_dir=config.get("data_dir") or None)
     x_data = dataset.x_data
     names = dataset.name[: model.node]
 

@@ -15,11 +15,13 @@ epochs and at the end. InfoMax trains the VAE with the MI discriminator
 (its checkpoint carries ``extras={"d_params", "opt_state_d"}``) and, as in
 the reference, skips the mid-run checkpoints. ``--resume`` continues from
 a checkpoint of either package. ``--eager`` runs the per-batch protocol
-that keeps the last partial batch.
+that keeps the last partial batch. ``--data_dir`` trains on a
+reference-format PNG tree (``cli/generate_data.py`` writes one) instead
+of the rendered DGP.
 
-Not ported yet, and refused when asked for: ``--data_dir`` (ROADMAP Queue
-1 item 7, PNG trees), the wandb model artifact (item 7), and
-``--platform``, ``--dp`` and ``--profile`` (items 14 and 15).
+Not ported, and refused when asked for: ``--platform``, ``--dp`` and
+``--profile`` (ROADMAP Queue 1 items 14 and 15). ``--wandb`` logs the
+metrics but publishes no model artifact, which needs a network.
 """
 from __future__ import annotations
 
@@ -108,7 +110,8 @@ def _refuse_unsupported(config: dict):
     if config["free_bits"] and config["model"] == "InfoMax":
         raise SystemExit("--free_bits targets the supervised VAE/CDGVAE "
                          "objective; the InfoMax path does not wire it")
-    if config["online"] and (config["eager"] or config["labeled_ratio"] < 1
+    if config["online"] and (config["eager"] or config.get("data_dir")
+                             or config["labeled_ratio"] < 1
                              or not config["label_normalization"]):
         raise SystemExit("--online supports the scanned path on the "
                          "synthetic DGP with full labels and "
@@ -140,15 +143,16 @@ def train(config: dict):
                           tags=["VAEBased", "DR"] if dr else ["VAEBased"],
                           config=config)
     if config["wandb"]:
-        print("--wandb: metrics are logged; publishing the model artifact "
-              "is not ported yet (ROADMAP Queue 1 item 7)")
+        print("--wandb: metrics are logged; the model artifact is not "
+              "published (it needs a network)")
 
     if not config["online"]:
         dataset = (PendulumDRDataset if dr else PendulumDataset)(
             image_size=config["image_size"], train=True,
             labeled_ratio=config["labeled_ratio"],
             label_normalization=config["label_normalization"],
-            seed=seed, n=config["n_samples"], device=device)
+            seed=seed, n=config["n_samples"], device=device,
+            data_dir=config.get("data_dir") or None)
     model, discriminator = build_pendulum_model(config, spurious=dr,
                                                 device=device, seed=seed)
     optimizer = make_optimizer(model, config["lr"])

@@ -8,8 +8,9 @@ Masks: light, angle, shadow, shadow (both shadow factors share the bottom
 band). One eager epoch loop with the numpy shuffle, the last batch kept,
 the alignment BCE and Adam; prints one ``[epoch NNN]`` line per epoch and
 saves ``<assets_dir>/CDMClassifier`` in the JAX package's layout. As in
-the reference, the dataset is the full train split: ``--labeled_ratio``
-and ``--label_normalization`` are taken and not used.
+the reference, the dataset is the full train split, rendered or read
+from ``--data_dir``: ``--labeled_ratio`` and ``--label_normalization``
+are taken and not used.
 """
 from __future__ import annotations
 
@@ -65,7 +66,8 @@ def main(argv=None):
                           config=config)
     dataset = PendulumDataset(image_size=config["image_size"], train=True,
                               seed=config["seed"], n=config["n_samples"],
-                              device=device)
+                              device=device,
+                              data_dir=config.get("data_dir") or None)
     node = config["node"]
     clf = FactorClassifier(classifier_masks(config["image_size"], node), node,
                            config["image_size"], generator=torch.Generator(

@@ -13,11 +13,11 @@ metrics to ``<assets_dir>/metrics.jsonl``, and at the end (only then, as
 the reference) writes ``recon.png`` and the checkpoint
 ``<assets_dir>/model_<model>_<scm>``. ``--resume`` continues from a
 checkpoint of either package; ``--eager`` runs the reference's per-batch
-protocol, short batches kept.
+protocol, short batches kept. ``--data_dir`` reads both streams from a
+reference-format PNG tree.
 
-Refused when asked for: ``--data_dir`` (ROADMAP Queue 1 item 7), the
-wandb model artifact (item 7), and ``--platform``, ``--dp`` and
-``--profile`` (items 14 and 15).
+Refused when asked for: ``--platform``, ``--dp`` and ``--profile``
+(ROADMAP Queue 1 items 14 and 15).
 """
 from __future__ import annotations
 
@@ -91,7 +91,7 @@ def train(config: dict):
     family, or the DR family (``PendulumDRDataset`` or ``dr_batch_fn``,
     the spurious decoder wiring, the checkpoint ``model_DR_<model>_<scm>``
     and, as the reference's DR trainer, no ``recon.png``)."""
-    if config["online"] and config["eager"]:
+    if config["online"] and (config["eager"] or config.get("data_dir")):
         raise SystemExit("--online supports the scanned path on the "
                          "synthetic DGP only")
     dr = config["spurious"]
@@ -105,16 +105,17 @@ def train(config: dict):
                           else ["VAEBased", "semi"], config=config)
 
     dataset_cls = PendulumDRDataset if dr else PendulumDataset
+    data_dir = config.get("data_dir") or None
     labeled = dataset_cls(
         image_size=config["image_size"], train=True,
         labeled_ratio=config["labeled_ratio"],
         label_normalization=config["label_normalization"], seed=seed,
-        n=config["n_samples"], device=device)
+        n=config["n_samples"], device=device, data_dir=data_dir)
     x_l, y_l = labeled.x_data, labeled.y_data
     if not config["online"]:
         x_u = dataset_cls(image_size=config["image_size"], train=True,
                           seed=seed, n=config["n_samples"],
-                          device=device).x_data
+                          device=device, data_dir=data_dir).x_data
 
     model, _ = build_pendulum_model(config, spurious=dr, device=device,
                                     seed=seed)

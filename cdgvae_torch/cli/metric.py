@@ -6,7 +6,8 @@ Usage: python -m cdgvae_torch.cli.metric --checkpoint DIR
 
 Loads a trained VAE/CDG-VAE checkpoint (of either package) and the CDM
 factor classifier's, computes the node x node CDM lower/upper matrices on
-the rendered train split, prints them, and writes
+the train split (rendered, or read from the PNG tree the checkpoint's
+config names in ``data_dir``), prints them, and writes
 ``lower_<tag>.csv``/``upper_<tag>.csv`` (the text ``pandas.DataFrame(m.
 round(3), columns=names, index=names).to_csv`` writes, through the
 ``csv`` module) and their heatmaps, ``tag = <model>_<scm>_<num>``. The
@@ -90,7 +91,8 @@ def main(argv=None):
 
     dataset = PendulumDataset(image_size=config["image_size"], train=True,
                               seed=config["seed"],
-                              n=config.get("n_samples", 10000), device=device)
+                              n=config.get("n_samples", 10000), device=device,
+                              data_dir=config.get("data_dir") or None)
     lower, upper = cdm_matrices(model, classifier, dataset.x_data)
 
     os.makedirs(args.assets_dir, exist_ok=True)

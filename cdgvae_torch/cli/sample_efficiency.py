@@ -7,7 +7,8 @@ Usage: python -m cdgvae_torch.cli.sample_efficiency --checkpoint DIR
        [--device cuda]
 
 Loads a pendulum checkpoint of either package, renders the train and test
-splits with raw labels (``downstream=True``), and writes
+splits with raw labels (``downstream=True``), or reads them from the PNG
+tree the checkpoint's config names in ``data_dir``, and writes
 ``<assets_dir>/<model>_<scm>_<num>.txt`` in the reference's three lines.
 """
 from __future__ import annotations
@@ -48,7 +49,9 @@ def main(argv=None):
     splits = [PendulumDataset(image_size=config["image_size"], train=train,
                               downstream=True, seed=config["seed"],
                               n=config.get("n_samples", 10000),
-                              device=device) for train in (True, False)]
+                              device=device,
+                              data_dir=config.get("data_dir") or None)
+              for train in (True, False)]
     result = sample_efficiency(
         loaded.model, splits[0].x_data, splits[0].y_data.cpu().numpy(),
         splits[1].x_data, splits[1].y_data.cpu().numpy(),

@@ -3,11 +3,14 @@
 Port of ``cdgvae_tpu/data/pendulum.py:37-168``. The DGP functions are numpy
 and are kept here as the port's own copies. ``PendulumDataset`` renders its
 images with ``ops.renderer.render`` on the dataset's device: on CUDA in one
-launch of the hand-written kernel, on the CPU in chunks of 2048.
+launch of the hand-written kernel, on the CPU in chunks of 2048. With
+``data_dir`` it loads a reference-format PNG tree instead
+(``data/png_io.py``).
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -99,7 +102,9 @@ class PendulumDataset:
     float32 label tensor (light, angle, length, position, target); both on
     ``device``. ``factors`` keeps the raw numpy factors.
     ``labeled_ratio`` truncates the train split; ``downstream=True`` keeps
-    raw labels. Loading a PNG tree (``data_dir``) is not ported yet.
+    raw labels. ``data_dir`` loads ``<data_dir>/{train,test}`` of a
+    reference-format PNG tree (labels in the file names) instead of
+    rendering the DGP; the labels are normalised over the loaded rows.
     """
     image_size: int = 64
     train: bool = True
@@ -109,17 +114,21 @@ class PendulumDataset:
     seed: int = 1
     n: int = 10000
     device: str | torch.device = "cuda"
+    data_dir: str | None = None
     name: list = field(default_factory=lambda: list(FACTOR_NAMES))
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        factors, is_test = sample_factors_real(self.seed, self.n)
-        factors = factors[is_test if not self.train else ~is_test]
-        if self.train and self.labeled_ratio < 1.0:
-            factors = factors[: int(len(factors) * self.labeled_ratio)]
+        if self.data_dir is not None:
+            self.x_data, factors = load_split(self)
+        else:
+            factors, is_test = sample_factors_real(self.seed, self.n)
+            factors = factors[is_test if not self.train else ~is_test]
+            if self.train and self.labeled_ratio < 1.0:
+                factors = factors[: int(len(factors) * self.labeled_ratio)]
+            self.x_data = _render_images(factors[:, :4], self.image_size,
+                                         self.device)
         self.factors = factors
-        self.x_data = _render_images(factors[:, :4], self.image_size,
-                                     self.device)
         label = factors.copy()
         if not self.downstream:
             label, self.std = normalize_labels(label,
@@ -129,6 +138,21 @@ class PendulumDataset:
 
     def __len__(self):
         return len(self.x_data)
+
+
+def load_split(ds) -> tuple[torch.Tensor, np.ndarray]:
+    """(images on ``ds.device``, factors) of the dataset ``ds``'s split of
+    the PNG tree ``ds.data_dir``, the train split cut to its first
+    ``labeled_ratio`` share."""
+    from .png_io import load_png_dataset
+
+    x, factors = load_png_dataset(
+        os.path.join(ds.data_dir, "train" if ds.train else "test"),
+        ds.image_size, device=ds.device)
+    if ds.train and ds.labeled_ratio < 1.0:
+        keep = int(len(factors) * ds.labeled_ratio)
+        x, factors = x[:keep], factors[:keep]
+    return x, factors
 
 
 def _render_images(factors: np.ndarray, image_size: int, device,

@@ -11,8 +11,8 @@ bit paints the axes window blue.
 Label columns are [light, angle, length, position, background, target];
 normalization touches the first four only. ``sample_factors_dr`` is the
 port's own numpy copy; ``PendulumDRDataset`` renders on its device, on
-CUDA in one launch of the render kernel with the background column.
-Loading a PNG tree (``data_dir``) is not ported yet.
+CUDA in one launch of the render kernel with the background column, or
+loads a reference-format PNG tree (``data_dir``, six file-name fields).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .pendulum import _BETA, _render_images, shadow_draws
+from .pendulum import _BETA, _render_images, load_split, shadow_draws
 
 DR_FACTOR_NAMES = ["light", "angle", "length", "position", "background",
                    "target"]
@@ -63,6 +63,7 @@ class PendulumDRDataset:
     the background bit is set; ``y_data``: [n, 6] float32 labels; both on
     ``device``. ``factors`` keeps the raw numpy factors. ``labeled_ratio``
     truncates the train split; ``downstream=True`` keeps raw labels.
+    ``data_dir`` loads a split of a reference-format PNG tree instead.
     """
     image_size: int = 64
     train: bool = True
@@ -72,17 +73,22 @@ class PendulumDRDataset:
     seed: int = 1
     n: int = 10000
     device: str | torch.device = "cuda"
+    data_dir: str | None = None
     name: list = field(default_factory=lambda: list(DR_FACTOR_NAMES))
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        train_f, test_f = sample_factors_dr(self.seed, self.n)
-        factors = train_f if self.train else test_f
-        if self.train and self.labeled_ratio < 1.0:
-            factors = factors[: int(len(factors) * self.labeled_ratio)]
+        if self.data_dir is not None:
+            self.x_data, factors = load_split(self)
+        else:
+            train_f, test_f = sample_factors_dr(self.seed, self.n)
+            factors = train_f if self.train else test_f
+            if self.train and self.labeled_ratio < 1.0:
+                factors = factors[: int(len(factors) * self.labeled_ratio)]
+            self.x_data = _render_images(factors[:, :4], self.image_size,
+                                         self.device,
+                                         background=factors[:, 4])
         self.factors = factors
-        self.x_data = _render_images(factors[:, :4], self.image_size,
-                                     self.device, background=factors[:, 4])
         label = factors.copy()
         if not self.downstream:
             label[:, :4] = label[:, :4] - label[:, :4].mean(axis=0)

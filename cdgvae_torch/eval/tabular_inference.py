@@ -1,0 +1,79 @@
+"""Tabular synthetic-data evaluation: reconstructions, synthetic samples,
+PC CPDAGs and ML efficacy (port of ``cdgvae_tpu/eval/
+tabular_inference.py:14-99``; the TVAE's sampling waits for its model).
+
+Tables are float64 arrays in the dataset's column order (``continuous``).
+The model runs on its device under ``torch.no_grad()``; covtype's 7-way
+Cover_Type head is sampled on the host with numpy's Gumbel draws.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.pc import pc
+
+
+def gumbel_argmax(logits: np.ndarray, rng: np.random.Generator,
+                  eps: float = 1e-20) -> np.ndarray:
+    """Gumbel-max categorical sampling: the argmax of the logits plus
+    ``-log(-log(U))`` noise, U drawn from ``rng``."""
+    u = rng.uniform(size=logits.shape)
+    g = -np.log(-np.log(u + eps) + eps)
+    return np.argmax(logits + g, axis=1)
+
+
+def _cover_type(out: np.ndarray, dataset: str, seed: int) -> np.ndarray:
+    """covtype's head [n, 7] -> one sampled 1-based Cover_Type column."""
+    if dataset != "covtype":
+        return out
+    cat = gumbel_argmax(out[:, 7:], np.random.default_rng(seed))[:, None]
+    return np.concatenate([out[:, :7], cat + 1.0], axis=1)
+
+
+@torch.no_grad()
+def reconstruct_dataset(model, x_data: torch.Tensor, dataset: str,
+                        seed: int = 0, batch_size: int = 1024) -> np.ndarray:
+    """Deterministic reconstructions of ``x_data`` [n, input_dim] (on the
+    model's device), in batches, in topology order; covtype's Cover_Type
+    Gumbel-sampled."""
+    recon = np.concatenate([
+        model(x_data[i:i + batch_size], deterministic=True).xhat.cpu()
+        .numpy() for i in range(0, len(x_data), batch_size)])
+    return _cover_type(recon, dataset, seed)
+
+
+@torch.no_grad()
+def sample_synthetic(model, n: int, dataset: str, seed: int = 0,
+                     noise: torch.Tensor | None = None) -> np.ndarray:
+    """Synthetic rows: eps ~ N(0, I) [n, node] -> causal transform ->
+    decode, in topology order. eps is ``noise`` if given, else drawn from
+    a ``torch.Generator`` on the model's device seeded ``seed``."""
+    device = next(model.parameters()).device
+    if noise is None:
+        noise = torch.randn((n, model.node), generator=torch.Generator(
+            device=device).manual_seed(seed), device=device)
+    _, latent, _ = model.graph.transform(noise.to(device))
+    return _cover_type(model.decode_fast(latent).cpu().numpy(), dataset,
+                       seed)
+
+
+def to_frame(recon: np.ndarray, topology, continuous) -> np.ndarray:
+    """Model output (topology column order) -> a float64 table in the
+    dataset's column order; adult's income binarised at 0."""
+    cols = [c for grp in topology for c in grp]
+    frame = np.asarray(recon)[:, [cols.index(c) for c in continuous]]
+    frame = frame.astype(np.float64)
+    if "income" in continuous:
+        k = list(continuous).index("income")
+        frame[:, k] = (frame[:, k] > 0).astype(np.float64)
+    return frame
+
+
+def real_cpdag(frame: np.ndarray, dataset: str, alpha: float = 0.05):
+    """PC CPDAG of the real train table with the reference's test: chisq
+    for loan and adult, fisherz for covtype. Model outputs always use
+    fisherz (the decoder's values are continuous)."""
+    i_test = "fisherz" if dataset == "covtype" else "chisq"
+    G, _ = pc(frame, alpha=alpha, indep_test=i_test)
+    return G

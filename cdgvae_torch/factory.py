@@ -1,5 +1,5 @@
-"""Model factory: build the pendulum models and causal graph from a config
-dict (port of ``cdgvae_tpu/factory.py:18-72``)."""
+"""Model factory: build the pendulum and tabular models and their causal
+graphs from a config dict (port of ``cdgvae_tpu/factory.py:18-125``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -62,4 +62,57 @@ def build_pendulum_model(config: dict, spurious: bool = False, *,
         return CDGVAE(graph, masks, factor, image_size=image_size,
                       block_indices=block_indices, generator=generator,
                       device=device), None
+    raise ValueError("Not supported model!")
+
+
+def tabular_B(dataset: str, adjacency_scaling: bool = True) -> np.ndarray:
+    """Per-dataset causal adjacency: loan and adult, both chain roots ->
+    the sink; covtype, the 6-node DAG."""
+    if dataset in ("loan", "adult"):
+        B = np.zeros((3, 3))
+        B[:-1, -1] = 1
+    elif dataset == "covtype":
+        B = np.zeros((6, 6))
+        B[[0, 3, 4, 5], 1] = 1
+        B[[3, 4, 5], 2] = 1
+        B[[0, 5], 3] = 1
+    else:
+        raise ValueError("Not supported dataset!")
+    if adjacency_scaling:
+        B = scale_adjacency(B)
+    return B
+
+
+def build_tabular_model(config: dict, *, device="cuda", seed: int = 0):
+    """Build the tabular-family model named by ``config['model']`` for
+    ``config['dataset']`` on ``device``, weights drawn from ``seed``.
+    Returns (model, discriminator), the discriminator for InfoMax and None
+    otherwise. The TVAE is not ported yet."""
+    from .data.tabular.datasets import DATASET_SPECS
+    from .models.tabular import (TabularCDGVAE, TabularDiscriminator,
+                                 TabularVAE)
+
+    name, dataset = config["model"], config["dataset"]
+    if name == "TVAE":
+        raise NotImplementedError(
+            "the tabular TVAE (its transformer's variational Gaussian "
+            "mixture) is not ported yet: ROADMAP Queue 1 item 12")
+    device = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    spec = DATASET_SPECS[dataset]
+    node = spec["node"]
+    graph = build_graph(config, tabular_B(dataset, config.get(
+        "adjacency_scaling", True)), generator=generator, device=device)
+    input_dim = config.get("input_dim", spec["input_dim"])
+    if name in ("VAE", "InfoMax"):
+        model = TabularVAE(graph, dataset, input_dim, generator=generator,
+                           device=device)
+        disc = (TabularDiscriminator(input_dim, node, generator=generator,
+                                     device=device)
+                if name == "InfoMax" else None)
+        return model, disc
+    if name == "CDGVAE":
+        return TabularCDGVAE(graph, dataset, input_dim, spec["factor"],
+                             spec["mask"], generator=generator,
+                             device=device), None
     raise ValueError("Not supported model!")

@@ -42,14 +42,17 @@ class Averager:
 
 
 def make_supervised_loss_fn(model, beta: float, lam: float,
-                            free_bits: float = 0.0) -> Callable:
+                            free_bits: float = 0.0,
+                            recon_fn: Callable = losses.gaussian_recon
+                            ) -> Callable:
     """ELBO + alignment loss as ``loss_fn(x, y, noise=None,
-    generator=None) -> (loss, metrics)``."""
+    generator=None) -> (loss, metrics)``; ``recon_fn(xhat, x)`` is the
+    reconstruction term (the tabular family's is per dataset)."""
     node = model.node
 
     def loss_fn(x, y, noise=None, generator=None):
         out = model(x, noise=noise, generator=generator, fast=True)
-        recon = losses.gaussian_recon(out.xhat, x)
+        recon = recon_fn(out.xhat, x)
         if free_bits > 0.0:
             kl = losses.kl_std_normal_free_bits(out.mean, out.logvar,
                                                 free_bits)

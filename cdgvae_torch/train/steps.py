@@ -98,8 +98,9 @@ def marginal_epsilon(epsilon: torch.Tensor, mode: str = "permutation", *,
 
 
 def make_infomax_loss_fn(model, discriminator, beta: float, lam: float,
-                         gamma: float,
-                         marginal: str = "permutation") -> Callable:
+                         gamma: float, marginal: str = "permutation",
+                         recon_fn: Callable = losses.gaussian_recon
+                         ) -> Callable:
     """InfoMax joint loss over the model and the discriminator, as
     ``loss_fn(x, y, noise=None, perm=None, shift=None, generator=None) ->
     (grad_target, metrics)``.
@@ -108,13 +109,14 @@ def make_infomax_loss_fn(model, discriminator, beta: float, lam: float,
     ``MI.backward()``, so both the model and the discriminator accumulate
     (gamma + 1)·dMI: the gradient target is ``recon + β·KL + λ·align +
     (γ+1)·MI``, while the logged ``loss`` carries γ·MI. The noise is drawn
-    before the marginal's permutation.
+    before the marginal's permutation. ``recon_fn(xhat, x)`` is the
+    reconstruction term.
     """
     node = model.node
 
     def loss_fn(x, y, noise=None, perm=None, shift=None, generator=None):
         out = model(x, noise=noise, generator=generator)
-        recon = losses.gaussian_recon(out.xhat, x)
+        recon = recon_fn(out.xhat, x)
         kl = losses.kl_std_normal(out.mean, out.logvar)
         align = losses.alignment_bce(out.align_latent, y[:, :node])
         d_joint = discriminator(x, out.epsilon)

@@ -4,8 +4,9 @@ The GPU machine has no matplotlib, so every figure is a uint8 picture
 written as a PNG with the standard library's ``zlib`` and ``struct``.
 Image figures tile their panels (``clip((x + 1) / 2, 0, 1)``) on white,
 ``PAD`` pixels apart; matplotlib's margins, titles and labels are not
-reproduced. Bar charts and heatmaps carry no text: one bar per entry, or
-one coloured cell per entry; their callers print the values.
+reproduced. Bar charts, heatmaps and graphs carry no text: one bar per
+entry, one coloured cell per entry, or one disc per node; the values,
+names and edges are printed.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 PAD = 2  # white pixels between and around the panels
 BAR_W, BAR_GAP, BAR_H = 12, 8, 96  # bar chart geometry, pixels
 CELL = 16  # heatmap cell, pixels
+GRAPH_PX, NODE_R, HEAD = 240, 14, 3  # graph canvas, node radius, head mark
 # matplotlib's coolwarm at 0, 0.5 and 1
 _COOLWARM = np.array([[59, 76, 192], [221, 221, 221], [180, 4, 38]],
                      np.float64)
@@ -123,4 +125,48 @@ def viz_heatmap(arr: np.ndarray, path: str) -> np.ndarray:
     cells = np.rint(rgb[::-1]).astype(np.uint8)
     pic = np.repeat(np.repeat(cells, CELL, axis=0), CELL, axis=1)
     write_png(path, pic)
+    return pic
+
+
+def viz_graph(B: np.ndarray, names, path: str | None = None) -> np.ndarray:
+    """A directed graph of adjacency ``B`` [n, n] (an edge i -> j where
+    ``B[i, j] != 0``): the nodes as light blue discs on a circle, placed
+    as networkx's ``circular_layout`` places them (node k at angle 2πk/n),
+    each edge a black line with a square mark at its head. Prints the node
+    names and the edge list; writes the picture to ``path`` if given and
+    returns it."""
+    B = np.asarray(B)
+    n = B.shape[0]
+    theta = np.linspace(0, 1, n + 1)[:-1] * 2 * np.pi
+    xy = np.stack([np.cos(theta), np.sin(theta)], 1) if n > 1 \
+        else np.zeros((n, 2))
+    half = GRAPH_PX / 2 - NODE_R - 2 * HEAD - 2
+    cx = GRAPH_PX / 2 + half * xy[:, 0]
+    cy = GRAPH_PX / 2 - half * xy[:, 1]  # rows grow downwards
+    pic = np.full((GRAPH_PX, GRAPH_PX, 3), 255, np.uint8)
+    edges = [(i, j) for i in range(n) for j in range(n)
+             if i != j and abs(B[i, j]) > 0]
+    for i, j in edges:
+        length = np.hypot(cx[j] - cx[i], cy[j] - cy[i])
+        t = np.linspace(0, 1, int(2 * length) + 2)
+        rows = np.rint(cy[i] + t * (cy[j] - cy[i])).astype(int)
+        cols = np.rint(cx[i] + t * (cx[j] - cx[i])).astype(int)
+        pic[rows, cols] = 0
+        # the head mark, just outside the head node's disc
+        back = (NODE_R + HEAD + 1) / length
+        hr = int(round(cy[j] + back * (cy[i] - cy[j])))
+        hc = int(round(cx[j] + back * (cx[i] - cx[j])))
+        pic[hr - HEAD:hr + HEAD + 1, hc - HEAD:hc + HEAD + 1] = 0
+    yy, xx = np.mgrid[:GRAPH_PX, :GRAPH_PX] + 0.5
+    for k in range(n):
+        d = np.hypot(xx - cx[k], yy - cy[k])
+        pic[d <= NODE_R] = 0
+        pic[d <= NODE_R - 1.5] = (173, 216, 230)
+    if path:
+        write_png(path, pic)
+    label = f"{path}: " if path else ""
+    print(f"{label}nodes (counter-clockwise from the right) "
+          f"{', '.join(map(str, names[:n]))}; edges "
+          + (", ".join(f"{names[i]} -> {names[j]}" for i, j in edges)
+             or "none"))
     return pic

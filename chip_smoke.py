@@ -66,10 +66,21 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     interleaved with the dataset step, and their profiled windows (no
     host wait or copy); ``cli.dr_robustness``, ``cli.sample_efficiency``
     (phase 8's checkpoint), ``cli.toy_dr`` and ``cli.inference`` on the DR
-    checkpoint, with their walls and what a run at the defaults takes.
+    checkpoint, with their walls and what a run at the defaults takes;
+15. PNG trees: the kernel at the export's 96 px against
+    ``render_reference`` and its bound; ``cli.generate_data`` at its
+    defaults and a cut DR export, the files against ``render_reference``;
+    ``load_png_dataset`` of the export, the decoder on its files and on
+    the same pixels filtered as Pillow filters them (pixels equal), the
+    load of both trees; ``cli.main --data_dir``, ``cli.metric`` and
+    ``cli.inference`` on that checkpoint, ``cli.dr_main --data_dir``;
+16. the tabular family at its full synthetic sizes through
+    ``cli.tabular_main``, ``cli.tabular_inference`` and
+    ``cli.dag_discovery``, the loss and served answers on the card against
+    the CPU, host ms and device busy a step.
 
 The render kernel's launches are counted around each path (phases 4, 8
-and 10-14) and summed in the ``{"kernels": [...]}`` JSON line, which is
+and 10-15) and summed in the ``{"kernels": [...]}`` JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -83,9 +94,12 @@ import json
 import math
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -124,6 +138,13 @@ DR_LAM = 20.0  # dr_main's default; dr_main_semi keeps LAM
 # are 10 repeats and 500 robustness epochs; phase 14 prints what those
 # would take)
 EVAL_REPEATS, ROBUSTNESS_EPOCHS = 3, 100
+# phase 15: cli.generate_data's defaults (10,000 samples at 96 px, chunks
+# of 2,048), the DR export cut to 2,000
+EXPORT_N, EXPORT_PX, EXPORT_CHUNK, EXPORT_DR_N = 10000, 96, 2048, 2000
+# phase 16: tabular_main's defaults; steps an epoch at the full synthetic
+# sizes (train rows 4,000, 40,000 and 10,000)
+TAB_BATCH, TAB_BETA, TAB_LAM, TAB_LR = 256, 0.01, 10.0, 0.01
+TAB_STEPS = {"loan": 15, "adult": 156, "covtype": 39}
 # the downstream fit on the card (CUDA-graph epochs) against the CPU's
 # eager steps: 2 epochs of float32 products summed in other orders
 FIT_TOL = 1e-5
@@ -284,6 +305,52 @@ def render_bound_ms(n: int, size: int, background: bool) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n * size * size * RENDER_OPS_PER_PIXEL / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# PNG filter types in the order Pillow's encoder tries them; it keeps the
+# first with the least sum of |filtered byte| read as signed
+PILLOW_FILTERS = (0, 2, 1, 4)  # None, Up, Sub, Paeth (no Average)
+
+
+def pillow_scanlines(pixels: np.ndarray) -> np.ndarray:
+    """uint8 [n, h, w, c] -> PNG scanlines [n, h, 1 + w*c] uint8, each row
+    filtered as Pillow's encoder filters it (``PILLOW_FILTERS``), its filter
+    byte first: the files of a tree saved with Pillow, as users of the
+    reference hold them."""
+    n, h, w, c = pixels.shape
+    x = pixels.reshape(n, h, w * c).astype(np.int16)
+    up = np.zeros_like(x)
+    up[:, 1:] = x[:, :-1]
+    left = np.zeros_like(x)
+    left[:, :, c:] = x[:, :, :-c]
+    up_left = np.zeros_like(x)
+    up_left[:, :, c:] = up[:, :, :-c]
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, up_left))
+    rows = np.stack([x, x - up, x - left, x - paeth]) & 0xFF
+    best = np.minimum(rows, 256 - rows).sum(axis=-1).argmin(axis=0)
+    kinds = np.array(PILLOW_FILTERS, np.uint8)[best]
+    chosen = np.take_along_axis(rows, best[None, ..., None], axis=0)[0]
+    return np.concatenate([kinds[..., None], chosen.astype(np.uint8)],
+                          axis=-1)
+
+
+def write_scanlines(path: Path, scanlines: np.ndarray) -> None:
+    """An 8-bit RGB PNG of filtered scanlines [h, 1 + w*3] uint8."""
+    h, stride = scanlines.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    path.write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", (stride - 1) // 3, h, 8, 2,
+                                     0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6))
+        + chunk(b"IEND", b""))
 
 
 def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
@@ -655,6 +722,414 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
     return max_err
 
 
+def host_s(fn, rounds: int = 3) -> float:
+    """Median host-clock seconds of ``rounds`` calls of host-only ``fn``."""
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def decode_and_load_pillow_tree(*, work: Path, card: str, dev, paths: list,
+                                x_want: torch.Tensor) -> None:
+    """The PNG decoder on the export's ``write_png`` files (filter 0 on
+    every row) and on the same pixels re-encoded as Pillow filters them
+    (Sub, Up and Paeth rows, which the decoder walks pixel by pixel), the
+    two trees interleaved; the row loop alone on each tree's scanlines
+    beside one copy of the filter-0 scanlines; then ``load_png_dataset`` of
+    each tree again, whose images must equal ``x_want``, the ``write_png``
+    tree's first load."""
+    from cdgvae_torch.data import png_io
+
+    pixels = png_io.decode_pngs([str(p) for p in paths])
+    pil = work / "png_pillow" / "train"
+    pil.mkdir(parents=True)
+    kinds = np.zeros(5, np.int64)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for i in range(0, len(paths), 500):
+            scan = pillow_scanlines(np.stack(pixels[i:i + 500]))
+            kinds += np.bincount(scan[:, :, 0].ravel(), minlength=5)
+            list(pool.map(write_scanlines,
+                          [pil / p.name for p in paths[i:i + 500]], scan))
+    trees = {"write_png": [str(p) for p in paths],
+             "Pillow": [str(pil / p.name) for p in paths]}
+    decode = {name: [] for name in trees}
+    for _ in range(2):
+        for name, files in trees.items():
+            t0 = time.perf_counter()
+            got = png_io.decode_pngs(files)
+            decode[name].append(time.perf_counter() - t0)
+            check(all(np.array_equal(a, b) for a, b in zip(got, pixels)),
+                  f"the {name} tree decodes to other pixels")
+            del got
+    rows = dict(zip(("None", "Sub", "Up", "Average", "Paeth"),
+                    kinds.tolist()))
+    n = len(paths)
+    print(f"decode_pngs of {n} files at {EXPORT_PX} px (host clock, 2 "
+          f"rounds interleaved): write_png's (filter 0) "
+          f"{', '.join(f'{s:.3f}' for s in decode['write_png'])} s = "
+          f"{n / min(decode['write_png']):.0f} files/s; Pillow's filters "
+          f"(rows {rows}) {', '.join(f'{s:.3f}' for s in decode['Pillow'])}"
+          f" s = {n / min(decode['Pillow']):.0f} files/s; pixels equal "
+          f"[{card}]")
+    scan = {name: np.stack([np.frombuffer(png_io._read_png(f)[1], np.uint8)
+                            .reshape(EXPORT_PX, -1) for f in files])
+            for name, files in trees.items()}
+    loop0 = host_s(lambda: png_io._unfilter(scan["write_png"], 3))
+    copy0 = host_s(lambda: scan["write_png"][:, :, 1:].copy())
+    loop_pil = host_s(lambda: png_io._unfilter(scan["Pillow"], 3))
+    print(f"unfilter alone, {n} files (host clock, median of 3): filter-0 "
+          f"rows through the row loop {loop0 * 1e3:.1f} ms, one copy of "
+          f"them {copy0 * 1e3:.1f} ms; Pillow's rows {loop_pil * 1e3:.1f} "
+          f"ms [{card}]")
+    del scan, pixels
+    load = {}
+    for name, files in trees.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, _ = png_io.load_png_dataset(str(Path(files[0]).parent), 64,
+                                       device=dev)
+        torch.cuda.synchronize()
+        load[name] = time.perf_counter() - t0
+        check(torch.equal(x, x_want), f"the {name} tree loads to other "
+              "images than its first load")
+        del x
+    print(f"load_png_dataset again ({n} files, {EXPORT_PX} -> 64 px, host "
+          f"clock): write_png's tree {load['write_png']:.3f} s = "
+          f"{n / load['write_png']:.0f} files/s; the Pillow-filtered tree "
+          f"{load['Pillow']:.3f} s = {n / load['Pillow']:.0f} files/s; "
+          f"images equal [{card}]")
+
+
+def png_trees(*, work: Path, card: str, dev, path_launches: dict,
+              clf_ckpt: Path, check_render, finite_falling) -> float:
+    """Phase 15: the render kernel at the export's 96 px, ``cli.
+    generate_data`` at its defaults (real) and at a cut ``--n`` (DR), the
+    files held against ``render_reference``, then the CLIs on the trees:
+    ``cli.main --data_dir`` (a 96 -> 64 px resize), ``cli.metric`` and
+    ``cli.inference`` reading the tree from that checkpoint's config, and
+    ``cli.dr_main --data_dir``. Adds the export's render launches to
+    ``path_launches["png export"]``; returns the largest max |d| of its
+    render checks."""
+    from cdgvae_torch.data.pendulum import sample_factors_real
+    from cdgvae_torch.data.pendulum_dr import sample_factors_dr
+    from cdgvae_torch.data.png_io import (decode_pngs, load_png_dataset,
+                                         sample_filename)
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.ops.renderer import render_reference
+    from cdgvae_torch.utils.checkpoint import load_checkpoint
+
+    # the kernel at 96 px on a chunk of the export, with and without the
+    # DR background bit, into one buffer as the export renders
+    factors, is_test = sample_factors_real(1, EXPORT_N)
+    train_dr, _ = sample_factors_dr(1, EXPORT_N)
+    n = min(EXPORT_CHUNK, len(train_dr))
+    out = torch.empty((n, EXPORT_PX, EXPORT_PX, 3), device=dev)
+    max_err = 0.0
+    for name, f_np, bg_np in (("", factors[:n, :4], None),
+                              (" DR bg", train_dr[:n, :4], train_dr[:n, 4])):
+        f = torch.as_tensor(f_np, dtype=torch.float32, device=dev)
+        bg = None if bg_np is None else torch.as_tensor(
+            bg_np, dtype=torch.float32, device=dev)
+        max_err = max(max_err, check_render(
+            f"B={n} {EXPORT_PX}px{name}", renderer_cuda.render_cuda(
+                f, EXPORT_PX, bg, out=out), f, EXPORT_PX, bg))
+        k_ms = time_ms(lambda: renderer_cuda.render_cuda(f, EXPORT_PX, bg,
+                                                         out=out))
+        p_ms = time_ms(lambda: render_reference(f, EXPORT_PX, bg), reps=3,
+                       rounds=3)
+        b_ms, b_by = render_bound_ms(n, EXPORT_PX, background=bg is not None)
+        print(f"render B={n} {EXPORT_PX}px{name} into one buffer: kernel "
+              f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}), {b_ms / k_ms:.3f} of the "
+              f"bound [{card}]")
+
+    # cli.generate_data: the real DGP at its defaults, then the DR DGP cut
+    real, dr = work / "png_real", work / "png_dr"
+    renderer_cuda.launches = 0
+    # the defaults, spelled out
+    said, (n_train, n_test), real_s = run_cli(
+        ["--dgp", "real", "--n", str(EXPORT_N), "--image_size",
+         str(EXPORT_PX), "--out", str(real)], "generate_data")
+    real_launches = renderer_cuda.launches
+    want = {split: len({sample_filename(r) for r in factors[sel]})
+            for split, sel in (("train", ~is_test), ("test", is_test))}
+    got = {split: len(list((real / split).iterdir()))
+           for split in ("train", "test")}
+    check(real_launches == -(-EXPORT_N // EXPORT_CHUNK) and got == want
+          and (n_train, n_test) == (int((~is_test).sum()),
+                                    int(is_test.sum())),
+          f"generate_data real: {real_launches} render launches, files "
+          f"{got}, expected {want}")
+    renderer_cuda.launches = 0
+    _, (dr_train, dr_test), dr_s = run_cli([
+        "--dgp", "dr", "--n", str(EXPORT_DR_N), "--image_size",
+        str(EXPORT_PX), "--out", str(dr)], "generate_data")
+    path_launches["png export"] = real_launches + renderer_cuda.launches
+    check(renderer_cuda.launches == 1 and dr_train + dr_test == EXPORT_DR_N,
+          f"generate_data dr: {renderer_cuda.launches} launches, "
+          f"{dr_train} + {dr_test} files")
+    print(f"png export: generate_data --dgp real ({EXPORT_N} files, "
+          f"{EXPORT_PX} px) {real_s:.3f} s = {EXPORT_N / real_s:.0f} files/s; "
+          f"--dgp dr --n {EXPORT_DR_N} {dr_s:.3f} s = "
+          f"{EXPORT_DR_N / dr_s:.0f} files/s (host clock); launches "
+          f"{{'render': {path_launches['png export']}}} [{card}]")
+
+    # the written files against render_reference of their file names'
+    # factors, within one uint8 level
+    names = sorted((real / "train").iterdir())[:64]
+    pixels = np.stack(decode_pngs([str(p) for p in names]))
+    labels = np.array([[float(v) for v in p.name[:-4].split("_")[1:]]
+                       for p in names])
+    ref = render_reference(torch.as_tensor(labels[:, :4], dtype=torch.float32,
+                                           device=dev), EXPORT_PX)
+    ref_u8 = torch.round(ref * 127.5 + 127.5).clamp(0, 255).cpu().numpy()
+    level = float(np.abs(pixels.astype(np.float64) - ref_u8).max())
+    print(f"64 exported files against render_reference of their names' "
+          f"factors: max {level:.0f} uint8 level(s)")
+    check(level <= 1.0, "the exported files disagree with render_reference")
+
+    # the load alone (decode on the host, resize on the card), then the
+    # CLIs on the trees; nothing renders on these paths
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, y = load_png_dataset(str(real / "train"), 64, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(x.shape == (got["train"], 64, 64, 3) and y.shape[1] == 5
+          and bool(torch.isfinite(x).all()), f"loaded tree {tuple(x.shape)}")
+    print(f"load_png_dataset({got['train']} files, {EXPORT_PX} -> 64 px): "
+          f"{load_s:.3f} s = {got['train'] / load_s:.0f} files/s (host "
+          f"clock) [{card}]")
+    decode_and_load_pillow_tree(work=work, card=card, dev=dev,
+                                paths=sorted((real / "train").iterdir()),
+                                x_want=x)
+    del x, y
+    tree_dir = work / "png_cli"
+    ckpt = tree_dir / "model_CDGVAE_linear"
+    renderer_cuda.launches = 0
+    _, _, main_s = run_cli(["--data_dir", str(real), "--epochs", "2",
+                            "--assets_dir", str(tree_dir)])
+    cfg = load_checkpoint(str(ckpt))["config"]
+    check(cfg["data_dir"] == str(real), f"checkpoint data_dir {cfg}")
+    losses = finite_falling("main --data_dir",
+                            read_records(tree_dir / "metrics.jsonl"))
+    _, (lower, upper), metric_s = run_cli(
+        ["--checkpoint", str(ckpt), "--classifier_checkpoint", str(clf_ckpt),
+         "--assets_dir", str(work / "png_cdm")], "metric")
+    for mat in (lower, upper):
+        for s, c in STRUCTURAL_ZEROS:
+            check(mat[s, c] == 0.0, f"CDM on the tree [{s}, {c}] = "
+                  f"{mat[s, c]!r}")
+    _, grid, inf_s = run_cli(["--checkpoint", str(ckpt), "--assets_dir",
+                              str(work / "png_inference")], "inference")
+    size = cfg["image_size"]
+    check(grid.shape == (4, 7, size, size, 3) and np.isfinite(grid).all(),
+          f"do grid on the tree {grid.shape}")
+    dr_dir = work / "png_dr_cli"
+    _, _, dr_main_s = run_cli(["--data_dir", str(dr), "--epochs", "1",
+                               "--assets_dir", str(dr_dir)], "dr_main")
+    dr_cfg = load_checkpoint(str(dr_dir / "model_DR_CDGVAE_linear"))["config"]
+    dr_loss = [r["loss"] for r in read_records(dr_dir / "metrics.jsonl")]
+    check(dr_cfg["data_dir"] == str(dr) and dr_cfg["spurious"] is True
+          and len(dr_loss) == 1 and math.isfinite(dr_loss[0]),
+          f"dr_main --data_dir: config {dr_cfg}, losses {dr_loss}")
+    check(renderer_cuda.launches == 0, f"{renderer_cuda.launches} render "
+          "launches on the PNG-tree paths, which load and render nothing")
+    print(f"cli on the PNG trees (host clock, loads included): main "
+          f"--data_dir 2 epochs {main_s:.3f} s, losses {losses}; metric "
+          f"{metric_s:.3f} s (structural zeros exactly 0.0); inference "
+          f"{inf_s:.3f} s; dr_main --data_dir 1 epoch {dr_main_s:.3f} s, loss "
+          f"{dr_loss}; render launches 0 [{card}]")
+    return max_err
+
+
+def tabular(*, work: Path, card: str, dev, rng, profiled_steps) -> None:
+    """Phase 16: the tabular family at its full synthetic sizes through
+    ``cli.tabular_main`` (CDG-VAE 2 epochs and ``--resume`` to 3 on every
+    dataset; VAE and InfoMax on loan and covtype; ``--eager`` on loan), the
+    loss on the card against the CPU, host ms and device busy a step,
+    ``cli.tabular_inference``, ``cli.dag_discovery`` and serving on the
+    card against the CPU."""
+    from cdgvae_torch.api import LoadedModel
+    from cdgvae_torch.data.tabular.datasets import load_tabular
+    from cdgvae_torch.factory import build_tabular_model
+    from cdgvae_torch.train.scanned import epoch_batches, make_epoch_runner
+    from cdgvae_torch.train.steps import make_optimizer
+    from cdgvae_torch.train.tabular_steps import (make_recon_fn,
+                                                  make_tabular_infomax_loss_fn,
+                                                  make_tabular_loss_fn,
+                                                  make_tabular_step)
+    from cdgvae_torch.utils.checkpoint import load_checkpoint
+
+    data = {ds: load_tabular(ds) for ds in TAB_STEPS}
+    for ds, steps in TAB_STEPS.items():
+        check(len(data[ds].x_data) // TAB_BATCH == steps,
+              f"{ds}: {len(data[ds].x_data)} train rows")
+
+    # cli.tabular_main on every dataset
+    walls = {}
+    for ds, steps in TAB_STEPS.items():
+        runs = [("CDGVAE", [])]
+        if ds in ("loan", "covtype"):
+            runs += [("VAE", []), ("InfoMax", [])]
+        if ds == "loan":
+            runs.append(("CDGVAE", ["--eager"]))
+        for model, extra in runs:
+            out = work / f"tab_{ds}_{model}{'_eager' if extra else ''}"
+            ckpt = out / f"tabular_{model}_{ds}"
+            epochs = 2 if model == "CDGVAE" and not extra else 1
+            args = ["--dataset", ds, "--model", model, *extra,
+                    "--assets_dir", str(out)]
+            _, _, s = run_cli(args + ["--epochs", str(epochs)],
+                              "tabular_main")
+            walls[f"{ds} {model}{' eager' if extra else ''}"] = s
+            count = -(-len(data[ds].x_data) // TAB_BATCH) if extra else steps
+            if epochs == 2:
+                said, _, s = run_cli(args + ["--epochs", "3", "--resume",
+                                             str(ckpt)], "tabular_main")
+                check(f"resumed from {ckpt} at epoch 2" in said,
+                      f"{ds}: no 'resumed' line")
+                epochs = 3
+            ck = load_checkpoint(str(ckpt))
+            counts = [int(ck["opt_state"][0].count)]
+            if model == "InfoMax":
+                counts.append(int(ck["extras"]["opt_state_d"][0].count))
+            records = read_records(out / "metrics.jsonl")
+            check(ck["step"] == epochs and counts == [epochs * count]
+                  * len(counts) and len(records) == epochs
+                  and all(math.isfinite(v) for r in records
+                          for v in r.values()),
+                  f"tabular {ds} {model} {extra}: step {ck['step']}, Adam "
+                  f"counts {counts}, records {records}")
+            print(f"tabular_main {ds} {model} {' '.join(extra)}: {epochs} "
+                  f"epochs of {count} steps, losses "
+                  f"{[round(r['loss'], 4) for r in records]}")
+    print("tabular_main walls (s, host clock, load included): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()) + f" [{card}]")
+
+    # the full-width loss on the card against the CPU (same weights, batch,
+    # noise and, for InfoMax, permutation)
+    for ds in TAB_STEPS:
+        d = data[ds]
+        x = torch.as_tensor(d.x_data[:TAB_BATCH])
+        y = torch.as_tensor(d.label[:TAB_BATCH])
+        recon_fn = make_recon_fn(ds, d.flatten_topology)
+        node = d.label.shape[1]
+        noise = torch.as_tensor(rng.standard_normal((TAB_BATCH, node)),
+                                dtype=torch.float32)
+        perm = torch.as_tensor(rng.permutation(TAB_BATCH))
+        for model_name in ("CDGVAE", "InfoMax"):
+            result = {}
+            for name, device in (("cpu", torch.device("cpu")),
+                                 ("cuda", dev)):
+                cfg = {"model": model_name, "dataset": ds, "scm": "linear"}
+                m, disc = build_tabular_model(cfg, device=device, seed=0)
+                if disc is None:
+                    loss, _ = make_tabular_loss_fn(m, TAB_BETA, TAB_LAM,
+                                                   recon_fn)(
+                        x.to(device), y.to(device), noise=noise.to(device))
+                else:
+                    loss, _ = make_tabular_infomax_loss_fn(
+                        m, disc, TAB_BETA, TAB_LAM, GAMMA, recon_fn)(
+                        x.to(device), y.to(device), noise=noise.to(device),
+                        perm=perm.to(device))
+                result[name] = loss.item()
+            rel = abs(result["cuda"] - result["cpu"]) / abs(result["cpu"])
+            print(f"tabular {ds} {model_name} loss cuda {result['cuda']:.6f} "
+                  f"cpu {result['cpu']:.6f} rel {rel:.2e}")
+            check(rel <= 1e-5, f"tabular {ds} {model_name} loss on the card "
+                  "disagrees with the CPU")
+
+    # host time a step over whole epochs (the datasets in turn, 3 rounds
+    # after a warm one, median) and a profiled window of 10 steps
+    runs, per_step = {}, {ds: [] for ds in TAB_STEPS}
+    for ds in TAB_STEPS:
+        d = data[ds]
+        m, _ = build_tabular_model({"model": "CDGVAE", "dataset": ds,
+                                    "scm": "linear"}, device=dev, seed=0)
+        step = make_tabular_step(m, make_optimizer(m, TAB_LR), TAB_BETA,
+                                 TAB_LAM, make_recon_fn(
+                                     ds, d.flatten_topology))
+        runs[ds] = (step, make_epoch_runner(step, TAB_BATCH),
+                    torch.as_tensor(d.x_data, device=dev),
+                    torch.as_tensor(d.label, device=dev))
+    for k in range(4):
+        for ds, (_, run, x, y) in runs.items():
+            t0 = time.perf_counter()
+            run(x, y, torch.Generator(device=dev).manual_seed(700 + k))
+            if k:
+                per_step[ds].append((time.perf_counter() - t0)
+                                    / TAB_STEPS[ds])
+    for ds, (step, _, x, y) in runs.items():
+        host = statistics.median(per_step[ds])
+        print(f"host time a step, tabular {ds} CDG-VAE, epochs of "
+              f"{TAB_STEPS[ds]} steps: "
+              f"{', '.join(f'{v * 1e3:.3f}' for v in per_step[ds])} ms, "
+              f"median {host * 1e3:.3f} ms [{card}]")
+        gen = torch.Generator(device=dev).manual_seed(9)
+        order = epoch_batches(len(x), TAB_BATCH, gen)[:10]
+        profiled_steps(f"tabular {ds} CDG-VAE step", lambda: [
+            step(x[i], y[i], generator=gen) for i in order], 10, host)
+        total = 200 * TAB_STEPS[ds]
+        print(f"a default tabular_main --dataset {ds} run: 200 epochs x "
+              f"{TAB_STEPS[ds]} = {total} steps, about {total * host:.1f} s "
+              f"of steps at this host rate [{card}]")
+
+    # cli.tabular_inference on the CDG-VAE checkpoints, cli.dag_discovery
+    for ds in ("loan", "covtype"):
+        inf_dir = work / f"tab_inference_{ds}"
+        _, res, inf_s = run_cli(["--checkpoint", str(
+            work / f"tab_{ds}_CDGVAE" / f"tabular_CDGVAE_{ds}"),
+            "--assets_dir", str(inf_dir)], "tabular_inference")
+        check(res["SHD (Train)"] >= 0 and res["SHD (Sample)"] >= 0
+              and all(math.isfinite(v) for k, v in res.items()
+                      if isinstance(v, float))
+              and (inf_dir / f"inference_CDGVAE_{ds}.txt").is_file(),
+              f"tabular_inference {ds}: {res}")
+        print(f"tabular_inference {ds}: {res}; {inf_s:.3f} s (host clock) "
+              f"[{card}]")
+    _, (g_raw, g_label), dag_s = run_cli(
+        ["--dataset", "loan", "--assets_dir", str(work / "dag")],
+        "dag_discovery")
+    check(g_raw.shape == (5, 5) and g_label.shape == (3, 3)
+          and (work / "dag" / "dag_raw_loan.png").is_file(),
+          f"dag_discovery shapes {g_raw.shape} {g_label.shape}")
+    print(f"dag_discovery --dataset loan: {dag_s:.3f} s (host clock) [{card}]")
+
+    # serving the CDG-VAE checkpoints on the card against the CPU, the same
+    # eps for generation; covtype's B is not topologically ordered, so the
+    # do-operator refuses it (as the JAX package's does)
+    serve_err = 0.0
+    for ds in ("loan", "adult", "covtype"):
+        ckpt = str(work / f"tab_{ds}_CDGVAE" / f"tabular_CDGVAE_{ds}")
+        served = {"cuda": LoadedModel.load(ckpt, device=dev),
+                  "cpu": LoadedModel.load(ckpt, device="cpu")}
+        x = data[ds].x_data[:TAB_BATCH]
+        node = data[ds].label.shape[1]
+        eps = rng.standard_normal((TAB_BATCH, node)).astype(np.float32)
+        requests = {"encode": lambda m: m.encode(x),
+                    "reconstruct": lambda m: m.reconstruct(x),
+                    "generate": lambda m: m.generate(eps)}
+        if ds != "covtype":
+            for j in range(node):
+                requests[f"counterfactual do{j}"] = (
+                    lambda m, j=j: m.counterfactual(x, j, 0.5))
+        for name, req in requests.items():
+            got, want = req(served["cuda"]), req(served["cpu"])
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"tabular serve {ds} {name}: {got.shape}")
+            err = float(np.abs(got - want).max())
+            serve_err = max(serve_err, err)
+            check(err <= SERVE_TOL, f"tabular serve {ds} {name}: cuda "
+                  f"against cpu max |d| {err} > {SERVE_TOL}")
+    print(f"tabular serving (encode, reconstruct, generate, counterfactual "
+          f"on loan and adult, batch {TAB_BATCH}): max |d| cuda against cpu "
+          f"{serve_err:.3e} (limit {SERVE_TOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -695,14 +1170,17 @@ def main() -> int:
     from cdgvae_torch.utils.interop import load_jax_params
     from cdgvae_torch.utils.simulation import ONLINE_STEP, derived_seed
 
+    import scipy
+
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. the card
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, numpy "
-          f"{np.__version__}, {torch.cuda.get_device_name(0)} "
-          f"x{torch.cuda.device_count()}")
+          f"{np.__version__}, scipy {scipy.__version__}, "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     # checkpoints cross between the packages on the CPU test machine, which
     # has JAX; here the port reads and writes its own
     print("checkpoint exchange with the JAX package: not run here (no JAX "
@@ -1250,7 +1728,19 @@ def main() -> int:
         pendulum_ckpt=ckpt, pendulum_rows=rows, dataset_epoch=dataset_epoch,
         check_render=check_render, finite_falling=finite_falling,
         profiled_steps=profiled_steps))
+
+    # 15. PNG trees
+    max_err = max(max_err, png_trees(
+        work=work, card=card, dev=dev, path_launches=path_launches,
+        clf_ckpt=clf_ckpt, check_render=check_render,
+        finite_falling=finite_falling))
+
+    # 16. the tabular family
+    tabular(work=work, card=card, dev=dev, rng=rng,
+            profiled_steps=profiled_steps)
     shutil.rmtree(work, ignore_errors=True)
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s "
+          f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())
     print(f"render launches by path: {path_launches}, total {launches}")

@@ -87,15 +87,35 @@ def test_counterfactual_on_a_sink_leaves_the_light_band(tmp_path):
 
 
 @pytest.mark.parametrize("cfg,item", [
-    ({"model": "CDGVAE", "dataset": "loan"}, "item 12"),
+    ({"model": "TVAE", "dataset": "adult"}, "item 12"),
     ({"model": "TVAE", "dataset": "loan"}, "item 12"),
     ({"model": "CDGVAE", "causal_structure": 0}, "item 13"),
 ])
 def test_unported_families_raise(tmp_path, cfg, item):
-    """DR checkpoints serve (tests/test_torch_dr.py)."""
+    """DR checkpoints serve (tests/test_torch_dr.py), and so do tabular
+    VAE, CDG-VAE and InfoMax ones (below, and tests/test_torch_tabular.py);
+    the TVAE waits."""
     save_checkpoint(str(tmp_path / "ck"), {"w": np.ones(1)}, config=cfg)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         LoadedModel.load(str(tmp_path / "ck"), device="cpu")
+
+
+def test_tabular_checkpoint_serves(tmp_path):
+    """A loan CDG-VAE checkpoint serves its output columns, as the JAX
+    LoadedModel does."""
+    from cdgvae_tpu.factory import build_tabular_model
+
+    cfg = {"model": "CDGVAE", "dataset": "loan", "scm": "linear"}
+    model, _ = build_tabular_model(dict(cfg))
+    save_checkpoint(str(tmp_path / "ck"), model.init(jax.random.key(0)),
+                    config=cfg)
+    jm = JLoadedModel.load(str(tmp_path / "ck"), bucket_batches=False)
+    tm = LoadedModel.load(str(tmp_path / "ck"), device="cpu")
+    x = np.random.default_rng(1).normal(size=(6, 5)).astype(np.float32)
+    _close(tm.encode(x), jm.encode(x))
+    _close(tm.reconstruct(x), jm.reconstruct(x))
+    _close(tm.counterfactual(x, 2, 0.3), jm.counterfactual(x, 2, 0.3))
+    assert tm.sample(3).shape == (3, 5)
 
 
 def test_mesh_serving_raises(tmp_path):

@@ -163,7 +163,7 @@ def test_online_loss_falls(tmp_path):
 @pytest.mark.parametrize("args,why", [
     (["--model", "InfoMax", "--free_bits", "0.5"], "--free_bits"),
     (["--online", "--labeled_ratio", "0.5"], "--online supports"),
-    (["--data_dir", "pngs"], "item 7"),
+    (["--online", "--data_dir", "pngs"], "--online supports"),
     (["--platform", "cpu"], "item 15"),
     (["--dp", "2"], "item 14"),
     (["--profile", "trace"], "item 15"),

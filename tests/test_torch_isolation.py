@@ -1,6 +1,7 @@
 """The port stands alone: importing every cdgvae_torch module loads neither
-JAX, optax, matplotlib, pandas, scikit-learn nor anything of cdgvae_tpu
-(the GPU machine has none of them)."""
+JAX, optax, matplotlib, pandas, scikit-learn, PIL, networkx nor anything
+of cdgvae_tpu (the GPU machine has none of them), and not scipy, which
+only the PC p-values import, when they run."""
 import json
 import subprocess
 import sys
@@ -18,7 +19,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "cdgvae_tpu",
                                     "matplotlib", "pandas", "wandb",
-                                    "sklearn"))
+                                    "sklearn", "PIL", "networkx", "scipy"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -45,7 +46,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.cli.sample_efficiency",
                  "cdgvae_torch.cli.dr_main", "cdgvae_torch.cli.dr_main_semi",
                  "cdgvae_torch.cli.dr_robustness",
-                 "cdgvae_torch.cli.toy_dr"):
+                 "cdgvae_torch.cli.toy_dr", "cdgvae_torch.data.png_io",
+                 "cdgvae_torch.cli.generate_data",
+                 "cdgvae_torch.data.tabular.datasets",
+                 "cdgvae_torch.models.tabular",
+                 "cdgvae_torch.train.tabular_steps",
+                 "cdgvae_torch.cli.tabular_main", "cdgvae_torch.utils.pc",
+                 "cdgvae_torch.cli.dag_discovery",
+                 "cdgvae_torch.eval.ml_efficacy",
+                 "cdgvae_torch.eval.tabular_inference",
+                 "cdgvae_torch.cli.tabular_inference"):
         assert name in result["modules"]
 
 

@@ -347,3 +347,45 @@ def test_graphed_downstream_fit_matches_the_eager_fit(cuda_device):
                 a = got["classify"][f"layer{i}"][k]
                 b = want["classify"][f"layer{i}"][k]
                 assert np.abs(a - b).max() <= 1e-5, (i, k)
+
+
+@pytest.mark.cuda
+def test_png_export_renders_through_the_kernel(cuda_device, tmp_path):
+    """save_png_dataset on the card: one launch a chunk into one buffer,
+    and the same files as the CPU's plain render, within one level."""
+    from cdgvae_torch.data import png_io
+
+    factors, is_test = pendulum.sample_factors_real(seed=2, n=40)
+    before = renderer_cuda.launches
+    png_io.save_png_dataset(str(tmp_path / "gpu"), factors, is_test,
+                            image_size=96, chunk=16, device=cuda_device)
+    assert renderer_cuda.launches - before == 3
+    png_io.save_png_dataset(str(tmp_path / "cpu"), factors, is_test,
+                            image_size=96, device="cpu")
+    for split in ("train", "test"):
+        names = sorted((tmp_path / "cpu" / split).iterdir())
+        assert [p.name for p in names] == sorted(
+            p.name for p in (tmp_path / "gpu" / split).iterdir())
+        gpu = png_io.decode_pngs([str(tmp_path / "gpu" / split / p.name)
+                                  for p in names])
+        cpu = png_io.decode_pngs([str(p) for p in names])
+        for a, b in zip(gpu, cpu):
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_png_load_resizes_on_the_card_as_on_the_cpu(cuda_device, tmp_path):
+    """The integer resize gives the same bytes on every device."""
+    from cdgvae_torch.data import png_io
+
+    factors, is_test = pendulum.sample_factors_real(seed=3, n=24)
+    png_io.save_png_dataset(str(tmp_path), factors, is_test, image_size=96,
+                            device="cpu")
+    for size in (64, 96, 32):
+        x_gpu, y_gpu = png_io.load_png_dataset(str(tmp_path / "train"), size,
+                                               device=cuda_device)
+        x_cpu, y_cpu = png_io.load_png_dataset(str(tmp_path / "train"), size,
+                                               device="cpu")
+        assert x_gpu.device.type == "cuda"
+        torch.testing.assert_close(x_gpu.cpu(), x_cpu, rtol=0, atol=0)
+        np.testing.assert_array_equal(y_gpu, y_cpu)

@@ -239,8 +239,20 @@ def test_cli_without_gpu_exits_nonzero():
     assert "no CUDA device" in proc.stderr
 
 
-def test_cli_rejects_what_is_not_ported():
-    for args in (["--data_dir", "pngs"], ["--dp", "2"]):
-        proc = _cli("--device", "cpu", *args)
-        assert proc.returncode != 0 and "[epoch" not in proc.stdout
-        assert "ROADMAP Queue 1 item" in proc.stderr
+def test_cli_rejects_what_is_not_ported(tmp_path):
+    proc = _cli("--device", "cpu", "--dp", "2")
+    assert proc.returncode != 0 and "[epoch" not in proc.stdout
+    assert "ROADMAP Queue 1 item" in proc.stderr
+    # --data_dir is ported: a tree written by cli.generate_data trains
+    tree = tmp_path / "tree"
+    gen = subprocess.run(
+        [sys.executable, "-m", "cdgvae_torch.cli.generate_data", "--device",
+         "cpu", "--n", "48", "--image_size", "16", "--out", str(tree)],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert gen.returncode == 0, gen.stderr
+    proc = _cli("--device", "cpu", "--image_size", "16", "--batch_size", "8",
+                "--epochs", "1", "--data_dir", str(tree), "--assets_dir",
+                str(tmp_path / "run"))
+    assert proc.returncode == 0, proc.stderr
+    assert "ROADMAP" not in proc.stderr and "[epoch 001]" in proc.stdout

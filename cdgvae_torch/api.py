@@ -1,5 +1,5 @@
 """Serving API: load a checkpoint, run inference (port of
-``cdgvae_tpu/api.py:25-235`` for the pendulum and tabular families).
+``cdgvae_tpu/api.py`` for the pendulum and tabular families).
 
     from cdgvae_torch.api import LoadedModel
     m = LoadedModel.load("assets/model_CDGVAE_linear")      # on cuda
@@ -20,14 +20,24 @@ builds it: from its ``spurious`` marker, or, in a checkpoint written
 before the marker existed, from node == 5. A tabular checkpoint (its
 config names a ``dataset``) serves VAE, CDG-VAE and InfoMax models; the
 answers are the model's output columns [batch, columns] in topology
-order. A TVAE or CelebA checkpoint, or a ``mesh=``, raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+order. A TVAE checkpoint answers in data space, as the JAX package's
+does: the decoder's output through ``tanh``, then the DataTransformer's
+inverse with the learned sigmas (whose noise numpy's global generator
+draws), a ``data.tabular.transformer.Table`` (float64, ``columns`` naming
+the transformer's columns). Its transformer is the checkpoint's
+``transformer.npz``; a JAX TVAE checkpoint carries a pickle of pandas and
+scikit-learn objects instead, which ``DataTransformer.from_fitted``
+converts where those are installed. A CelebA checkpoint, or a ``mesh=``,
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
+from .data.tabular.transformer import DataTransformer
 from .factory import build_pendulum_model, build_tabular_model
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
@@ -38,11 +48,22 @@ _MODEL_CLASS = {"InfoMax": "VAE"}
 
 
 def _unported_family(config: dict) -> str | None:
-    if config.get("model") == "TVAE":
-        return "the tabular TVAE: ROADMAP Queue 1 item 12"
     if "causal_structure" in config:
         return "the CelebA family: ROADMAP Queue 1 item 13"
     return None
+
+
+def load_transformer(checkpoint_dir: str) -> DataTransformer:
+    """A TVAE checkpoint's fitted transformer, from its
+    ``transformer.npz``."""
+    path = os.path.join(checkpoint_dir, "transformer.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} not found: a TVAE checkpoint serves with its fitted "
+            "transformer. A JAX-written one carries transformer.pkl; where "
+            "pandas and scikit-learn are installed, write the .npz with "
+            "DataTransformer.from_fitted(pickle.load(f)).save(path)")
+    return DataTransformer.load(path)
 
 
 def is_dr(config: dict) -> bool:
@@ -52,10 +73,12 @@ def is_dr(config: dict) -> bool:
 
 
 class LoadedModel:
-    def __init__(self, model, config: dict):
+    def __init__(self, model, config: dict,
+                 transformer: DataTransformer | None = None):
         self.model = model.eval()
         self.config = config
         self.device = next(model.parameters()).device
+        self.transformer = transformer
 
     @classmethod
     def load(cls, checkpoint_dir: str, device: str | torch.device = "cuda",
@@ -81,13 +104,16 @@ class LoadedModel:
         device = resolve_device(device)
         build = dict(config, model=_MODEL_CLASS.get(config["model"],
                                                     config["model"]))
+        transformer = None
         if "dataset" in config:
             model, _ = build_tabular_model(build, device=device)
+            if config["model"] == "TVAE":
+                transformer = load_transformer(checkpoint_dir)
         else:
             model, _ = build_pendulum_model(build, spurious=is_dr(config),
                                             device=device)
         load_jax_params(model, ck["params"])
-        return cls(model, config)
+        return cls(model, config, transformer)
 
     def _input(self, x) -> torch.Tensor:
         if not torch.is_tensor(x):
@@ -97,6 +123,15 @@ class LoadedModel:
     def _encode(self, x: torch.Tensor):
         return self.model.encode(x, deterministic=True)
 
+    def _to_data(self, out: torch.Tensor):
+        """Decoder output -> an answer: the array as it is, or for a TVAE
+        the transformer's inverse of its tanh with the learned sigmas."""
+        if self.transformer is None:
+            return out.cpu().numpy()
+        return self.transformer.inverse_transform(
+            torch.tanh(out).cpu().numpy(),
+            sigmas=self.model.sigma.detach().cpu().numpy())
+
     @torch.no_grad()
     def encode(self, x) -> np.ndarray:
         """Deterministic causal latents [batch, node]."""
@@ -104,10 +139,11 @@ class LoadedModel:
 
     @torch.no_grad()
     def reconstruct(self, x) -> np.ndarray:
-        """Reconstructions: images [batch, H, W, 3] in [-1, 1], or a tabular
-        model's output columns [batch, columns]."""
+        """Reconstructions: images [batch, H, W, 3] in [-1, 1], a tabular
+        model's output columns [batch, columns], or a TVAE's rows in data
+        space."""
         latent = self._encode(self._input(x))[4]
-        return self.model.decode_fast(latent).cpu().numpy()
+        return self._to_data(self.model.decode_fast(latent))
 
     @torch.no_grad()
     def counterfactual(self, x, do_index: int, value) -> np.ndarray:
@@ -119,13 +155,13 @@ class LoadedModel:
             value = self._input(value)
         z_do = self.model.graph.do_intervention(latent, eps, int(do_index),
                                                 value)
-        return self.model.decode_fast(z_do).cpu().numpy()
+        return self._to_data(self.model.decode_fast(z_do))
 
     @torch.no_grad()
     def generate(self, eps) -> np.ndarray:
         """Exogenous noise eps [n, node] -> SEM + flows -> decode."""
         _, latent, _ = self.model.graph.transform(self._input(eps))
-        return self.model.decode_fast(latent).cpu().numpy()
+        return self._to_data(self.model.decode_fast(latent))
 
     def sample(self, n: int, generator: torch.Generator | None = None
                ) -> np.ndarray:

@@ -1,27 +1,27 @@
-"""Shared CLI plumbing for the pendulum CLIs (port of the parts of
-``cdgvae_tpu/cli/common.py:17-143,204-372`` they use): list and bool flag
-parsers, the infrastructure flags, ``--resume`` (the InfoMax 4-tuple
-included), and the fixed-dataset (supervised and semi-supervised) and
-online training drivers, single device.
+"""Shared CLI plumbing (port of the parts of ``cdgvae_tpu/cli/common.py``
+the port's CLIs use): list and bool flag parsers, the infrastructure
+flags, ``--device`` and the reference's ``--platform``, ``--resume`` (the
+InfoMax 4-tuple included), and the fixed-dataset (supervised and
+semi-supervised) and online training drivers, single device.
 """
 from __future__ import annotations
 
 import argparse
 import ast
 
+import torch
+
 from ..train.loop import run_epochs, run_epochs_semi
 from ..train.online import make_online_run_from_loss, train_split_size
 from ..train.scanned import Averager
 
-# JAX-, mesh- or XLA-trace-specific flags of the reference, refused here
+# mesh-specific flags of the reference, refused here
 _UNPORTED_FLAGS = {
-    "--platform": "picks the JAX backend; the port takes --device "
-                  "(ROADMAP Queue 1 item 15, tooling)",
     "--dp": "the data-parallel mesh is not ported yet (ROADMAP Queue 1 "
             "item 14, data parallel)",
-    "--profile": "the XLA trace is not ported yet (ROADMAP Queue 1 item "
-                 "15, tooling: torch.profiler)",
 }
+# --platform values and the device each means
+_PLATFORM_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def arg_as_list(s: str):
@@ -50,6 +50,39 @@ class _Unported(argparse.Action):
                      f"{_UNPORTED_FLAGS[option_string]}")
 
 
+def _device_name(value: str) -> str:
+    """``--device``'s value; empty (its default) means cuda."""
+    return value or "cuda"
+
+
+class _DeviceFlag(argparse.Action):
+    """``--device``, and the reference's ``--platform``: ``cpu`` means
+    ``--device cpu``, ``gpu`` or ``cuda`` means ``--device cuda``; any
+    other backend is refused by name. The two may not disagree, in either
+    order. ``--device`` defaults to the empty string, so that while
+    parsing it reads as not given; argparse converts an untouched string
+    default through ``type`` once parsing ends, which makes it cuda."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        if option_string == "--device":
+            device, platform = values, namespace.platform
+        else:
+            platform = values.strip().lower()
+            if not platform:
+                return
+            if platform not in _PLATFORM_DEVICES:
+                parser.error(f"--platform {values} is not supported by the "
+                             "port: it runs on --platform gpu (or cuda) and "
+                             "--platform cpu")
+            device = namespace.device or _PLATFORM_DEVICES[platform]
+            namespace.platform = platform
+        if platform and torch.device(device).type != \
+                _PLATFORM_DEVICES[platform]:
+            parser.error(f"--platform {platform} contradicts --device "
+                         f"{device}")
+        namespace.device = device
+
+
 def add_infra_args(parser: argparse.ArgumentParser):
     """Framework-side flags that have no reference counterpart."""
     parser.add_argument("--wandb", action="store_true",
@@ -63,9 +96,12 @@ def add_infra_args(parser: argparse.ArgumentParser):
                         help="per-batch epoch driver that keeps the last "
                              "partial batch (the reference's exact "
                              "protocol)")
+    parser.add_argument("--profile", default="", type=str, metavar="DIR",
+                        help="write a torch.profiler trace of the training "
+                             "drive to DIR (utils/profiling.py ranks its "
+                             "kernels)")
     add_device_arg(parser)
-    for flag in ("--dp", "--profile"):
-        _add_unported(parser, flag)
+    _add_unported(parser, "--dp")
     return parser
 
 
@@ -87,11 +123,14 @@ def add_png_data_dir_arg(parser: argparse.ArgumentParser):
 
 
 def add_device_arg(parser: argparse.ArgumentParser):
-    """``--device`` alone, for the eval CLIs, with the reference's
-    ``--platform`` refused."""
-    parser.add_argument("--device", default="cuda", type=str,
-                        help="cuda (default) or cpu")
-    _add_unported(parser, "--platform")
+    """``--device`` and the reference's ``--platform`` (``cpu``, or
+    ``gpu``/``cuda``), which sets it; the two may not disagree."""
+    parser.add_argument("--device", default="", type=_device_name,
+                        action=_DeviceFlag, help="cuda (default) or cpu")
+    parser.add_argument("--platform", default="", type=str,
+                        action=_DeviceFlag,
+                        help="the reference's backend flag: cpu means "
+                             "--device cpu, gpu or cuda --device cuda")
     return parser
 
 

@@ -43,6 +43,7 @@ from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.interop import export_opt_state, export_params
 from ..utils.logging import MetricLogger
+from ..utils.profiling import trace
 from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
                                 derived_generator, set_random_seed)
 from ..utils.viz import viz_recon_grid
@@ -222,34 +223,35 @@ def train(config: dict):
         logger.log(metrics, step=epoch)
 
     pred = lambda e: ckpt_due(e) or viz_due(e)  # noqa: E731
-    if config["online"]:
-        if infomax:
-            loss_fn = make_infomax_loss_fn(model, discriminator, beta, lam,
-                                           config["gamma"])
-            opt = pair_infomax_optimizer(optimizer, optimizer_d)
+    with trace(config["profile"]):
+        if config["online"]:
+            if infomax:
+                loss_fn = make_infomax_loss_fn(model, discriminator, beta,
+                                               lam, config["gamma"])
+                opt = pair_infomax_optimizer(optimizer, optimizer_d)
+            else:
+                from ..train.scanned import make_supervised_loss_fn
+                loss_fn = make_supervised_loss_fn(
+                    model, beta, lam, free_bits=config["free_bits"])
+                opt = optimizer
+            run_online_training(
+                config, loss_fn=loss_fn, optimizer=opt, device=device,
+                start_epoch=start_epoch, on_epoch=on_epoch,
+                sample_batch_builder=sample_builder, post_epoch=post_epoch,
+                post_epoch_pred=pred)
+        elif not config["eager"]:
+            run_scanned_training(
+                config, step=step, data=(dataset.x_data, dataset.y_data),
+                start_epoch=start_epoch, on_epoch=on_epoch,
+                post_epoch=post_epoch, post_epoch_pred=pred)
         else:
-            from ..train.scanned import make_supervised_loss_fn
-            loss_fn = make_supervised_loss_fn(model, beta, lam,
-                                              free_bits=config["free_bits"])
-            opt = optimizer
-        run_online_training(
-            config, loss_fn=loss_fn, optimizer=opt, device=device,
-            start_epoch=start_epoch, on_epoch=on_epoch,
-            sample_batch_builder=sample_builder, post_epoch=post_epoch,
-            post_epoch_pred=pred)
-    elif not config["eager"]:
-        run_scanned_training(
-            config, step=step, data=(dataset.x_data, dataset.y_data),
-            start_epoch=start_epoch, on_epoch=on_epoch,
-            post_epoch=post_epoch, post_epoch_pred=pred)
-    else:
-        for epoch in range(start_epoch, config["epochs"]):
-            metrics = train_epoch(step, dataset.x_data, dataset.y_data, bs,
-                                  derived_generator(seed, EPOCH, epoch,
-                                                    device=device),
-                                  shuffle_rng)
-            on_epoch(epoch, metrics)
-            post_epoch(epoch)
+            for epoch in range(start_epoch, config["epochs"]):
+                metrics = train_epoch(
+                    step, dataset.x_data, dataset.y_data, bs,
+                    derived_generator(seed, EPOCH, epoch, device=device),
+                    shuffle_rng)
+                on_epoch(epoch, metrics)
+                post_epoch(epoch)
 
     if not dr:
         viz(f"{config['assets_dir']}/recon.png")

@@ -30,6 +30,7 @@ from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.interop import export_opt_state, export_params
 from ..utils.logging import MetricLogger
+from ..utils.profiling import trace
 from ..utils.simulation import set_random_seed
 from .common import add_infra_args, add_png_data_dir_arg, arg_as_bool
 
@@ -81,11 +82,12 @@ def main(argv=None):
     step = step_from_loss(loss_fn, opt)
     shuffle_rng = np.random.default_rng(config["seed"])
     os.makedirs(config["assets_dir"], exist_ok=True)
-    for epoch in range(config["epochs"]):
-        metrics = train_epoch(step, dataset.x_data, dataset.y_data,
-                              config["batch_size"], None, shuffle_rng)
-        print(format_epoch(epoch, metrics), flush=True)
-        logger.log(metrics, step=epoch)
+    with trace(config["profile"]):
+        for epoch in range(config["epochs"]):
+            metrics = train_epoch(step, dataset.x_data, dataset.y_data,
+                                  config["batch_size"], None, shuffle_rng)
+            print(format_epoch(epoch, metrics), flush=True)
+            logger.log(metrics, step=epoch)
 
     ckpt = os.path.join(config["assets_dir"], "CDMClassifier")
     save_checkpoint(ckpt, export_params(clf),

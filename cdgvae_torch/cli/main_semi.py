@@ -37,6 +37,7 @@ from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.interop import export_opt_state, export_params
 from ..utils.logging import MetricLogger
+from ..utils.profiling import trace
 from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
                                 derived_generator, set_random_seed)
 from ..utils.viz import viz_recon_grid
@@ -129,30 +130,31 @@ def train(config: dict):
         logger.log(metrics, step=epoch)
 
     beta, lam = config["beta"], config["lambda"]
-    if config["online"]:
-        def sample_builder(batch_size):
-            return (dr_batch_fn if dr else pendulum_batch_fn)(
-                batch_size, config["image_size"], norm_seed=seed,
-                norm_n=config["n_samples"], device=device)
-        run_online_training(
-            config, loss_fn=make_semi_loss_fn(model, beta, lam),
-            optimizer=optimizer, device=device, start_epoch=start_epoch,
-            on_epoch=on_epoch, sample_batch_builder=sample_builder,
-            labeled=(x_l, y_l))
-    elif config["eager"]:
-        step = make_semi_step(model, optimizer, beta, lam)
-        shuffle_rng = np.random.default_rng(seed + start_epoch)
-        for epoch in range(start_epoch, config["epochs"]):
-            on_epoch(epoch, train_epoch_semi(
-                step, x_u, x_l, y_l, config["batch_size"],
-                config["batch_sizeL"],
-                derived_generator(seed, EPOCH, epoch, device=device),
-                shuffle_rng))
-    else:
-        run_scanned_training_semi(
-            config, step=make_semi_step(model, optimizer, beta, lam),
-            data=(x_u, x_l, y_l), start_epoch=start_epoch,
-            on_epoch=on_epoch)
+    with trace(config["profile"]):
+        if config["online"]:
+            def sample_builder(batch_size):
+                return (dr_batch_fn if dr else pendulum_batch_fn)(
+                    batch_size, config["image_size"], norm_seed=seed,
+                    norm_n=config["n_samples"], device=device)
+            run_online_training(
+                config, loss_fn=make_semi_loss_fn(model, beta, lam),
+                optimizer=optimizer, device=device, start_epoch=start_epoch,
+                on_epoch=on_epoch, sample_batch_builder=sample_builder,
+                labeled=(x_l, y_l))
+        elif config["eager"]:
+            step = make_semi_step(model, optimizer, beta, lam)
+            shuffle_rng = np.random.default_rng(seed + start_epoch)
+            for epoch in range(start_epoch, config["epochs"]):
+                on_epoch(epoch, train_epoch_semi(
+                    step, x_u, x_l, y_l, config["batch_size"],
+                    config["batch_sizeL"],
+                    derived_generator(seed, EPOCH, epoch, device=device),
+                    shuffle_rng))
+        else:
+            run_scanned_training_semi(
+                config, step=make_semi_step(model, optimizer, beta, lam),
+                data=(x_u, x_l, y_l), start_epoch=start_epoch,
+                on_epoch=on_epoch)
 
     if not dr:
         # under --online there is no unlabeled dataset: a fresh 9-image

@@ -1,7 +1,6 @@
 """Tabular synthetic-data evaluation entry point (port of ``cdgvae_tpu/cli/
-tabular_inference.py:23-93``, with ``--device`` in place of
-``--platform``): PC CPDAGs on the real, reconstructed and synthetic
-tables, their SHDs, and ML efficacy.
+tabular_inference.py:23-93``, with ``--device``): PC CPDAGs on the
+real, reconstructed and synthetic tables, their SHDs, and ML efficacy.
 
 Usage: python -m cdgvae_torch.cli.tabular_inference --checkpoint DIR
        [--device cuda]
@@ -11,8 +10,8 @@ and reports SHD (Train), the reconstructions' CPDAG against the real
 train data's, SHD (Sample), the synthetic rows' (as many as the train
 split), and the baseline and synthetic R² (loan) or F1 (adult, covtype)
 on the real test split. Writes them to
-``<assets_dir>/inference_<model>_<dataset>.txt``. Without scikit-learn
-the means cover the linear or logistic row alone, and the line
+``<assets_dir>/inference_<model>_<dataset>.txt``. The means cover the
+linear or logistic row alone (the port fits no forest), and the line
 ``ML efficacy rows`` names the rows each mean averages.
 """
 from __future__ import annotations

@@ -33,6 +33,7 @@ from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.interop import export_opt_state, export_params
 from ..utils.logging import MetricLogger
+from ..utils.profiling import trace
 from ..utils.simulation import EPOCH, derived_generator, set_random_seed
 from .common import (add_infra_args, add_resume_arg, apply_resume,
                      arg_as_bool, arg_as_list)
@@ -112,17 +113,19 @@ def main(argv=None):
         print(format_epoch(epoch, metrics), flush=True)
         logger.log(metrics, step=epoch)
 
-    if config["eager"]:
-        shuffle_rng = np.random.default_rng(seed + start_epoch)
-        for epoch in range(start_epoch, config["epochs"]):
-            on_epoch(epoch, train_epoch(
-                step, x_data, y_data, config["batch_size"],
-                derived_generator(seed, EPOCH, epoch, device=device),
-                shuffle_rng))
-    else:
-        run_epochs(step, x_data, y_data, seed=seed, epochs=config["epochs"],
-                   batch_size=config["batch_size"], start_epoch=start_epoch,
-                   on_epoch=on_epoch)
+    with trace(config["profile"]):
+        if config["eager"]:
+            shuffle_rng = np.random.default_rng(seed + start_epoch)
+            for epoch in range(start_epoch, config["epochs"]):
+                on_epoch(epoch, train_epoch(
+                    step, x_data, y_data, config["batch_size"],
+                    derived_generator(seed, EPOCH, epoch, device=device),
+                    shuffle_rng))
+        else:
+            run_epochs(step, x_data, y_data, seed=seed,
+                       epochs=config["epochs"],
+                       batch_size=config["batch_size"],
+                       start_epoch=start_epoch, on_epoch=on_epoch)
 
     ckpt = os.path.join(config["assets_dir"],
                         f"tabular_{config['model']}_{config['dataset']}")

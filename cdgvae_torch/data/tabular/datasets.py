@@ -1,9 +1,10 @@
 """Tabular datasets: Personal Loan, Adult, Forest CoverType (port of
-``cdgvae_tpu/data/tabular/datasets.py:23-259`` in numpy, without pandas).
+``cdgvae_tpu/data/tabular/datasets.py:23-304`` in numpy, without pandas).
 
 The pipeline is the reference's: a fixed-seed shuffle, the dataset's
 cleaning, the column selection, z-scoring, and digit-interleaved
-ground-truth labels per causal-chain group. Without a CSV under
+ground-truth labels per causal-chain group; for the CDG-TVAE, the
+DataTransformer encoding of the unscaled rows. Without a CSV under
 ``data_dir``, :func:`load_tabular` draws the schema-compatible synthetic
 table, so every path runs offline.
 
@@ -232,14 +233,24 @@ def _no_row_has(flags: list, n: int) -> np.ndarray:
     return ~np.any(flags, axis=0) if flags else np.ones(n, dtype=bool)
 
 
+def pandas_mean(col: np.ndarray) -> float:
+    """A column's mean as pandas takes it: its float64 sum over its
+    count."""
+    return col.sum(dtype=np.float64) / len(col)
+
+
+def pandas_std(col: np.ndarray) -> float:
+    """A column's ddof-1 standard deviation as pandas' two-pass
+    ``nanvar`` takes it."""
+    values = col.astype(np.float64)
+    avg = values.sum(dtype=np.float64) / len(col)
+    return np.sqrt(((avg - values) ** 2).sum(dtype=np.float64)
+                   / (len(col) - 1))
+
+
 def _zscore(col: np.ndarray) -> np.ndarray:
     """``(col - mean) / std`` with pandas' mean and ddof-1 std."""
-    n = len(col)
-    mean = col.sum(dtype=np.float64) / n
-    values = col.astype(np.float64)
-    avg = values.sum(dtype=np.float64) / n
-    std = np.sqrt(((avg - values) ** 2).sum(dtype=np.float64) / (n - 1))
-    return (col - mean) / std
+    return (col - pandas_mean(col)) / pandas_std(col)
 
 
 def _bijection_labels(df01: dict, topology) -> np.ndarray:
@@ -263,6 +274,11 @@ def _bijection_labels(df01: dict, topology) -> np.ndarray:
     return np.clip(np.concatenate(parts, axis=1), 0.0, 1.0)
 
 
+def _rescale01(table: dict) -> dict:
+    """Each column min-max scaled to [0, 1]."""
+    return {c: (v - v.min()) / (v.max() - v.min()) for c, v in table.items()}
+
+
 @dataclass
 class TabularData:
     """A loaded tabular split: z-scored features + interleaved labels."""
@@ -281,8 +297,7 @@ def load_tabular(dataset: str, train: bool = True,
     df = _prepare(load_raw(dataset, data_dir, synthetic_n), dataset)
     df_ = {c: (v if c in spec["zscore_exclude"] else _zscore(v))
            for c, v in df.items()}
-    df01 = {c: (v - v.min()) / (v.max() - v.min()) for c, v in df_.items()}
-    labels = _bijection_labels(df01, spec["topology"])
+    labels = _bijection_labels(_rescale01(df_), spec["topology"])
 
     sl = slice(*(spec["train_slice"] if train else spec["test_slice"]))
     frame = np.stack([df_[c] for c in spec["continuous"]],
@@ -297,3 +312,46 @@ def load_tabular(dataset: str, train: bool = True,
         topology=[list(g) for g in spec["topology"]],
         flatten_topology=flat,
     )
+
+
+@dataclass
+class TabularTVAEData:
+    """The DataTransformer-encoded train rows of a dataset, for the
+    CDG-TVAE."""
+    x_data: np.ndarray        # [n, output_dimensions] float32 encoding
+    label: np.ndarray         # [n, node] float32
+    transformer: object       # the fitted transformer.DataTransformer
+    raw: dict                 # the fitted rows, column -> [n], fit order
+    continuous: list
+    topology: list
+
+
+def load_tabular_tvae(dataset: str, data_dir: str | None = None,
+                      random_state: int = 0,
+                      synthetic_n: int | None = None) -> TabularTVAEData:
+    """Fit the transformer on the train rows of the unscaled table, in
+    ``tvae_order`` (loan) or the topology's order; adult fits its first
+    ``tvae_rows`` (4,000) rows. The labels are those of the min-max scaled
+    table, as :func:`load_tabular`'s."""
+    from .transformer import DataTransformer
+
+    spec = DATASET_SPECS[dataset]
+    df = _prepare(load_raw(dataset, data_dir, synthetic_n), dataset)
+    labels = _bijection_labels(_rescale01(df), spec["topology"])
+    order = spec["tvae_order"] or [c for grp in spec["topology"]
+                                   for c in grp]
+    sl = spec["train_slice"]
+    if spec.get("tvae_rows"):
+        sl = (sl[0], spec["tvae_rows"])
+    raw = {c: df[c][slice(*sl)] for c in order}
+    labels = labels[slice(*sl)]
+    transformer = DataTransformer().fit(raw, discrete_columns=spec["discrete"],
+                                        random_state=random_state)
+    x = transformer.transform(raw)
+    n = min(len(x), len(labels))
+    return TabularTVAEData(
+        x_data=x[:n].astype(np.float32),
+        label=labels[:n].astype(np.float32),
+        transformer=transformer, raw=raw,
+        continuous=list(spec["continuous"]),
+        topology=[list(g) for g in spec["topology"]])

@@ -2,17 +2,18 @@
 ``cdgvae_tpu/eval/ml_efficacy.py:8-47``).
 
 The reference fits three rows per task with scikit-learn: linear (or
-logistic), random forest and gradient boosting. The GPU machine has no
-scikit-learn, so the first row is fitted here in numpy, float64:
+logistic), random forest and gradient boosting. The port imports no
+scikit-learn (the GPU machine has none), so it fits the first row, in
+numpy, float64:
 
 * ``linear``: least squares with an intercept (``LinearRegression``);
 * ``logistic``: ``LogisticRegression``'s default, L2 with C = 1 on the
   weights (the intercepts unpenalised), multinomial over 3 or more
   classes, solved by Newton's method with a backtracking line search.
 
-The ``RF`` and ``GradBoost`` rows import scikit-learn when they run; where
-it is absent, each is reported as skipped, by name, and left out of the
-returned rows. Tables are float arrays with a list of column names.
+The ``RF`` and ``GradBoost`` rows are reported as skipped, by name, and
+left out of the returned rows, so that a table scores the same on every
+machine. Tables are float arrays with a list of column names.
 Regression drops the target column by exact name, classification every
 column whose name starts with it, as the reference does.
 """
@@ -120,24 +121,10 @@ def fit_logistic(x: np.ndarray, y: np.ndarray, c: float = 1.0,
     return predict
 
 
-def _sklearn_rows(kind: str):
-    """The RF and GradBoost rows' estimators, or None without
-    scikit-learn."""
-    try:
-        from sklearn import ensemble
-    except ImportError:
-        return None
-    if kind == "regression":
-        return [("RF", ensemble.RandomForestRegressor(random_state=0)),
-                ("GradBoost",
-                 ensemble.GradientBoostingRegressor(random_state=0))]
-    return [("RF", ensemble.RandomForestClassifier(random_state=0)),
-            ("GradBoost", ensemble.GradientBoostingClassifier(random_state=0))]
-
-
 def _skipped(names) -> None:
     for name in names:
-        print(f"[{name}] skipped: scikit-learn is not installed")
+        print(f"[{name}] skipped: the port fits no forest (it imports no "
+              "scikit-learn)")
 
 
 def regression_eval(train: np.ndarray, test: np.ndarray, columns,
@@ -147,11 +134,7 @@ def regression_eval(train: np.ndarray, test: np.ndarray, columns,
     xtr, ytr, xte, yte = train[:, keep], train[:, t], test[:, keep], \
         test[:, t]
     rows = [("linear", fit_linear(xtr, ytr))]
-    extra = _sklearn_rows("regression")
-    if extra is None:
-        _skipped(["RF", "GradBoost"])
-    else:
-        rows += [(name, est.fit(xtr, ytr).predict) for name, est in extra]
+    _skipped(["RF", "GradBoost"])
     result = []
     for name, predict in rows:
         rsq = float(np.sum((yte - predict(xte)) ** 2))
@@ -170,11 +153,7 @@ def classification_eval(train: np.ndarray, test: np.ndarray, columns,
     xtr, ytr, xte, yte = train[:, keep], train[:, t], test[:, keep], \
         test[:, t]
     rows = [("logistic", fit_logistic(xtr, ytr))]
-    extra = _sklearn_rows("classification")
-    if extra is None:
-        _skipped(["RF", "GradBoost"])
-    else:
-        rows += [(name, est.fit(xtr, ytr).predict) for name, est in extra]
+    _skipped(["RF", "GradBoost"])
     result = []
     for name, predict in rows:
         f1 = float(np.mean(predict(xte) == yte))

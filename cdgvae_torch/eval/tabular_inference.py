@@ -1,17 +1,22 @@
 """Tabular synthetic-data evaluation: reconstructions, synthetic samples,
 PC CPDAGs and ML efficacy (port of ``cdgvae_tpu/eval/
-tabular_inference.py:14-99``; the TVAE's sampling waits for its model).
+tabular_inference.py``).
 
 Tables are float64 arrays in the dataset's column order (``continuous``).
 The model runs on its device under ``torch.no_grad()``; covtype's 7-way
-Cover_Type head is sampled on the host with numpy's Gumbel draws.
+Cover_Type head is sampled on the host with numpy's Gumbel draws. The
+TVAE's samples leave through its DataTransformer's inverse (a
+``transformer.Table`` in the transformer's column order), which
+:func:`zscore_synthetic` takes to the dataset's order and scale.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..data.tabular.datasets import pandas_mean, pandas_std
 from ..utils.pc import pc
+from .ml_efficacy import classification_eval, regression_eval
 
 
 def gumbel_argmax(logits: np.ndarray, rng: np.random.Generator,
@@ -43,6 +48,16 @@ def reconstruct_dataset(model, x_data: torch.Tensor, dataset: str,
     return _cover_type(recon, dataset, seed)
 
 
+def _noise(device, node: int, n: int, seed: int,
+           noise: torch.Tensor | None) -> torch.Tensor:
+    """eps [n, node] on ``device``: ``noise`` if given, else drawn from a
+    ``torch.Generator`` on the device seeded ``seed``."""
+    if noise is None:
+        noise = torch.randn((n, node), generator=torch.Generator(
+            device=device).manual_seed(seed), device=device)
+    return noise.to(device)
+
+
 @torch.no_grad()
 def sample_synthetic(model, n: int, dataset: str, seed: int = 0,
                      noise: torch.Tensor | None = None) -> np.ndarray:
@@ -50,12 +65,51 @@ def sample_synthetic(model, n: int, dataset: str, seed: int = 0,
     decode, in topology order. eps is ``noise`` if given, else drawn from
     a ``torch.Generator`` on the model's device seeded ``seed``."""
     device = next(model.parameters()).device
-    if noise is None:
-        noise = torch.randn((n, model.node), generator=torch.Generator(
-            device=device).manual_seed(seed), device=device)
-    _, latent, _ = model.graph.transform(noise.to(device))
+    _, latent, _ = model.graph.transform(
+        _noise(device, model.node, n, seed, noise))
     return _cover_type(model.decode_fast(latent).cpu().numpy(), dataset,
                        seed)
+
+
+def sample_synthetic_tvae(loaded, n: int, seed: int = 0,
+                          noise: torch.Tensor | None = None):
+    """CDG-TVAE synthetic rows from a TVAE ``api.LoadedModel``: eps drawn
+    as :func:`sample_synthetic` draws it (or ``noise``), then
+    ``loaded.generate``, which decodes in data space (tanh, then the
+    transformer's inverse with the learned sigmas, whose noise numpy's
+    global generator draws). Returns the inverse's ``Table``."""
+    return loaded.generate(_noise(loaded.device, loaded.model.node, n, seed,
+                                  noise))
+
+
+def zscore_synthetic(raw, train, spec, dataset: str) -> np.ndarray:
+    """A TVAE sample (a ``Table`` naming its columns) in the dataset's
+    column order, each scaled column standardised and given the train
+    table's mean and std (pandas' mean and ddof-1 std), so that PC and ML
+    efficacy read it on the real table's scale; adult's income is
+    binarised at 0.5."""
+    sample = np.stack([raw.column(c) for c in train.continuous], axis=1)
+    for j, c in enumerate(train.continuous):
+        if c in spec["zscore_exclude"]:
+            continue
+        col = sample[:, j]
+        sample[:, j] = (col - pandas_mean(col)) / pandas_std(col) \
+            * pandas_std(train.frame[:, j]) + pandas_mean(train.frame[:, j])
+    if dataset == "adult" and spec["target"] in train.continuous:
+        t = train.continuous.index(spec["target"])
+        sample[:, t] = (sample[:, t] > 0.5).astype(np.float64)
+    return sample
+
+
+def efficacy(sample: np.ndarray, test_frame: np.ndarray, columns,
+             spec) -> tuple[float, list[str]]:
+    """The mean train-on-synthetic, test-on-real score of the fitted rows
+    (R² for a regression spec, micro-F1 for a classification one) and the
+    names of the rows it averages."""
+    evaluate = (regression_eval if spec["task"] == "regression"
+                else classification_eval)
+    rows = evaluate(sample, test_frame, columns, spec["target"])
+    return float(np.mean([v for _, v in rows])), [name for name, _ in rows]
 
 
 def to_frame(recon: np.ndarray, topology, continuous) -> np.ndarray:

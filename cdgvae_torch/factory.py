@@ -1,5 +1,5 @@
 """Model factory: build the pendulum and tabular models and their causal
-graphs from a config dict (port of ``cdgvae_tpu/factory.py:18-125``)."""
+graphs from a config dict (port of ``cdgvae_tpu/factory.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -87,16 +87,14 @@ def build_tabular_model(config: dict, *, device="cuda", seed: int = 0):
     """Build the tabular-family model named by ``config['model']`` for
     ``config['dataset']`` on ``device``, weights drawn from ``seed``.
     Returns (model, discriminator), the discriminator for InfoMax and None
-    otherwise. The TVAE is not ported yet."""
+    otherwise. The TVAE's per-block output widths are
+    ``config["tvae_mask"]`` (:func:`tvae_block_mask`) and its input width
+    ``config["input_dim"]``, both set from the fitted transformer."""
     from .data.tabular.datasets import DATASET_SPECS
-    from .models.tabular import (TabularCDGVAE, TabularDiscriminator,
+    from .models.tabular import (TVAE, TabularCDGVAE, TabularDiscriminator,
                                  TabularVAE)
 
     name, dataset = config["model"], config["dataset"]
-    if name == "TVAE":
-        raise NotImplementedError(
-            "the tabular TVAE (its transformer's variational Gaussian "
-            "mixture) is not ported yet: ROADMAP Queue 1 item 12")
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     spec = DATASET_SPECS[dataset]
@@ -115,4 +113,18 @@ def build_tabular_model(config: dict, *, device="cuda", seed: int = 0):
         return TabularCDGVAE(graph, dataset, input_dim, spec["factor"],
                              spec["mask"], generator=generator,
                              device=device), None
+    if name == "TVAE":
+        return TVAE(graph, input_dim, spec["factor"], config["tvae_mask"],
+                    generator=generator, device=device), None
     raise ValueError("Not supported model!")
+
+
+def tvae_block_mask(dataset: str, output_info_list) -> list[int]:
+    """The transformer's per-column output widths grouped into the TVAE's
+    per-block output widths (the dataset's columns a block)."""
+    decoder_dims = [sum(s.dim for s in col) for col in output_info_list]
+    groups = {"loan": [2, 2, 1], "adult": [1, 1, 3],
+              "covtype": [1, 1, 2, 1, 1, 1 + 7]}[dataset]
+    bounds = np.cumsum([0] + groups)
+    return [int(sum(decoder_dims[bounds[j]: bounds[j + 1]]))
+            for j in range(len(groups))]

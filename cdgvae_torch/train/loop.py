@@ -1,5 +1,6 @@
 """Epoch drivers and the console line (port of ``cdgvae_tpu/train/
-loop.py:17-100,103-191``).
+loop.py:17-100,103-191``, with the ``post_update`` hook of ``cdgvae_tpu/
+train/scanned.py:287-353``).
 
 ``run_epochs`` is the port's ``run_scanned_chunks``: the fixed-shape
 epoch runner (``train/scanned.py``), the batch size clamped to the
@@ -41,13 +42,17 @@ def batch_indices(n: int, batch_size: int, shuffle_rng: np.random.Generator
 
 def train_epoch(step: Callable, x, y, batch_size: int,
                 generator: torch.Generator,
-                shuffle_rng: np.random.Generator) -> dict:
+                shuffle_rng: np.random.Generator,
+                post_update: Callable | None = None) -> dict:
     """One epoch of ``step(x, y, generator=...)`` over batches from
-    :func:`batch_indices`; returns the epoch-mean metrics (keys sorted)."""
+    :func:`batch_indices`, each followed by ``post_update()`` when given;
+    returns the epoch-mean metrics (keys sorted)."""
     avg = Averager()
     for idx in batch_indices(len(x), batch_size, shuffle_rng):
         idx = torch.as_tensor(idx, device=x.device)
         avg.add(step(x[idx], y[idx], generator=generator))
+        if post_update is not None:
+            post_update()
     return avg.result()
 
 
@@ -97,16 +102,20 @@ def run_epochs(step: Callable, x, y, *, seed: int, epochs: int,
                batch_size: int, start_epoch: int = 0,
                on_epoch: Callable | None = None,
                post_epoch: Callable | None = None,
-               post_epoch_pred: Callable | None = None) -> list[dict]:
+               post_epoch_pred: Callable | None = None,
+               post_update: Callable | None = None) -> list[dict]:
     """Train epochs ``start_epoch .. epochs - 1``. ``on_epoch(epoch,
     metrics)`` gets host floats after each; ``post_epoch(epoch)`` runs
     after it on the epochs where ``post_epoch_pred(epoch)`` is true (every
     epoch without a predicate), when the model and optimizer that ``step``
-    updates in place hold the exact post-epoch state. A dataset smaller
-    than ``batch_size`` trains one full-dataset step per epoch. Returns
-    the per-epoch metric dicts. The InfoMax step updates its model and
+    updates in place hold the exact post-epoch state; ``post_update()``
+    runs after every step, the counterpart of the JAX trainers'
+    ``post_update`` (the TVAE's sigma clamp). A dataset smaller than
+    ``batch_size`` trains one full-dataset step per epoch. Returns the
+    per-epoch metric dicts. The InfoMax step updates its model and
     discriminator in place, so it runs here as any step does."""
-    run = make_epoch_runner(step, batch_size=min(batch_size, len(x)))
+    run = make_epoch_runner(step, batch_size=min(batch_size, len(x)),
+                            post_update=post_update)
     return _drive(run, (x, y), seed=seed, epochs=epochs,
                   start_epoch=start_epoch, on_epoch=on_epoch,
                   post_epoch=post_epoch, post_epoch_pred=post_epoch_pred)

@@ -74,14 +74,16 @@ def epoch_batches(n: int, batch_size: int,
     return perm[: steps * batch_size].reshape(steps, batch_size)
 
 
-def make_epoch_runner(step_fn: Callable, batch_size: int) -> Callable:
+def make_epoch_runner(step_fn: Callable, batch_size: int,
+                      post_update: Callable | None = None) -> Callable:
     """Wrap a ``step(x, y, generator=...) -> metrics`` into an epoch runner,
     the counterpart of ``make_scanned_epochs``.
 
     Returns run(x, y, generator) -> the epoch's mean metrics as host
     floats, keys sorted. ``x`` is [n, ...] items, ``y`` [n, .]; both on
     the generator's device, which draws the permutation and then each
-    step's noise.
+    step's noise. ``post_update()`` runs after every step (the TVAE's
+    sigma clamp).
     """
 
     def run(x, y, generator: torch.Generator) -> dict:
@@ -96,6 +98,8 @@ def make_epoch_runner(step_fn: Callable, batch_size: int) -> Callable:
         for idx in epoch_batches(n, batch_size, generator):
             xi = xf[idx].reshape(batch_size, *item_shape)
             avg.add(step_fn(xi, y[idx], generator=generator))
+            if post_update is not None:
+                post_update()
         return avg.result()  # the one host sync
 
     return run

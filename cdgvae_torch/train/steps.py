@@ -31,13 +31,17 @@ def _metrics(loss, recon, kl, align, logvar, node, extra=None) -> dict:
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,
-                   capturable: bool = False) -> torch.optim.Adam:
+                   capturable: bool = False,
+                   weight_decay: float = 0.0) -> torch.optim.Adam:
     """Adam with optax.adam's defaults, whose update is algebraically the
     same: b1 0.9, b2 0.999, eps 1e-8 added outside the square root.
     ``capturable=True`` keeps its step counts on the device, so that a CUDA
-    graph can hold the update."""
+    graph can hold the update. ``weight_decay`` adds ``wd * param`` to the
+    gradient before the moments, as ``optax.chain(add_decayed_weights(wd),
+    scale_by_adam(), scale(-lr))`` does."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8, capturable=capturable)
+                            eps=1e-8, capturable=capturable,
+                            weight_decay=weight_decay)
 
 
 def step_from_loss(loss_fn: Callable, optimizer) -> Callable:

@@ -8,11 +8,13 @@ with the same shapes, so the copy is one-to-one.
 
 ``optax.adam``'s state is ``(ScaleByAdamState(count, mu, nu),
 EmptyState())``: one int32 step ``count`` and two trees shaped like the
-params. ``torch.optim.Adam`` keeps ``step``, ``exp_avg`` and ``exp_avg_sq``
-per parameter; ``mu -> exp_avg``, ``nu -> exp_avg_sq`` and ``count ->
-step`` of every parameter. The namedtuples below stand in for the optax
-classes (the port does not import optax); ``utils/checkpoint.py`` pickles
-them under optax's names.
+params. The TVAE's ``optax.chain(add_decayed_weights(wd), scale_by_adam(),
+scale(-lr))`` keeps ``(EmptyState(), ScaleByAdamState(count, mu, nu),
+EmptyState())``. ``torch.optim.Adam`` keeps ``step``, ``exp_avg`` and
+``exp_avg_sq`` per parameter; ``mu -> exp_avg``, ``nu -> exp_avg_sq`` and
+``count -> step`` of every parameter. The namedtuples below stand in for
+the optax classes (the port does not import optax); ``utils/
+checkpoint.py`` pickles them under optax's names.
 """
 from __future__ import annotations
 
@@ -82,13 +84,16 @@ def export_params(module: nn.Module) -> dict:
 
 def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
                        opt_tree) -> None:
-    """Load optax Adam state ``(ScaleByAdamState(count, mu, nu),
-    EmptyState())`` into ``optimizer``, whose one param group holds
-    ``module``'s parameters in ``named_parameters`` order. The next
-    ``optimizer.step()`` then takes the step optax would take."""
-    adam = opt_tree[0]
-    if not hasattr(adam, "mu") or not hasattr(adam, "nu"):
-        raise TypeError(f"not an optax Adam state: {type(adam).__name__}")
+    """Load optax Adam state, ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())`` or the TVAE chain's 3-tuple around it, into
+    ``optimizer``, whose one param group holds ``module``'s parameters in
+    ``named_parameters`` order. The next ``optimizer.step()`` then takes
+    the step optax would take."""
+    states = [s for s in opt_tree if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(states) != 1:
+        raise TypeError("not an optax Adam state: "
+                        f"{[type(s).__name__ for s in opt_tree]}")
+    adam = states[0]
     mu, nu = _flatten(adam.mu), _flatten(adam.nu)
     named = list(module.named_parameters())
     if set(mu) != set(name for name, _ in named) or set(nu) != set(mu):
@@ -109,10 +114,12 @@ def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
         "param_groups": optimizer.state_dict()["param_groups"]})
 
 
-def export_opt_state(optimizer: torch.optim.Adam, module: nn.Module):
+def export_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
+                     decayed: bool = False):
     """``optimizer``'s Adam state as optax's ``(ScaleByAdamState(count, mu,
-    nu), EmptyState())`` of numpy arrays; zeros and count 0 before the
-    first step, as ``optax.adam(lr).init`` gives."""
+    nu), EmptyState())`` of numpy arrays, or with ``decayed`` as the TVAE
+    chain's ``(EmptyState(), ScaleByAdamState(...), EmptyState())``; zeros
+    and count 0 before the first step, as the optax ``init`` gives."""
     mu, nu, steps = {}, {}, set()
     for name, p in module.named_parameters():
         st = optimizer.state.get(p, {})
@@ -126,4 +133,7 @@ def export_opt_state(optimizer: torch.optim.Adam, module: nn.Module):
         raise ValueError(f"parameters are at different Adam steps {steps}; "
                          "optax keeps one count")
     count = np.asarray(steps.pop() if steps else 0, dtype=np.int32)
-    return (ScaleByAdamState(count, _nest(mu), _nest(nu)), EmptyState())
+    adam = ScaleByAdamState(count, _nest(mu), _nest(nu))
+    if decayed:
+        return (EmptyState(), adam, EmptyState())
+    return (adam, EmptyState())

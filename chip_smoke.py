@@ -77,10 +77,20 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 16. the tabular family at its full synthetic sizes through
     ``cli.tabular_main``, ``cli.tabular_inference`` and
     ``cli.dag_discovery``, the loss and served answers on the card against
-    the CPU, host ms and device busy a step.
+    the CPU, host ms and device busy a step;
+17. the CDG-TVAE at its full synthetic sizes: the DataTransformer's fit
+    and transform (host ms, output widths); ``cli.tabular_main_tvae`` at
+    its defaults but 2 epochs on every dataset, and on loan ``--resume``,
+    ``--eager`` and ``--profile`` (2 epochs; the trace ranks CUDA kernels
+    and closes after its window of optimizer steps); the TVAE
+    loss and data-space serving on the card against the CPU; host ms and
+    device busy a step, with no host wait or copy; ``cli.
+    tabular_inference_tvae`` on each checkpoint. The TVAE path renders
+    nothing: its launch count must be 0.
 
 The render kernel's launches are counted around each path (phases 4, 8
-and 10-15) and summed in the ``{"kernels": [...]}`` JSON line, which is
+and 10-15, and 17's 0) and summed in the ``{"kernels": [...]}`` JSON
+line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -145,6 +155,15 @@ EXPORT_N, EXPORT_PX, EXPORT_CHUNK, EXPORT_DR_N = 10000, 96, 2048, 2000
 # sizes (train rows 4,000, 40,000 and 10,000)
 TAB_BATCH, TAB_BETA, TAB_LAM, TAB_LR = 256, 0.01, 10.0, 0.01
 TAB_STEPS = {"loan": 15, "adult": 156, "covtype": 39}
+# phase 17: tabular_main_tvae's defaults; the transformer fits 4,000,
+# 4,000 and 10,000 rows, so 15, 15 and 39 steps an epoch at batch 256
+TVAE_LAM, TVAE_LR, TVAE_WD, TVAE_SIGMA = 5.0, 1e-3, 1e-5, (0.01, 0.1)
+TVAE_STEPS = {"loan": 15, "adult": 15, "covtype": 39}
+# TVAE serving in data space, card against CPU: the encode as SERVE_TOL;
+# a float column within this times 4 sigma of its widest valid component
+# (the inverse scales the decoder's float32 output by it), integer and
+# discrete columns equal
+TVAE_COLUMN_TOL = 1e-4
 # the downstream fit on the card (CUDA-graph epochs) against the CPU's
 # eager steps: 2 epochs of float32 products summed in other orders
 FIT_TOL = 1e-5
@@ -1130,6 +1149,236 @@ def tabular(*, work: Path, card: str, dev, rng, profiled_steps) -> None:
           f"{serve_err:.3e} (limit {SERVE_TOL})")
 
 
+def tvae(*, work: Path, card: str, dev, rng, profiled_steps) -> None:
+    """Phase 17: the CDG-TVAE at its full synthetic sizes (see the module
+    docstring)."""
+    from cdgvae_torch.api import LoadedModel
+    from cdgvae_torch.cli.tabular_main_tvae import TRANSFORMER_RANDOM_STATE
+    from cdgvae_torch.data.tabular.datasets import (DATASET_SPECS,
+                                                    load_tabular_tvae)
+    from cdgvae_torch.data.tabular.transformer import DataTransformer
+    from cdgvae_torch.factory import build_tabular_model, tvae_block_mask
+    from cdgvae_torch.train.scanned import epoch_batches, make_epoch_runner
+    from cdgvae_torch.train.steps import make_optimizer
+    from cdgvae_torch.train.tabular_steps import (make_sigma_clamp,
+                                                  make_tvae_loss_fn,
+                                                  make_tvae_step)
+    from cdgvae_torch.utils.checkpoint import load_checkpoint
+    from cdgvae_torch.utils.profiling import (TRACE_STEPS, newest_trace,
+                                              rank_ops)
+
+    # the transformer's fit and transform on the host, at full size
+    data = {}
+    for ds, steps in TVAE_STEPS.items():
+        spec = DATASET_SPECS[ds]
+        data[ds] = d = load_tabular_tvae(
+            ds, random_state=TRANSFORMER_RANDOM_STATE[ds])
+        check(len(d.x_data) // TAB_BATCH == steps,
+              f"TVAE {ds}: {len(d.x_data)} rows")
+        t0 = time.perf_counter()
+        t = DataTransformer().fit(d.raw, discrete_columns=spec["discrete"],
+                                  random_state=TRANSFORMER_RANDOM_STATE[ds])
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x = t.transform(d.raw)
+        transform_s = time.perf_counter() - t0
+        check(t.output_info_list == d.transformer.output_info_list
+              and np.array_equal(x.astype(np.float32), d.x_data),
+              f"TVAE {ds}: a second fit and transform differ")
+        print(f"TVAE transformer {ds}: {len(d.x_data)} rows x "
+              f"{len(d.raw)} columns -> output_dimensions "
+              f"{t.output_dimensions} (spans "
+              f"{[[s.dim for s in col] for col in t.output_info_list]}); "
+              f"fit {fit_s * 1e3:.1f} ms, transform "
+              f"{transform_s * 1e3:.1f} ms (host clock) [{card}]")
+
+    # cli.tabular_main_tvae on every dataset; on loan --resume, --eager and
+    # --profile
+    walls = {}
+    for ds, steps in TVAE_STEPS.items():
+        runs = [("fixed", [], 2)]
+        if ds == "loan":
+            runs += [("eager", ["--eager"], 1),
+                     ("profile", ["--profile", str(work / "tvae_trace")],
+                      2)]
+        for name, extra, epochs in runs:
+            out = work / f"tvae_{ds}_{name}"
+            ckpt = out / f"tabular_TVAE_{ds}"
+            args = ["--dataset", ds, *extra, "--assets_dir", str(out)]
+            said, _, walls[f"{ds} {name}"] = run_cli(
+                args + ["--epochs", str(epochs)], "tabular_main_tvae")
+            count = -(-len(data[ds].x_data) // TAB_BATCH) if name == \
+                "eager" else steps
+            if name == "fixed" and ds == "loan":
+                said, _, walls["loan resume"] = run_cli(
+                    args + ["--epochs", "3", "--resume", str(ckpt)],
+                    "tabular_main_tvae")
+                check(f"resumed from {ckpt} at epoch 2" in said,
+                      "TVAE loan: no 'resumed' line")
+                epochs = 3
+            ck = load_checkpoint(str(ckpt))
+            records = read_records(out / "metrics.jsonl")
+            sigma = ck["params"]["sigma"]
+            check(sorted(p.name for p in ckpt.iterdir()) ==
+                  ["config.json", "state.pkl", "transformer.npz"]
+                  and ck["step"] == epochs
+                  and int(ck["opt_state"][1].count) == epochs * count
+                  and len(records) == epochs
+                  and all(math.isfinite(v) for r in records
+                          for v in r.values())
+                  and sigma.min() >= np.float32(TVAE_SIGMA[0])
+                  and sigma.max() <= np.float32(TVAE_SIGMA[1]),
+                  f"tabular_main_tvae {ds} {name}: step {ck['step']}, "
+                  f"records {records}, sigma {sigma.min()}..{sigma.max()}")
+            print(f"tabular_main_tvae {ds} {name}: {epochs} epochs of "
+                  f"{count} steps, losses "
+                  f"{[round(r['loss'], 4) for r in records]}, sigma in "
+                  f"[{sigma.min():.4f}, {sigma.max():.4f}]")
+    ranked = rank_ops(str(work / "tvae_trace"), top=8)
+    check(len(ranked) > 0, "the --profile trace holds no CUDA kernel")
+    traced = sum(ev.get("cat") == "user_annotation"
+                 and ev.get("name", "").startswith("Optimizer.step")
+                 for ev in newest_trace(str(work / "tvae_trace"))
+                 ["traceEvents"])
+    check(traced == TRACE_STEPS, f"the --profile trace holds {traced} "
+          f"optimizer steps of {2 * TVAE_STEPS['loan']}, not its window of "
+          f"{TRACE_STEPS}")
+    print(f"tabular_main_tvae --profile: {traced} of "
+          f"{2 * TVAE_STEPS['loan']} optimizer steps traced; wall "
+          f"{walls['loan profile']:.3f} s against {walls['loan fixed']:.3f} s "
+          f"unprofiled (host clock, fit included) [{card}]")
+    print("tabular_main_tvae --profile: top CUDA kernels of the trace "
+          "(total ms): " + "; ".join(f"{n[:60]} {ms:.3f}"
+                                     for n, ms in ranked))
+    print("tabular_main_tvae walls (s, host clock, transformer fit "
+          "included): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    walls.items()) + f" [{card}]")
+
+    # the TVAE loss on the card against the CPU (same weights, batch and
+    # noise, TF32 off)
+    configs = {}
+    for ds, d in data.items():
+        spans = d.transformer.output_info_list
+        configs[ds] = {"model": "TVAE", "dataset": ds, "scm": "linear",
+                       "input_dim": d.transformer.output_dimensions,
+                       "tvae_mask": tvae_block_mask(ds, spans)}
+        x = torch.as_tensor(d.x_data[:TAB_BATCH])
+        y = torch.as_tensor(d.label[:TAB_BATCH])
+        noise = torch.as_tensor(rng.standard_normal((TAB_BATCH,
+                                                     y.shape[1])),
+                                dtype=torch.float32)
+        result = {}
+        for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            m, _ = build_tabular_model(dict(configs[ds]), device=device,
+                                       seed=0)
+            loss, _ = make_tvae_loss_fn(m, TVAE_LAM, spans)(
+                x.to(device), y.to(device), noise=noise.to(device))
+            result[name] = loss.item()
+        rel = abs(result["cuda"] - result["cpu"]) / abs(result["cpu"])
+        print(f"TVAE {ds} loss cuda {result['cuda']:.6f} cpu "
+              f"{result['cpu']:.6f} rel {rel:.2e}")
+        check(rel <= 1e-5, f"TVAE {ds} loss on the card disagrees with "
+              "the CPU")
+
+    # serving in data space on the card against the CPU: the same rows,
+    # eps and global numpy seed for the sigma draws
+    encode_err, column_err = 0.0, 0.0
+    for ds, d in data.items():
+        ckpt = str(work / f"tvae_{ds}_fixed" / f"tabular_TVAE_{ds}")
+        served = {"cuda": LoadedModel.load(ckpt, device=dev),
+                  "cpu": LoadedModel.load(ckpt, device="cpu")}
+        x = d.x_data[:TAB_BATCH]
+        eps = rng.standard_normal((TAB_BATCH, d.label.shape[1])).astype(
+            np.float32)
+        got, want = served["cuda"].encode(x), served["cpu"].encode(x)
+        encode_err = max(encode_err, float(np.abs(got - want).max()))
+        check(encode_err <= SERVE_TOL, f"TVAE serve {ds} encode: cuda "
+              f"against cpu max |d| {encode_err}")
+        t = served["cpu"].transformer
+        requests = {"reconstruct": lambda m: m.reconstruct(x),
+                    "generate": lambda m: m.generate(eps)}
+        if ds != "covtype":
+            requests["counterfactual do1"] = (
+                lambda m: m.counterfactual(x, 1, 0.5))
+        for name, req in requests.items():
+            answers = {}
+            for key in ("cuda", "cpu"):
+                np.random.seed(17)
+                answers[key] = req(served[key])
+            got, want = answers["cuda"], answers["cpu"]
+            check(got.columns == want.columns == t.columns
+                  and got.shape == want.shape and np.isfinite(got).all(),
+                  f"TVAE serve {ds} {name}: {got.shape} {got.columns}")
+            for j, info in enumerate(t._column_transform_info_list):
+                g, w = np.asarray(got)[:, j], np.asarray(want)[:, j]
+                if (info.column_type == "discrete"
+                        or t._column_raw_dtypes[info.column_name].kind
+                        in "iu"):
+                    check(np.array_equal(g, w), f"TVAE serve {ds} {name} "
+                          f"{info.column_name}: not equal on the card")
+                    continue
+                scale = 4 * float(info.transform._components()[1].max())
+                err = float(np.abs(g - w).max()) / scale
+                column_err = max(column_err, err)
+                check(err <= TVAE_COLUMN_TOL, f"TVAE serve {ds} {name} "
+                      f"{info.column_name}: max |d| {err} x 4 sigma")
+    print(f"TVAE serving (encode; reconstruct, generate and, on loan and "
+          f"adult, counterfactual in data space, batch {TAB_BATCH}): encode "
+          f"max |d| {encode_err:.3e} (limit {SERVE_TOL}); float columns "
+          f"max |d| {column_err:.3e} x 4 sigma (limit {TVAE_COLUMN_TOL}); "
+          f"integer and discrete columns equal")
+
+    # host time a step over whole epochs (the datasets in turn, 3 rounds
+    # after a warm one, median) and a profiled window of 10 steps each
+    runs, per_step = {}, {ds: [] for ds in data}
+    for ds, d in data.items():
+        m, _ = build_tabular_model(dict(configs[ds]), device=dev, seed=0)
+        step = make_tvae_step(m, make_optimizer(m, TVAE_LR,
+                                                weight_decay=TVAE_WD),
+                              TVAE_LAM, d.transformer.output_info_list)
+        clamp = make_sigma_clamp(m, TVAE_SIGMA)
+        runs[ds] = (step, clamp, make_epoch_runner(step, TAB_BATCH,
+                                                   post_update=clamp),
+                    torch.as_tensor(d.x_data, device=dev),
+                    torch.as_tensor(d.label, device=dev))
+    for k in range(4):
+        for ds, (_, _, run, x, y) in runs.items():
+            t0 = time.perf_counter()
+            run(x, y, torch.Generator(device=dev).manual_seed(800 + k))
+            if k:
+                per_step[ds].append((time.perf_counter() - t0)
+                                    / TVAE_STEPS[ds])
+    for ds, (step, clamp, _, x, y) in runs.items():
+        host = statistics.median(per_step[ds])
+        print(f"host time a step, TVAE {ds}, epochs of {TVAE_STEPS[ds]} "
+              f"steps: {', '.join(f'{v * 1e3:.3f}' for v in per_step[ds])} "
+              f"ms, median {host * 1e3:.3f} ms [{card}]")
+        gen = torch.Generator(device=dev).manual_seed(9)
+        order = epoch_batches(len(x), TAB_BATCH, gen)[:10]
+        profiled_steps(f"TVAE {ds} step (and sigma clamp)", lambda: [
+            (step(x[i], y[i], generator=gen), clamp()) for i in order],
+            10, host)
+        total = 300 * TVAE_STEPS[ds]
+        print(f"a default tabular_main_tvae --dataset {ds} run: 300 epochs "
+              f"x {TVAE_STEPS[ds]} = {total} steps, about {total * host:.1f}"
+              f" s of steps at this host rate [{card}]")
+
+    # cli.tabular_inference_tvae on each checkpoint
+    for ds in data:
+        inf_dir = work / f"tvae_inference_{ds}"
+        said, res, inf_s = run_cli(["--checkpoint", str(
+            work / f"tvae_{ds}_fixed" / f"tabular_TVAE_{ds}"),
+            "--assets_dir", str(inf_dir)], "tabular_inference_tvae")
+        lines = read_text_lines(inf_dir / f"inference_TVAE_{ds}.txt")
+        score = [v for k, v in res.items() if k.endswith("(Synthetic)")]
+        check(res["SHD (Sample)"] >= 0 and len(score) == 1
+              and math.isfinite(score[0])
+              and lines[0] == f"SHD (Sample): {res['SHD (Sample)']}",
+              f"tabular_inference_tvae {ds}: {res}")
+        print(f"tabular_inference_tvae {ds}: {lines}; {inf_s:.3f} s (host "
+              f"clock) [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1738,8 +1987,19 @@ def main() -> int:
     # 16. the tabular family
     tabular(work=work, card=card, dev=dev, rng=rng,
             profiled_steps=profiled_steps)
+
+    # 17. the CDG-TVAE, which renders nothing
+    renderer_cuda.launches = 0
+    t0 = time.perf_counter()
+    tvae(work=work, card=card, dev=dev, rng=rng,
+         profiled_steps=profiled_steps)
+    path_launches["tvae"] = renderer_cuda.launches
+    check(path_launches["tvae"] == 0, f"the TVAE path launched the render "
+          f"kernel {path_launches['tvae']} times")
+    print(f"phase 17 (TVAE): {time.perf_counter() - t0:.1f} s (host clock); "
+          f"launches {{'render': 0}} [{card}]")
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

@@ -1,8 +1,10 @@
 """The port's pendulum CLI on the CPU: artifacts, the metric log's record
 shape against the JAX package's, a resumed run against the uninterrupted
 one (bit for bit), the resume guard, the eager protocol, --online,
-InfoMax and --labeled_ratio, and the flags that are not ported. 16 px, 96 DGP samples (a 72-image train
-split), batch 32.
+InfoMax and --labeled_ratio, and the flags that are refused (the
+data-parallel mesh, a backend the port does not run on, a --platform that
+contradicts --device). 16 px, 96 DGP samples (a 72-image train split),
+batch 32.
 """
 import json
 import os
@@ -164,9 +166,15 @@ def test_online_loss_falls(tmp_path):
     (["--model", "InfoMax", "--free_bits", "0.5"], "--free_bits"),
     (["--online", "--labeled_ratio", "0.5"], "--online supports"),
     (["--online", "--data_dir", "pngs"], "--online supports"),
-    (["--platform", "cpu"], "item 15"),
+    # --platform and --profile are ported (tests/test_torch_profiling.py);
+    # a backend the port does not run on, and a --platform that
+    # contradicts the --device cpu of SMALL, are refused
+    pytest.param(["--platform", "tpu"], "--platform tpu is not supported",
+                 id="args3-item 15"),
     (["--dp", "2"], "item 14"),
-    (["--profile", "trace"], "item 15"),
+    pytest.param(["--profile", "trace", "--platform", "gpu"],
+                 "--platform gpu contradicts --device cpu",
+                 id="args5-item 15"),
     (["--online", "--eager"], "--online supports"),
 ])
 def test_unported_flags_are_refused(tmp_path, capsys, args, why):
@@ -276,10 +284,19 @@ def test_cli_chain_semi_infomax_classifier_metric_inference(tmp_path,
     x = np.zeros((2, 16, 16, 3), np.float32)
     assert LoadedModel.load(ckpt, device="cpu").reconstruct(x).shape == \
         x.shape
+    # the reference's --platform cpu is the port's --device cpu
+    got = metric.main(["--checkpoint", ckpt, "--classifier_checkpoint", clf,
+                       "--platform", "cpu", "--assets_dir",
+                       str(tmp_path / "cdm_platform")])
+    want = metric.main(["--device", "cpu", "--checkpoint", ckpt,
+                        "--classifier_checkpoint", clf, "--assets_dir",
+                        str(tmp_path / "cdm_device")])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     with pytest.raises(SystemExit):
         metric.main(["--checkpoint", ckpt, "--classifier_checkpoint", clf,
-                     "--platform", "cpu"])
-    assert "--platform is not supported" in capsys.readouterr().err
+                     "--platform", "tpu"])
+    assert "--platform tpu is not supported" in capsys.readouterr().err
 
 
 def _read_numbers(path):

@@ -1,11 +1,17 @@
 """The port stands alone: importing every cdgvae_torch module loads neither
 JAX, optax, matplotlib, pandas, scikit-learn, PIL, networkx nor anything
 of cdgvae_tpu (the GPU machine has none of them), and not scipy, which
-only the PC p-values import, when they run."""
+only the PC p-values, the mixture and the copula normaliser import, when
+they run. No import statement of the port or of chip_smoke.py, at any
+depth, names JAX, optax, pandas, scikit-learn or cdgvae_tpu, and none at
+a module's top level names scipy."""
+import ast
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -55,8 +61,45 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.cli.dag_discovery",
                  "cdgvae_torch.eval.ml_efficacy",
                  "cdgvae_torch.eval.tabular_inference",
-                 "cdgvae_torch.cli.tabular_inference"):
+                 "cdgvae_torch.cli.tabular_inference",
+                 "cdgvae_torch.data.tabular.errors",
+                 "cdgvae_torch.data.tabular.mixture",
+                 "cdgvae_torch.data.tabular.transformer",
+                 "cdgvae_torch.data.tabular.null",
+                 "cdgvae_torch.cli.tabular_main_tvae",
+                 "cdgvae_torch.cli.tabular_inference_tvae",
+                 "cdgvae_torch.utils.profiling"):
         assert name in result["modules"]
+
+
+BARRED = ("jax", "jaxlib", "optax", "pandas", "sklearn", "cdgvae_tpu")
+
+
+def _imports(path: Path):
+    """(top-level module name, at module level) of every import in a
+    source file."""
+    tree = ast.parse(path.read_text())
+    top = {id(node) for node in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            yield name.split(".")[0], id(node) in top
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    list((ROOT / "cdgvae_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+def test_no_import_statement_names_a_barred_package(path):
+    found = list(_imports(ROOT / path))
+    assert not [name for name, _ in found if name in BARRED]
+    if path != "chip_smoke.py":  # the script prints scipy's version
+        assert not [name for name, top in found
+                    if name == "scipy" and top]
 
 
 def test_chip_smoke_imports_no_jax():

@@ -324,10 +324,17 @@ def test_generate_data_cli(tmp_path, capsys):
     assert {tuple(r) for r in labels} == {tuple(r) for r in train_f}
 
 
-def test_generate_data_refuses_platform(capsys):
+def test_generate_data_refuses_platform(tmp_path, capsys):
+    """The reference's --platform: cpu runs on the CPU, a backend the port
+    does not run on is refused by name."""
     with pytest.raises(SystemExit):
-        generate_data.main(["--out", "x", "--platform", "cpu"])
-    assert "item 15" in capsys.readouterr().err
+        generate_data.main(["--out", "x", "--platform", "tpu"])
+    assert "--platform tpu is not supported" in capsys.readouterr().err
+    out = tmp_path / "gen"
+    n_train, n_test = generate_data.main(
+        ["--platform", "cpu", "--dgp", "real", "--out", str(out), "--n",
+         "8", "--image_size", "16"])
+    assert len(os.listdir(out / "train")) == n_train and n_test > 0
 
 
 def test_main_and_eval_clis_read_the_tree(tmp_path):

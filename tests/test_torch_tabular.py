@@ -242,12 +242,28 @@ def test_recon_fns_match_jax_on_chosen_values():
 
 
 def test_build_tabular_model_names_what_waits():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    """The TVAE builds from its transformer's widths, as the JAX factory
+    builds it; a model the family lacks is refused; CelebA serving still
+    waits for ROADMAP item 13."""
+    from cdgvae_torch.api import _unported_family
+
+    cfg = {"model": "TVAE", "dataset": "loan", "scm": "linear",
+           "input_dim": 14, "tvae_mask": [6, 6, 2]}
+    model, disc = build_tabular_model(dict(cfg), device="cpu")
+    jm, _ = jbuild(dict(cfg))
+    leaves = jax.tree_util.tree_flatten_with_path(
+        jax.eval_shape(jm.init, jax.random.key(0)))[0]
+    want = {".".join(k.key for k in path): v.shape for path, v in leaves}
+    assert disc is None and {k: tuple(v.shape) for k, v in
+                             model.named_parameters()} == want
+    with pytest.raises(KeyError, match="tvae_mask"):
         build_tabular_model({"model": "TVAE", "dataset": "loan",
                              "scm": "linear"}, device="cpu")
     with pytest.raises(ValueError, match="Not supported model"):
         build_tabular_model({"model": "CDGVAEsemi", "dataset": "loan",
                              "scm": "linear"}, device="cpu")
+    assert "ROADMAP Queue 1 item 13" in _unported_family(
+        {"model": "CDGVAE", "causal_structure": 0})
 
 
 def _records(path):

@@ -1,5 +1,5 @@
 """Serving API: load a checkpoint, run inference (port of
-``cdgvae_tpu/api.py`` for the pendulum and tabular families).
+``cdgvae_tpu/api.py`` for the pendulum, tabular and CelebA families).
 
     from cdgvae_torch.api import LoadedModel
     m = LoadedModel.load("assets/model_CDGVAE_linear")      # on cuda
@@ -27,8 +27,20 @@ draws), a ``data.tabular.transformer.Table`` (float64, ``columns`` naming
 the transformer's columns). Its transformer is the checkpoint's
 ``transformer.npz``; a JAX TVAE checkpoint carries a pickle of pandas and
 scikit-learn objects instead, which ``DataTransformer.from_fitted``
-converts where those are installed. A CelebA checkpoint, or a ``mesh=``,
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+converts where those are installed.
+
+A CelebA checkpoint (its config names a ``causal_structure``; either
+decoder format) serves NHWC images [batch, H, W, 3 + 5], RGB in [0, 1]
+and the five part masks: ``encode`` answers the causal latents,
+``reconstruct`` and ``counterfactual`` decode with the masks of the
+input's channels 3-7. Its BatchNorms use batch statistics, so a row's
+answer depends on the rest of its batch, and batches are never padded.
+The generators' noise comes from ``noise=``: a ``torch.Generator``, or
+the decoder's explicit draws (one list a generator of its sites' [batch,
+H, W, 1] maps); by default from a CPU generator seeded 0, moved to the
+device, so that the card and the CPU serve the same answer. ``sample``
+refuses: the decoder needs per-sample masks. A ``mesh=`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -38,7 +50,9 @@ import numpy as np
 import torch
 
 from .data.tabular.transformer import DataTransformer
-from .factory import build_pendulum_model, build_tabular_model
+from .factory import (build_celeba_model, build_pendulum_model,
+                      build_tabular_model)
+from .models.celeba import unstack_decoder
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
 from .utils.interop import load_jax_params
@@ -48,8 +62,8 @@ _MODEL_CLASS = {"InfoMax": "VAE"}
 
 
 def _unported_family(config: dict) -> str | None:
-    if "causal_structure" in config:
-        return "the CelebA family: ROADMAP Queue 1 item 13"
+    """The family of a checkpoint's config that the port cannot serve
+    yet, or None: every family the JAX package serves is ported."""
     return None
 
 
@@ -86,10 +100,12 @@ class LoadedModel:
         """Build the checkpoint's model on ``device`` from its embedded
         config and load its params.
 
-        The matmul precision is the caller's: nothing here sets
-        ``torch.backends.cuda.matmul.allow_tf32``. Its PyTorch default,
-        False, serves in full float32 (the SEM solve needs it); a caller
-        that turns TF32 on gets TF32 answers."""
+        The matmul and convolution precision is the caller's: nothing here
+        sets ``torch.backends.cuda.matmul.allow_tf32`` or ``torch.backends.
+        cudnn.allow_tf32``. The first's PyTorch default, False, serves in
+        full float32 (the SEM solve needs it); the second's is True, so a
+        caller serving a CelebA checkpoint (convolutions) in float32 turns
+        it off, as ``cli.celeba_main`` does."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported yet: ROADMAP Queue 1 item 14 "
@@ -105,15 +121,29 @@ class LoadedModel:
         build = dict(config, model=_MODEL_CLASS.get(config["model"],
                                                     config["model"]))
         transformer = None
-        if "dataset" in config:
+        params = ck["params"]
+        if "causal_structure" in config:
+            model = build_celeba_model(config, device=device)
+            params = unstack_decoder(params, model.z_dims)
+            model.adapt_to(params)
+        elif "dataset" in config:
             model, _ = build_tabular_model(build, device=device)
             if config["model"] == "TVAE":
                 transformer = load_transformer(checkpoint_dir)
         else:
             model, _ = build_pendulum_model(build, spurious=is_dr(config),
                                             device=device)
-        load_jax_params(model, ck["params"])
+        load_jax_params(model, params)
         return cls(model, config, transformer)
+
+    @property
+    def _celeba(self) -> bool:
+        return "causal_structure" in self.config
+
+    def _noise(self, noise):
+        """The CelebA decoder's noise: ``noise`` as given, else a CPU
+        generator seeded 0."""
+        return torch.Generator().manual_seed(0) if noise is None else noise
 
     def _input(self, x) -> torch.Tensor:
         if not torch.is_tensor(x):
@@ -121,7 +151,12 @@ class LoadedModel:
         return x.to(device=self.device, dtype=torch.float32)
 
     def _encode(self, x: torch.Tensor):
-        return self.model.encode(x, deterministic=True)
+        """The causal branch's (mean, logvar, eps, orig_latent, latent,
+        logdet), and the CelebA model's style eps2 (else None)."""
+        if self._celeba:
+            causal, (_, _, eps2) = self.model.encode(x, deterministic=True)
+            return causal, eps2
+        return self.model.encode(x, deterministic=True), None
 
     def _to_data(self, out: torch.Tensor):
         """Decoder output -> an answer: the array as it is, or for a TVAE
@@ -135,31 +170,47 @@ class LoadedModel:
     @torch.no_grad()
     def encode(self, x) -> np.ndarray:
         """Deterministic causal latents [batch, node]."""
-        return self._encode(self._input(x))[4].cpu().numpy()
+        return self._encode(self._input(x))[0][4].cpu().numpy()
+
+    def _decode(self, latent: torch.Tensor, eps2, x: torch.Tensor, noise):
+        if self._celeba:
+            return self.model.decode(latent, eps2,
+                                     x[..., 3: 3 + self.model.K],
+                                     self._noise(noise))[1]
+        return self.model.decode_fast(latent)
 
     @torch.no_grad()
-    def reconstruct(self, x) -> np.ndarray:
+    def reconstruct(self, x, noise=None) -> np.ndarray:
         """Reconstructions: images [batch, H, W, 3] in [-1, 1], a tabular
         model's output columns [batch, columns], or a TVAE's rows in data
-        space."""
-        latent = self._encode(self._input(x))[4]
-        return self._to_data(self.model.decode_fast(latent))
+        space. ``noise``: the CelebA decoder's (module docstring)."""
+        x = self._input(x)
+        causal, eps2 = self._encode(x)
+        return self._to_data(self._decode(causal[4], eps2, x, noise))
 
     @torch.no_grad()
-    def counterfactual(self, x, do_index: int, value) -> np.ndarray:
+    def counterfactual(self, x, do_index: int, value,
+                       noise=None) -> np.ndarray:
         """Answer do(z_{do_index} := value) for each input: encode, apply
         the do-operator with ancestral re-propagation, decode. ``value``
-        is a scalar or one value per row."""
-        _, _, eps, _, latent, _ = self._encode(self._input(x))
+        is a scalar or one value per row; ``noise`` the CelebA decoder's
+        (module docstring)."""
+        x = self._input(x)
+        (_, _, eps, _, latent, _), eps2 = self._encode(x)
         if torch.is_tensor(value) or np.ndim(value):
             value = self._input(value)
         z_do = self.model.graph.do_intervention(latent, eps, int(do_index),
                                                 value)
-        return self._to_data(self.model.decode_fast(z_do))
+        return self._to_data(self._decode(z_do, eps2, x, noise))
 
     @torch.no_grad()
     def generate(self, eps) -> np.ndarray:
         """Exogenous noise eps [n, node] -> SEM + flows -> decode."""
+        if self._celeba:
+            raise ValueError(
+                "celeba generative sampling needs per-sample segmentation "
+                "masks (the GAM decoder composes masked blocks); use "
+                "reconstruct/counterfactual on real inputs instead")
         _, latent, _ = self.model.graph.transform(self._input(eps))
         return self._to_data(self.model.decode_fast(latent))
 

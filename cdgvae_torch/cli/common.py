@@ -141,11 +141,13 @@ def add_resume_arg(parser: argparse.ArgumentParser):
     return parser
 
 
-def apply_resume(config: dict, state: tuple):
+def apply_resume(config: dict, state: tuple, prepare=None):
     """Restore ``state`` in place from ``--resume``: ``(model,
     optimizer)``, or for InfoMax ``(model, discriminator, optimizer,
     optimizer_d)``, whose discriminator and its Adam come from the
-    checkpoint's extras ``d_params`` and ``opt_state_d``.
+    checkpoint's extras ``d_params`` and ``opt_state_d``. ``prepare(ck)``,
+    when given, returns the loaded checkpoint in the model's layout before
+    it is copied in (the CelebA trainer's stacked decoder format).
 
     Returns (state, start_epoch). Refuses a checkpoint already at or past
     ``--epochs``, and an InfoMax resume from a checkpoint without the
@@ -158,6 +160,8 @@ def apply_resume(config: dict, state: tuple):
     from ..utils.interop import load_jax_opt_state, load_jax_params
 
     ck = load_checkpoint(config["resume"])
+    if prepare is not None:
+        ck = prepare(ck)
     start_epoch = int(ck["step"])
     if start_epoch >= config.get("epochs", float("inf")):
         raise ValueError(

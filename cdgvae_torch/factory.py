@@ -1,5 +1,7 @@
-"""Model factory: build the pendulum and tabular models and their causal
-graphs from a config dict (port of ``cdgvae_tpu/factory.py``)."""
+"""Model factory: build the pendulum, tabular and CelebA models and their
+causal graphs from a config dict (port of ``cdgvae_tpu/factory.py`` and
+of the CelebA builds of ``cdgvae_tpu/cli/celeba_main.py`` and
+``cdgvae_tpu/api.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -128,3 +130,24 @@ def tvae_block_mask(dataset: str, output_info_list) -> list[int]:
     bounds = np.cumsum([0] + groups)
     return [int(sum(decoder_dims[bounds[j]: bounds[j + 1]]))
             for j in range(len(groups))]
+
+
+def build_celeba_model(config: dict, *, device="cuda", seed: int = 0):
+    """The CelebA CDG-VAE of a ``cli.celeba_main`` config (``causal_
+    structure``, ``latent_dim``, ``img_size``, ``conv_dim``,
+    ``train_trunk``, the graph's ``scm``/``flow_num``/``inverse_loop``/
+    ``adjacency_scaling``) on ``device``, weights drawn from ``seed``."""
+    from .models.celeba import (ATTRACTIVE_NODES, SMILE_NODES,
+                                CelebACDGVAE, celeba_B)
+
+    device = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    structure = config.get("causal_structure", 0)
+    nodes = SMILE_NODES if structure == 0 else ATTRACTIVE_NODES
+    graph = build_graph(config, celeba_B(nodes, structure, config.get(
+        "adjacency_scaling", True)), generator=generator, device=device)
+    return CelebACDGVAE(graph, latent_dim=config.get("latent_dim", 6),
+                        image_size=config.get("img_size", 128),
+                        conv_dim=config.get("conv_dim", 32),
+                        freeze_trunk=not config.get("train_trunk", False),
+                        generator=generator, device=device)

@@ -1,9 +1,15 @@
-"""Minimal NN core: dense, MLP and stacked (grouped) MLP layers.
+"""Minimal NN core: dense, MLP and stacked (grouped) MLP layers, and the
+conv and batch-statistics BatchNorm of the CelebA family.
 
-Port of ``cdgvae_tpu/nn.py:27-112``. Parameters keep the JAX names and
+Port of ``cdgvae_tpu/nn.py:27-160``. Parameters keep the JAX names and
 layouts, so importing a JAX param pytree is a copy (``utils/interop.py``):
 dense ``w`` is [in, out] and ``b`` is [out]; stacked ``w`` is [K, in, out]
-and ``b`` is [K, 1, out]. Init follows torch ``nn.Linear``'s distribution
+and ``b`` is [K, 1, out]; a conv kernel ``w`` is HWIO [kh, kw, in, out].
+
+The JAX convs run NHWC. Here activations are NCHW tensors, which the
+CelebA models keep in ``channels_last`` memory (an NHWC image permuted to
+NCHW is one already); the HWIO kernel is permuted to OIHW at the call.
+Init follows torch ``nn.Linear``'s distribution
 (uniform ±1/sqrt(fan_in) for weight and bias), drawn on the host from an
 explicit ``torch.Generator`` so a seed gives the same weights on every
 device, then moved to ``device``.
@@ -110,3 +116,98 @@ class StackedMLP(nn.Module):
             if i < self.n_layers - 1:
                 x = activation(x)
         return x
+
+
+# ---------------------------------------------------------------------------
+# Conv (HWIO kernels, NCHW activations) and batch-statistics BatchNorm
+# ---------------------------------------------------------------------------
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial axis: ``ceil(size /
+    stride)`` outputs, the total pad split with the odd pixel at the end
+    (a 5x5 stride-2 conv on an even input pads (1, 2))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def hwio_conv2d(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor | None = None, stride: int = 1,
+                padding: str | int = "SAME") -> torch.Tensor:
+    """``x`` [B, C, H, W] through the HWIO kernel ``w``; ``padding`` is
+    ``"SAME"`` (XLA's, asymmetric where the total pad is odd) or a
+    symmetric pixel count."""
+    kh, kw = w.shape[0], w.shape[1]
+    if padding == "SAME":
+        top, bottom = same_pads(x.shape[2], kh, stride)
+        left, right = same_pads(x.shape[3], kw, stride)
+        if (top, left) == (bottom, right):
+            padding = (top, left)
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+            padding = 0
+    return F.conv2d(x, w.permute(3, 2, 0, 1), b, stride=stride,
+                    padding=padding)
+
+
+class Conv2d(nn.Module):
+    """Plain conv with bias (``nn.py:119-140``): ``w`` HWIO, ``b`` [out],
+    both U(±1/sqrt(fan_in)), ``"SAME"`` padding."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
+        self.w = uniform_param((kernel, kernel, in_ch, out_ch), -bound,
+                               bound, generator, device)
+        self.b = uniform_param((out_ch,), -bound, bound, generator, device)
+
+    def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+        return hwio_conv2d(x, self.w, self.b, stride)
+
+
+def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Batch-statistics BatchNorm over (N, H, W) of an NCHW tensor, biased
+    variance, ``rsqrt(var + eps)``, in every mode (``nn.py:148-157``):
+    no running averages are read or kept."""
+    if x.numel() > x.shape[1]:
+        return F.batch_norm(x, None, None, scale, bias, training=True,
+                            eps=eps)
+    # one value a channel, which F.batch_norm refuses: variance 0
+    mean = x.mean(dim=(0, 2, 3), keepdim=True)
+    var = x.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+    shape = (1, -1, 1, 1)
+    return ((x - mean) * torch.rsqrt(var + eps) * scale.view(shape)
+            + bias.view(shape))
+
+
+class BatchNorm(nn.Module):
+    """``{scale, bias}`` (ones and zeros) over ``ch`` channels, normalised
+    with the batch's statistics. ``mean``/``var`` buffers, once set
+    (``set_running_stats``: a torchvision import), switch it to eval-mode
+    normalisation with those statistics."""
+
+    def __init__(self, ch: int, *, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(ch, device=device))
+        self.bias = nn.Parameter(torch.zeros(ch, device=device))
+        self.register_buffer("mean", None)
+        self.register_buffer("var", None)
+
+    def set_running_stats(self, mean, var):
+        """Store running statistics (copies), which the forward then
+        normalises with."""
+        device = self.scale.device
+        self.mean = torch.as_tensor(mean, dtype=torch.float32).to(
+            device).clone()
+        self.var = torch.as_tensor(var, dtype=torch.float32).to(
+            device).clone()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mean is None:
+            return batchnorm(x, self.scale, self.bias)
+        shape = (1, -1, 1, 1)
+        return ((x - self.mean.view(shape))
+                * torch.rsqrt(self.var.view(shape) + 1e-5)
+                * self.scale.view(shape) + self.bias.view(shape))

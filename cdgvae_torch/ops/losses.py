@@ -1,9 +1,11 @@
-"""Loss terms of the pendulum family, as plain functions on tensors.
+"""Loss terms of the pendulum, tabular and CelebA families, as plain
+functions on tensors.
 
 Port of ``cdgvae_tpu/ops/losses.py``, with the same reductions (sum over
 feature axes, mean over batch):
 
 * ``gaussian_recon``    0.5 * sum((xhat-x)^2) per sample, batch mean
+* ``l1_recon``          sum(|xhat-x|) per sample, batch mean (CelebA)
 * ``kl_std_normal``     analytic KL( N(mean, diag e^logvar) || N(0, I) )
 * ``kl_std_normal_free_bits``  per-dim batch-mean KL floored at free_bits
 * ``alignment_bce``     per-node BCE-with-logits summed over nodes, batch
@@ -22,6 +24,11 @@ import torch
 def gaussian_recon(xhat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     d = (xhat - x).float()
     return 0.5 * (d * d).sum(dim=tuple(range(1, d.ndim))).mean()
+
+
+def l1_recon(xhat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    d = (xhat - x).abs().float()
+    return d.sum(dim=tuple(range(1, d.ndim))).mean()
 
 
 def kl_std_normal(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,97 @@
+"""The CelebA CDG-VAE's loss and train step (port of ``cdgvae_tpu/train/
+celeba_steps.py``): L1 reconstruction against the RGB channels rescaled to
+[-1, 1], KL over both latent groups, the alignment BCE on the causal
+latents, and the ``active`` diagnostic (the share of latents whose mean
+posterior variance is under 0.1).
+
+``compute_dtype=torch.bfloat16`` runs the network in bf16 as the JAX
+package does: every floating parameter and buffer and the input are cast
+(``torch.func.functional_call`` over the cast copies, so the gradients
+reach the float32 parameters), the outputs come back as float32, and the
+losses and the optimizer stay float32. ``align_only=True`` is the
+alignment-first warmup objective: the loss is ``lambda * align``, while
+recon and KL are still computed for the logs.
+
+After each optimizer step ``models.sagan.sn_refresh`` advances every
+spectral-norm site one power iteration; the epoch drivers run it as
+their ``post_update``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.func import functional_call
+
+from ..ops import losses
+
+
+def _cast_forward(model, x, dtype, noise, generator):
+    """The model's forward on ``dtype`` copies of its floating leaves and
+    of ``x``, the outputs upcast to float32."""
+    leaves = {name: t.to(dtype) if t.is_floating_point() else t
+              for name, t in (*model.named_parameters(),
+                              *model.named_buffers())}
+    out = functional_call(model, leaves, (x.to(dtype),),
+                          {"noise": noise, "generator": generator})
+    up = [tuple(s.float() for s in v) if isinstance(v, tuple) else v.float()
+          for v in out]
+    return type(out)(*up)
+
+
+def make_celeba_loss_fn(model, beta: float, lam: float,
+                        compute_dtype: torch.dtype | None = None,
+                        align_only: bool = False) -> Callable:
+    """``loss_fn(x, y, noise=None, generator=None) -> (loss, metrics)``,
+    metrics ``loss, recon, KL, alignment, active`` as device scalars."""
+    node, latent_dim = model.node, model.latent_dim
+
+    def loss_fn(x, y, noise=None, generator=None):
+        if compute_dtype is not None:
+            out = _cast_forward(model, x, compute_dtype, noise, generator)
+        else:
+            out = model(x, noise=noise, generator=generator)
+        recon = losses.l1_recon(out.xhat, x[..., :3] * 2.0 - 1.0)
+        # KL2 subtracts node (not latent_dim) in the reference; they agree
+        kl1 = losses.kl_std_normal(out.mean1, out.logvar1)
+        kl2 = losses.kl_std_normal(out.mean2, out.logvar2)
+        align = losses.alignment_bce(out.align_latent, y[:, :node])
+        active = ((torch.exp(out.logvar1).mean(dim=0) < 0.1).sum()
+                  + (torch.exp(out.logvar2).mean(dim=0) < 0.1).sum()) \
+            / (node + latent_dim)
+        loss = lam * align if align_only else \
+            recon + beta * (kl1 + kl2) + lam * align
+        metrics = {"loss": loss, "recon": recon, "KL": kl1 + kl2,
+                   "alignment": align, "active": active.float()}
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_celeba_step(model, optimizer: torch.optim.Optimizer, beta: float,
+                     lam: float, compute_dtype: torch.dtype | None = None,
+                     align_only: bool = False) -> Callable:
+    """``step(x, y, noise=None, generator=None) -> metrics``: forward,
+    backward, one Adam step. ``models.sagan.sn_refresh`` runs after it
+    as the epoch driver's ``post_update``.
+
+    Every trained parameter steps every step, as under optax's one step
+    count: one the loss does not reach (the decoder under ``align_only``)
+    steps with a zero gradient, which leaves it in place and keeps its
+    Adam bias correction in step with the others'."""
+    loss_fn = make_celeba_loss_fn(model, beta, lam, compute_dtype,
+                                  align_only)
+    trained = [p for p in model.parameters() if p.requires_grad]
+
+    def step(*batch, **draws):
+        loss, metrics = loss_fn(*batch, **draws)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for p in trained:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+

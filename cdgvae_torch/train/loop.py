@@ -13,7 +13,9 @@ derived from ``(seed, e)``, so a run resumed at epoch k continues as the
 uninterrupted run would.
 
 ``train_epoch`` and ``train_epoch_semi`` are the eager per-batch protocol
-(``--eager``): a numpy shuffle, the last partial batch kept.
+(``--eager``): a numpy shuffle, the last partial batch kept (dropped by
+the CelebA trainer, whose batch-statistics BatchNorms want full batches,
+as the JAX package's does).
 """
 from __future__ import annotations
 
@@ -32,23 +34,27 @@ def format_epoch(epoch: int, metrics: dict) -> str:
     return f"[epoch {epoch + 1:03d}]{body}"
 
 
-def batch_indices(n: int, batch_size: int, shuffle_rng: np.random.Generator
-                  ) -> Iterator[np.ndarray]:
-    """Shuffled batch indices; the final partial batch is kept."""
+def batch_indices(n: int, batch_size: int, shuffle_rng: np.random.Generator,
+                  drop_remainder: bool = False) -> Iterator[np.ndarray]:
+    """Shuffled batch indices; the final partial batch is kept unless
+    ``drop_remainder``."""
     perm = shuffle_rng.permutation(n)
-    for i in range(0, n, batch_size):
+    end = n - n % batch_size if drop_remainder else n
+    for i in range(0, end, batch_size):
         yield perm[i: i + batch_size]
 
 
 def train_epoch(step: Callable, x, y, batch_size: int,
                 generator: torch.Generator,
                 shuffle_rng: np.random.Generator,
-                post_update: Callable | None = None) -> dict:
+                post_update: Callable | None = None,
+                drop_remainder: bool = False) -> dict:
     """One epoch of ``step(x, y, generator=...)`` over batches from
     :func:`batch_indices`, each followed by ``post_update()`` when given;
     returns the epoch-mean metrics (keys sorted)."""
     avg = Averager()
-    for idx in batch_indices(len(x), batch_size, shuffle_rng):
+    for idx in batch_indices(len(x), batch_size, shuffle_rng,
+                             drop_remainder):
         idx = torch.as_tensor(idx, device=x.device)
         avg.add(step(x[idx], y[idx], generator=generator))
         if post_update is not None:

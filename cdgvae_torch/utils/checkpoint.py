@@ -19,17 +19,20 @@ the packages both ways:
   object, which the stand-ins are not (with optax installed or without),
   so the writer emits these two names itself.
 
-``AsyncCheckpointer`` (overlapping saves with training) waits for the
-CelebA slice, the only path that needs it.
+``AsyncCheckpointer`` (port of ``utils/checkpoint.py:102-153``) overlaps a
+save with training: it snapshots the trees on the device and writes them
+from a background thread.
 """
 from __future__ import annotations
 
 import json
 import os
 import pickle
+import threading
 from typing import Any
 
 import numpy as np
+import torch
 
 from .interop import EmptyState, ScaleByAdamState
 
@@ -80,6 +83,92 @@ def save_checkpoint(path: str, params, opt_state=None, step: int = 0,
         atomic_write(os.path.join(path, "config.json"), "w",
                      lambda f: json.dump(_jsonable(config), f, indent=2,
                                          sort_keys=True))
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts, lists and (named) tuples."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _snapshot(leaf):
+    if torch.is_tensor(leaf):
+        return leaf.detach().clone()
+    if isinstance(leaf, np.ndarray):
+        return leaf.copy()
+    return leaf
+
+
+class AsyncCheckpointer:
+    """Checkpoint saves that overlap training.
+
+    :meth:`save` snapshots the trees (numpy arrays or tensors, on the
+    device or not) with one ``clone()`` a tensor, records a CUDA event
+    after the clones, and returns. A background thread waits on that
+    event, copies the snapshot to the host on a side stream and writes it
+    with :func:`save_checkpoint`, so the bytes are those of a synchronous
+    save. The caller may change its tensors in place as soon as
+    :meth:`save` returns. At most one save is in flight: a second
+    :meth:`save` waits for the first. A failed save raises on the next
+    :meth:`save` or :meth:`wait`; call :meth:`wait` before the final
+    save or exit."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._err: BaseException | None = None
+
+    def save(self, path: str, params, opt_state=None, step: int = 0,
+             config: dict | None = None, extras: dict | None = None):
+        self.wait()  # one save in flight; surface an earlier failure
+        snap = _tree_map(_snapshot, (params, opt_state, extras))
+        cuda = []
+        _tree_map(lambda t: cuda.append(t) if torch.is_tensor(t)
+                  and t.is_cuda else None, snap)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+        config = None if config is None else dict(config)
+
+        def to_host():
+            if event is None:
+                return _tree_map(lambda t: t.numpy() if torch.is_tensor(t)
+                                 else t, snap)
+            stream = torch.cuda.Stream(device=cuda[0].device)
+            stream.wait_event(event)
+            with torch.cuda.stream(stream):
+                host = _tree_map(lambda t: t.to("cpu", non_blocking=True)
+                                 if torch.is_tensor(t) else t, snap)
+            stream.synchronize()
+            return _tree_map(lambda t: t.numpy() if torch.is_tensor(t)
+                             else t, host)
+
+        def work():
+            try:
+                h_params, h_opt, h_extras = to_host()
+                save_checkpoint(path, h_params, opt_state=h_opt, step=step,
+                                config=config, extras=h_extras)
+            except BaseException as e:  # raised by the next save/wait
+                self._err = e
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name="async-ckpt")
+        self._thread.start()
+
+    def wait(self):
+        """Block until the save in flight, if any, lands; raise if it
+        failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError("async checkpoint save failed") from err
 
 
 def atomic_write(dest: str, mode: str, write):

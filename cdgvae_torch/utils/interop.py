@@ -3,8 +3,11 @@ the port.
 
 The JAX pytree is nested dicts of arrays, as ``jax.tree.map(np.asarray,
 model.init(key))`` gives and as a checkpoint's ``state.pkl["params"]``
-holds. The port's parameter names are the tree's keys joined with ``.``,
-with the same shapes, so the copy is one-to-one.
+holds. The port's parameter and persistent buffer names are the tree's
+keys joined with ``.``, with the same shapes, so the copy is one-to-one.
+The buffers are the tree's leaves that do not train (spectral norm's
+``u``/``v``, imported BatchNorm statistics); optax keeps zero moments for
+them, as for a frozen trunk's parameters, and so does the export here.
 
 ``optax.adam``'s state is ``(ScaleByAdamState(count, mu, nu),
 EmptyState())``: one int32 step ``count`` and two trees shaped like the
@@ -53,33 +56,54 @@ def _nest(flat: Mapping) -> dict:
     return tree
 
 
+def _leaves(module: nn.Module) -> dict:
+    """The module's leaves of the JAX tree: its parameters and its
+    persistent buffers (spectral norm's ``u``/``v``, imported BatchNorm
+    statistics), by dotted name."""
+    return module.state_dict(keep_vars=True)
+
+
+def _steps(p: torch.Tensor) -> bool:
+    """Whether Adam steps this leaf: a parameter that trains (not a
+    buffer, not a frozen trunk's)."""
+    return isinstance(p, nn.Parameter) and p.requires_grad
+
+
 def load_jax_params(module: nn.Module, tree: Mapping) -> None:
-    """Copy the arrays of ``tree`` into ``module``'s parameters. A missing
-    key, an extra key or a wrong shape raises before anything is copied."""
+    """Copy the arrays of ``tree`` into ``module``'s parameters and
+    persistent buffers. A missing key, an extra key or a wrong shape
+    raises before anything is copied."""
     flat = _flatten(tree)
-    params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(flat))
-    extra = sorted(set(flat) - set(params))
+    leaves = _leaves(module)
+    missing = sorted(set(leaves) - set(flat))
+    extra = sorted(set(flat) - set(leaves))
     if missing or extra:
         raise KeyError(f"param tree does not match the module: missing "
                        f"{missing}, unexpected {extra}")
     arrays = {}
-    for name, p in params.items():
+    for name, p in leaves.items():
         arr = np.asarray(flat[name])
         if arr.shape != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} does not match "
                              f"{tuple(p.shape)}")
         arrays[name] = arr
     with torch.no_grad():
-        for name, p in params.items():
+        for name, p in leaves.items():
             p.copy_(torch.as_tensor(np.array(arrays[name], dtype=np.float32)))
 
 
-def export_params(module: nn.Module) -> dict:
-    """The module's parameters as a nested dict of numpy arrays, in the
-    JAX pytree's layout (the inverse of :func:`load_jax_params`)."""
-    return _nest({name: p.detach().cpu().numpy().copy()
-                  for name, p in module.named_parameters()})
+def _host(t: torch.Tensor, host: bool):
+    t = t.detach()
+    return t.cpu().numpy().copy() if host else t
+
+
+def export_params(module: nn.Module, host: bool = True) -> dict:
+    """The module's parameters and persistent buffers as a nested dict in
+    the JAX pytree's layout (the inverse of :func:`load_jax_params`):
+    numpy arrays, or with ``host=False`` the detached tensors on their
+    device."""
+    return _nest({name: _host(p, host)
+                  for name, p in _leaves(module).items()})
 
 
 def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
@@ -88,16 +112,18 @@ def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
     EmptyState())`` or the TVAE chain's 3-tuple around it, into
     ``optimizer``, whose one param group holds ``module``'s parameters in
     ``named_parameters`` order. The next ``optimizer.step()`` then takes
-    the step optax would take."""
+    the step optax would take. The moments of leaves that never step
+    (buffers, frozen parameters: optax keeps them at zero) are not
+    loaded."""
     states = [s for s in opt_tree if hasattr(s, "mu") and hasattr(s, "nu")]
     if len(states) != 1:
         raise TypeError("not an optax Adam state: "
                         f"{[type(s).__name__ for s in opt_tree]}")
     adam = states[0]
     mu, nu = _flatten(adam.mu), _flatten(adam.nu)
-    named = list(module.named_parameters())
-    if set(mu) != set(name for name, _ in named) or set(nu) != set(mu):
+    if set(mu) != set(_leaves(module)) or set(nu) != set(mu):
         raise KeyError("Adam state does not match the module's parameters")
+    named = list(module.named_parameters())
     group_params = optimizer.param_groups[0]["params"]
     if [id(p) for p in group_params] != [id(p) for _, p in named]:
         raise ValueError("the optimizer's params are not the module's, in "
@@ -107,7 +133,7 @@ def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
                  "exp_avg": torch.as_tensor(np.array(mu[name], np.float32)),
                  "exp_avg_sq": torch.as_tensor(np.array(nu[name],
                                                         np.float32))}
-             for i, (name, _) in enumerate(named)}
+             for i, (name, p) in enumerate(named) if _steps(p)}
     # load_state_dict moves each moment to its param's device and dtype
     optimizer.load_state_dict({
         "state": state,
@@ -115,20 +141,22 @@ def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
 
 
 def export_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
-                     decayed: bool = False):
+                     decayed: bool = False, host: bool = True):
     """``optimizer``'s Adam state as optax's ``(ScaleByAdamState(count, mu,
-    nu), EmptyState())`` of numpy arrays, or with ``decayed`` as the TVAE
-    chain's ``(EmptyState(), ScaleByAdamState(...), EmptyState())``; zeros
-    and count 0 before the first step, as the optax ``init`` gives."""
+    nu), EmptyState())``, or with ``decayed`` as the TVAE chain's
+    ``(EmptyState(), ScaleByAdamState(...), EmptyState())``: numpy arrays,
+    or with ``host=False`` tensors on the device. A leaf that has not
+    stepped (a buffer, a frozen parameter, any parameter before the first
+    step) has zero moments, and ``count`` is the one step count of those
+    that have, as optax keeps them; 0 before the first step."""
     mu, nu, steps = {}, {}, set()
-    for name, p in module.named_parameters():
-        st = optimizer.state.get(p, {})
-        steps.add(int(st["step"]) if "step" in st else 0)
-        zeros = np.zeros(tuple(p.shape), np.float32)
-        mu[name] = (st["exp_avg"].detach().cpu().numpy().copy()
-                    if "exp_avg" in st else zeros)
-        nu[name] = (st["exp_avg_sq"].detach().cpu().numpy().copy()
-                    if "exp_avg_sq" in st else zeros.copy())
+    for name, p in _leaves(module).items():
+        st = optimizer.state.get(p, {}) if _steps(p) else {}
+        if "step" in st:
+            steps.add(int(st["step"]))
+        zeros = torch.zeros_like(p, dtype=torch.float32)
+        mu[name] = _host(st.get("exp_avg", zeros), host)
+        nu[name] = _host(st.get("exp_avg_sq", zeros), host)
     if len(steps) > 1:
         raise ValueError(f"parameters are at different Adam steps {steps}; "
                          "optax keeps one count")

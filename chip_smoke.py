@@ -86,11 +86,26 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     loss and data-space serving on the card against the CPU; host ms and
     device busy a step, with no host wait or copy; ``cli.
     tabular_inference_tvae`` on each checkpoint. The TVAE path renders
-    nothing: its launch count must be 0.
+    nothing: its launch count must be 0;
+18. the CelebA family at ``cli.celeba_main``'s defaults (128 px,
+    conv_dim 32, ResNet-18, batch 16) on its 64 synthetic faces:
+    ``cli.celeba_main`` for 2 epochs with a checkpoint each, ``--resume``
+    to 3, then ``--eager``, ``--bf16``, ``--train_trunk``,
+    ``--align_warmup 1``, ``--stacked_decoder true``, ``--async_ckpt
+    true`` and ``--profile`` (1-2 epochs each, the checkpoint's step and
+    Adam count checked); the full-width loss on the card against the CPU
+    (TF32 off for matmuls and cuDNN); ``LoadedModel`` encode, reconstruct
+    and counterfactual at batch 1 and 16 against the CPU; host ms a step,
+    f32 and bf16 interleaved, the device's busy share over 10 profiled
+    steps (no host wait or copy), kernels a step and the host's time by
+    op over the same 10 steps, achieved TFLOP/s from the FLOP count
+    (held to torch's ``FlopCounterMode`` within 1%) against the float32
+    and bfloat16 peaks, and the peak memory. It renders nothing: 0
+    launches.
 
 The render kernel's launches are counted around each path (phases 4, 8
-and 10-15, and 17's 0) and summed in the ``{"kernels": [...]}`` JSON
-line, which is
+and 10-15, and 17's and 18's 0) and summed in the ``{"kernels": [...]}``
+JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -119,6 +134,9 @@ import torch
 # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# and the dense bfloat16 tensor-core peak (the same data sheet, without
+# sparsity)
+PEAK_BF16_OPS_PER_S = 989e12
 # float32 operations a pixel of the uncut function, every shape evaluated
 # at every pixel as render_reference does: pixel centre 2, window 13,
 # background 1, sun 21, rod 39, ball 16, shadow 41, the five paints on 3
@@ -159,6 +177,11 @@ TAB_STEPS = {"loan": 15, "adult": 156, "covtype": 39}
 # 4,000 and 10,000 rows, so 15, 15 and 39 steps an epoch at batch 256
 TVAE_LAM, TVAE_LR, TVAE_WD, TVAE_SIGMA = 5.0, 1e-3, 1e-5, (0.01, 0.1)
 TVAE_STEPS = {"loan": 15, "adult": 15, "covtype": 39}
+# phase 18: cli.celeba_main's defaults (128 px, conv_dim 32, ResNet-18,
+# node and latent_dim 6, batch 16, Adam 1e-3, beta 0.1, lambda 5) on its
+# 64 synthetic faces, 4 steps an epoch
+CELEBA_BATCH, CELEBA_BETA, CELEBA_LAM, CELEBA_LR = 16, 0.1, 5.0, 1e-3
+CELEBA_STEPS = 4
 # TVAE serving in data space, card against CPU: the encode as SERVE_TOL;
 # a float column within this times 4 sigma of its widest valid component
 # (the inverse scales the decoder's float32 output by it), integer and
@@ -1379,6 +1402,270 @@ def tvae(*, work: Path, card: str, dev, rng, profiled_steps) -> None:
               f"clock) [{card}]")
 
 
+def celeba_forward_flops(model, batch: int) -> dict:
+    """Operations (2 a multiply-add) of one forward of the CelebA CDG-VAE
+    at ``batch``, from its shapes: the convs of the ResNet-18 trunk, its fc
+    head, and each generator's SN linear, convs, attention convs and
+    attention products. Elementwise work (BatchNorm, activations, noise,
+    masks) and the SN sigma products are left out."""
+    B, S = batch, model.image_size
+
+    def conv(hw, k, cin, cout):
+        return 2 * B * hw * hw * k * k * cin * cout
+
+    def half(s):
+        return -(-s // 2)
+
+    # stem 7x7/2, max-pool /2, then 4 stages of 2 basic blocks
+    s = half(S)
+    trunk, s, cin = conv(s, 7, 3, 64), half(s), 64
+    for li, width in enumerate((64, 128, 256, 512)):
+        for bi in range(2):
+            if li > 0 and bi == 0:
+                s = half(s)
+            trunk += conv(s, 3, cin, width) + conv(s, 3, width, width)
+            if cin != width:
+                trunk += conv(s, 1, cin, width)
+            cin = width
+    head = 2 * B * 512 * (2 * model.node + 2 * model.latent_dim)
+    gen = model.decoder["gen0"]
+    decoder = 0
+    for zd in model.z_dims:
+        decoder += 2 * B * zd * gen.blocks[0][0] * 16
+        s = 4
+        for i, (ci, co) in enumerate(gen.blocks):
+            s *= 2
+            decoder += conv(s, 3, ci, co) + conv(s, 3, co, co) \
+                + conv(s, 1, ci, co)
+            if i == gen.attn_after:  # theta, phi, g, attn; two products
+                hw = s * s
+                decoder += 2 * B * hw * (co * co // 8 * 2 + co * co // 2
+                                         + co // 2 * co)
+                decoder += 2 * B * hw * (hw // 4) * (co // 8 + co // 2)
+        decoder += conv(S, 3, gen.bn.scale.numel(), 3)
+    return {"trunk": trunk, "head": head, "decoder": decoder}
+
+
+def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
+    """Phase 18: the CelebA family at cli.celeba_main's defaults (see the
+    module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cdgvae_torch.api import LoadedModel
+    from cdgvae_torch.cli.celeba_main import get_args
+    from cdgvae_torch.data.celeba import synthetic_celeba
+    from cdgvae_torch.factory import build_celeba_model
+    from cdgvae_torch.models.sagan import sn_refresh
+    from cdgvae_torch.train.celeba_steps import (make_celeba_loss_fn,
+                                                 make_celeba_step)
+    from cdgvae_torch.train.scanned import epoch_batches
+    from cdgvae_torch.train.steps import make_optimizer
+    from cdgvae_torch.utils.checkpoint import load_checkpoint
+    from cdgvae_torch.utils.profiling import newest_trace, rank_ops
+
+    config = vars(get_args([]))  # the defaults
+    check(config["img_size"] == 128 and config["conv_dim"] == 32
+          and config["batch_size"] == CELEBA_BATCH,
+          f"celeba_main's defaults moved: {config}")
+    host_model = build_celeba_model(config, device="cpu")
+    n_params = sum(p.numel() for p in host_model.parameters())
+    n_sn = sum(b.numel() for n, b in host_model.named_buffers()
+               if n.endswith((".u", ".v")))
+    del host_model
+
+    # cli.celeba_main: 2 epochs with a checkpoint each, --resume to 3, then
+    # one run a flag
+    out, walls = work / "celeba", {}
+    ckpt = out / "celeba_CDGVAE_linear"
+    trace_dir = work / "celeba_trace"
+    runs = [("fixed", ["--ckpt_every", "1"], 2, out),
+            ("resume", ["--resume", str(ckpt)], 3, out),
+            ("eager", ["--eager"], 1, None),
+            ("bf16", ["--bf16"], 1, None),
+            ("train_trunk", ["--train_trunk"], 1, None),
+            ("align_warmup", ["--align_warmup", "1"], 2, None),
+            ("stacked_decoder", ["--stacked_decoder", "true"], 1, None),
+            ("async_ckpt", ["--async_ckpt", "true", "--ckpt_every", "1"], 2,
+             None),
+            ("profile", ["--profile", str(trace_dir)], 2, None)]
+    for name, extra, epochs, run_dir in runs:
+        run_dir = run_dir or work / f"celeba_{name}"
+        said, _, walls[name] = run_cli(
+            ["--epochs", str(epochs), "--assets_dir", str(run_dir), *extra],
+            "celeba_main")
+        ck = load_checkpoint(str(run_dir / "celeba_CDGVAE_linear"))
+        records = read_records(run_dir / "metrics.jsonl")
+        check(ck["step"] == epochs
+              and int(ck["opt_state"][0].count) == epochs * CELEBA_STEPS
+              and len(records) == epochs
+              and all(math.isfinite(v) for r in records
+                      for v in r.values()),
+              f"celeba_main {name}: step {ck['step']}, count "
+              f"{ck['opt_state'][0].count}, records {records}")
+        if name == "fixed":
+            check((run_dir / "tmp_image_0.png").exists()
+                  and (run_dir / "tmp_image_1.png").exists(),
+                  "celeba_main: no tmp_image_{0,1}.png")
+        if name == "resume":
+            check(f"resumed from {ckpt} at epoch 2" in said,
+                  "celeba_main --resume: no 'resumed' line")
+        if name == "align_warmup":
+            check(abs(records[0]["loss"] - 5 * records[0]["alignment"])
+                  <= 1e-4 * records[0]["loss"],
+                  f"--align_warmup: epoch 1 is not lambda * align: "
+                  f"{records[0]}")
+        if name == "stacked_decoder":
+            check(set(ck["params"]["decoder"]) == {"stacked"},
+                  "--stacked_decoder true wrote no decoder.stacked")
+        if name == "train_trunk":
+            check(bool(np.abs(ck["opt_state"][0].mu["encoder"]["stem_conv"]
+                              ["w"]).max() > 0), "--train_trunk: no moments")
+        print(f"celeba_main {name}: {epochs} epochs of {CELEBA_STEPS} "
+              f"steps, losses {[round(r['loss'], 2) for r in records]}, "
+              f"active {[r['active'] for r in records]}; {walls[name]:.3f} s "
+              f"(host clock, model init and checkpoint writes included) "
+              f"[{card}]")
+    ranked = rank_ops(str(trace_dir), top=8)
+    traced = sum(ev.get("cat") == "user_annotation"
+                 and ev.get("name", "").startswith("Optimizer.step")
+                 for ev in newest_trace(str(trace_dir))["traceEvents"])
+    check(ranked and traced == 2 * CELEBA_STEPS,
+          f"celeba_main --profile: {traced} optimizer steps traced")
+    print("celeba_main --profile: top CUDA kernels of the trace (total "
+          "ms): " + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in ranked))
+
+    # the full-width loss on the card against the CPU: same weights, batch
+    # and draws (a CPU generator draws for both), TF32 off
+    x_np, y_np = synthetic_celeba(64, config["img_size"], seed=config["seed"])
+    x16, y16 = (torch.as_tensor(a[:CELEBA_BATCH]) for a in (x_np, y_np))
+    result = {}
+    for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        m = build_celeba_model(config, device=device, seed=0)
+        loss, _ = make_celeba_loss_fn(m, CELEBA_BETA, CELEBA_LAM)(
+            x16.to(device), y16.to(device),
+            generator=torch.Generator().manual_seed(3))
+        result[name] = loss.item()
+        if name == "cuda":
+            with FlopCounterMode(display=False) as counter:
+                with torch.no_grad():
+                    m(x16.to(device))
+            flops = celeba_forward_flops(m, CELEBA_BATCH)
+        del m
+    rel = abs(result["cuda"] - result["cpu"]) / abs(result["cpu"])
+    print(f"CelebA loss (batch {CELEBA_BATCH}, {config['img_size']} px, "
+          f"conv_dim {config['conv_dim']}, {n_params:,} parameters and "
+          f"{n_sn:,} SN u/v entries) cuda "
+          f"{result['cuda']:.6f} cpu "
+          f"{result['cpu']:.6f} rel {rel:.2e}")
+    check(rel <= 1e-5, "the CelebA loss on the card disagrees with the CPU")
+    counted = counter.get_total_flops()
+    fwd = sum(flops.values())
+    print(f"CelebA forward at batch {CELEBA_BATCH}: {fwd / 1e9:.3f} GFLOP "
+          f"counted from the shapes (trunk {flops['trunk'] / 1e9:.3f}, "
+          f"decoder {flops['decoder'] / 1e9:.3f}); torch's FlopCounterMode "
+          f"{counted / 1e9:.3f} GFLOP")
+    check(abs(counted - fwd) <= 0.01 * counted,
+          "the FLOP count disagrees with FlopCounterMode")
+    # a step with the frozen trunk: its forward, and forward plus the
+    # backward's two products (input and weight gradients) elsewhere
+    step_flops = flops["trunk"] + 3 * (flops["head"] + flops["decoder"])
+
+    # serving: the fixed run's checkpoint on the card against the CPU
+    served = {"cuda": LoadedModel.load(str(ckpt), device=dev),
+              "cpu": LoadedModel.load(str(ckpt), device="cpu")}
+    serve_err = {}
+    for b in (1, CELEBA_BATCH):
+        xb = x_np[:b]
+        requests = {"encode": lambda m: m.encode(xb),
+                    "reconstruct": lambda m: m.reconstruct(xb),
+                    "counterfactual do0": lambda m: m.counterfactual(
+                        xb, 0, 0.5)}
+        for name, req in requests.items():
+            got, want = req(served["cuda"]), req(served["cpu"])
+            err = float(np.abs(got - want).max())
+            serve_err[f"{name} b{b}"] = err
+            check(got.shape == want.shape and np.isfinite(got).all()
+                  and err <= SERVE_TOL, f"CelebA serve {name} at batch {b}: "
+                  f"max |d| {err} against the CPU")
+            ms = time_ms(lambda: req(served["cuda"]), reps=3, rounds=3)
+            print(f"CelebA serve {name} batch {b}: {ms:.3f} ms a request "
+                  f"(CUDA events), max |d| {err:.3e} against the CPU "
+                  f"[{card}]")
+    del served
+
+    # host ms a step (f32 and bf16 in turn, epochs of 4 steps, 5 a round)
+    # and the device's busy share over a profiled window of 10 steps
+    x_all = torch.as_tensor(x_np, device=dev)
+    y_all = torch.as_tensor(y_np, device=dev)
+    steppers = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        m = build_celeba_model(config, device=dev, seed=0)
+        step = make_celeba_step(m, make_optimizer(m, CELEBA_LR),
+                                CELEBA_BETA, CELEBA_LAM, compute_dtype=dtype)
+        steppers[name] = (step, lambda m=m: sn_refresh(m))
+
+    def epochs_of(name, k, n=5):
+        step, refresh = steppers[name]
+        gen = torch.Generator(device=dev).manual_seed(1000 + k)
+        for _ in range(n):
+            for idx in epoch_batches(64, CELEBA_BATCH, gen):
+                step(x_all[idx], y_all[idx], generator=gen)
+                refresh()
+        torch.cuda.synchronize()
+
+    host = interleaved_ms({f"CelebA {name}": (lambda k, name=name:
+                                              epochs_of(name, k))
+                           for name in steppers}, 5 * CELEBA_STEPS, card)
+    for name in steppers:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        epochs_of(name, 50, n=1)
+        peak = torch.cuda.max_memory_allocated()
+        step, refresh = steppers[name]
+        gen = torch.Generator(device=dev).manual_seed(77)
+        order = torch.cat([epoch_batches(64, CELEBA_BATCH, gen)
+                           for _ in range(3)])[:10]
+        host_s = host[f"CelebA {name}"]
+        ten_steps = (lambda: [(step(x_all[i], y_all[i], generator=gen),
+                               refresh()) for i in order])
+        kernels = profiled_steps(f"CelebA {name} step (and SN refresh)",
+                                 ten_steps, 10, host_s)
+        busy_s = sum(e.self_device_time_total for e in kernels) * 1e-6 / 10
+        # where the host's time goes: the same 10 steps, host ops only
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            ten_steps()
+            torch.cuda.synchronize()
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        host_ms = sum(e.self_cpu_time_total for e in ops) / 1e3 / 10
+        print(f"CelebA {name}: {sum(e.count for e in kernels) / 10:.0f} "
+              f"kernels a step; host ops (profiled) {host_ms:.3f} ms a step, "
+              f"top by self time (ms a step, calls a step): " + "; ".join(
+                  f"{e.key[:40]} {e.self_cpu_time_total / 1e4:.3f} "
+                  f"({e.count / 10:.0f})" for e in ops[:8]) + f" [{card}]")
+        peak_ops = PEAK_F32_OPS_PER_S if name == "f32" \
+            else PEAK_BF16_OPS_PER_S
+        print(f"CelebA {name}: {step_flops / 1e12:.4f} TFLOP a step "
+              f"(counted); host {host_s * 1e3:.3f} ms a step -> "
+              f"{step_flops / host_s / 1e12:.2f} TFLOP/s, "
+              f"{step_flops / host_s / peak_ops:.4f} of the "
+              f"{peak_ops / 1e12:.0f} TFLOP/s {name} peak; device busy "
+              f"{busy_s * 1e3:.3f} ms a step -> "
+              f"{step_flops / busy_s / 1e12:.2f} TFLOP/s while busy, busy "
+              f"share {busy_s / host_s:.3f}; peak memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+              f"above the {base / 2**30:.3f} GiB held before the epoch) "
+              f"[{card}]")
+    total = config["epochs"] * CELEBA_STEPS
+    print(f"a default celeba_main run on the synthetic faces: "
+          f"{config['epochs']} epochs x {CELEBA_STEPS} = {total} steps, "
+          f"about {total * host['CelebA f32']:.1f} s of steps at this rate "
+          f"[{card}]")
+    print("celeba_main walls (s, host clock): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()) + f" [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1998,8 +2285,18 @@ def main() -> int:
           f"kernel {path_launches['tvae']} times")
     print(f"phase 17 (TVAE): {time.perf_counter() - t0:.1f} s (host clock); "
           f"launches {{'render': 0}} [{card}]")
+
+    # 18. the CelebA family, which renders nothing
+    renderer_cuda.launches = 0
+    t0 = time.perf_counter()
+    celeba(work=work, card=card, dev=dev, profiled_steps=profiled_steps)
+    path_launches["celeba"] = renderer_cuda.launches
+    check(path_launches["celeba"] == 0, f"the CelebA path launched the "
+          f"render kernel {path_launches['celeba']} times")
+    print(f"phase 18 (CelebA): {time.perf_counter() - t0:.1f} s (host "
+          f"clock); launches {{'render': 0}} [{card}]")
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

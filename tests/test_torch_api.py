@@ -91,20 +91,38 @@ def test_counterfactual_on_a_sink_leaves_the_light_band(tmp_path):
                  id="cfg0-item 12"),
     pytest.param({"model": "TVAE", "dataset": "loan"}, None,
                  id="cfg1-item 12"),
-    ({"model": "CDGVAE", "causal_structure": 0}, "item 13"),
+    pytest.param({"model": "CDGVAE", "causal_structure": 0}, "item 13",
+                 id="cfg2-item 13"),
 ])
 def test_unported_families_raise(tmp_path, cfg, item):
-    """DR checkpoints serve (tests/test_torch_dr.py), and so do tabular
-    VAE, CDG-VAE and InfoMax ones (below, and tests/test_torch_tabular.py);
-    CelebA waits. A TVAE checkpoint serves in data space once its
-    transformer.npz stands beside it, and names that file without it
-    (tests/test_torch_tvae.py holds its answers to the JAX package's)."""
+    """Every family serves now: DR checkpoints (tests/test_torch_dr.py),
+    tabular VAE, CDG-VAE and InfoMax ones (below, and tests/
+    test_torch_tabular.py), a TVAE checkpoint in data space once its
+    transformer.npz stands beside it, naming that file without it
+    (tests/test_torch_tvae.py holds its answers to the JAX package's), and
+    a CelebA checkpoint written by the JAX package, here at 16 px
+    (tests/test_torch_celeba_cli.py holds its answers to the JAX
+    package's)."""
     ckpt = str(tmp_path / "ck")
     if item is not None:
-        save_checkpoint(ckpt, {"w": np.ones(1)}, config=cfg)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 {item}"):
-            LoadedModel.load(ckpt, device="cpu")
+        from cdgvae_torch.cli.celeba_main import get_args
+        from cdgvae_torch.data.celeba import synthetic_celeba
+        from cdgvae_torch.factory import build_celeba_model
+        from cdgvae_torch.utils.interop import export_params
+
+        config = dict(vars(get_args(["--img_size", "16", "--conv_dim",
+                                     "2"])), **cfg)
+        model = build_celeba_model(config, device="cpu")
+        save_checkpoint(ckpt, jax.tree.map(jnp.asarray,
+                                           export_params(model)),
+                        config=config)
+        served = LoadedModel.load(ckpt, device="cpu")
+        x, _ = synthetic_celeba(4, 16, seed=0)
+        assert served.encode(x).shape == (4, 6)
+        for out in (served.reconstruct(x), served.counterfactual(x, 0, 1.0)):
+            assert out.shape == (4, 16, 16, 3) and np.isfinite(out).all()
+        with pytest.raises(ValueError, match="segmentation masks"):
+            served.sample(2)
         return
     from cdgvae_torch.data.tabular.datasets import load_tabular_tvae
     from cdgvae_torch.factory import build_tabular_model, tvae_block_mask

@@ -39,11 +39,20 @@ The generators' noise comes from ``noise=``: a ``torch.Generator``, or
 the decoder's explicit draws (one list a generator of its sites' [batch,
 H, W, 1] maps); by default from a CPU generator seeded 0, moved to the
 device, so that the card and the CPU serve the same answer. ``sample``
-refuses: the decoder needs per-sample masks. A ``mesh=`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+refuses: the decoder needs per-sample masks.
+
+``mesh=parallel.make_mesh(n, device)`` serves on n devices of this
+process, as the JAX package serves on a mesh (``cdgvae_tpu/api.py:25-60,
+170-191``): one model replica a device, every batch zero-padded to a
+multiple of n, split into n equal slices, one a replica, and the answers
+put back together on the first device. Every path but CelebA's is per
+sample, so the answers are those of unsharded serving. A CelebA batch is
+served whole on the mesh's first device: its BatchNorms' statistics are
+the whole batch's, and a split would change them.
 """
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -53,6 +62,7 @@ from .data.tabular.transformer import DataTransformer
 from .factory import (build_celeba_model, build_pendulum_model,
                       build_tabular_model)
 from .models.celeba import unstack_decoder
+from .parallel.mesh import Mesh
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
 from .utils.interop import load_jax_params
@@ -88,11 +98,18 @@ def is_dr(config: dict) -> bool:
 
 class LoadedModel:
     def __init__(self, model, config: dict,
-                 transformer: DataTransformer | None = None):
+                 transformer: DataTransformer | None = None,
+                 mesh: Mesh | None = None):
         self.model = model.eval()
         self.config = config
         self.device = next(model.parameters()).device
         self.transformer = transformer
+        # one replica a mesh device (a CPU mesh shares the one model)
+        self._replicas = [self.model]
+        if mesh is not None and not self._celeba:
+            self._replicas = [self.model if d == self.device else
+                              copy.deepcopy(self.model).to(d)
+                              for d in mesh.devices]
 
     @classmethod
     def load(cls, checkpoint_dir: str, device: str | torch.device = "cuda",
@@ -105,11 +122,16 @@ class LoadedModel:
         cudnn.allow_tf32``. The first's PyTorch default, False, serves in
         full float32 (the SEM solve needs it); the second's is True, so a
         caller serving a CelebA checkpoint (convolutions) in float32 turns
-        it off, as ``cli.celeba_main`` does."""
+        it off, as ``cli.celeba_main`` does. ``mesh`` (``parallel.
+        make_mesh``) serves on its devices (module docstring); the model
+        is built on its first, and ``device`` is not read."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet: ROADMAP Queue 1 item 14 "
-                "(data parallel)")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    f"mesh= takes a cdgvae_torch.parallel.Mesh "
+                    f"(parallel.make_mesh(n, device)), not a "
+                    f"{type(mesh).__name__}: it is not a mesh")
+            device = mesh.devices[0]
         ck = load_checkpoint(checkpoint_dir)
         config = ck["config"]
         if config is None:
@@ -134,7 +156,7 @@ class LoadedModel:
             model, _ = build_pendulum_model(build, spurious=is_dr(config),
                                             device=device)
         load_jax_params(model, params)
-        return cls(model, config, transformer)
+        return cls(model, config, transformer, mesh)
 
     @property
     def _celeba(self) -> bool:
@@ -150,13 +172,34 @@ class LoadedModel:
             x = torch.from_numpy(np.array(x, dtype=np.float32))
         return x.to(device=self.device, dtype=torch.float32)
 
-    def _encode(self, x: torch.Tensor):
+    def _serve(self, fn, *batched: torch.Tensor) -> torch.Tensor:
+        """``fn(model, *batched)`` on one model, or split over the mesh's
+        replicas: the rows zero-padded to a multiple of their count, one
+        equal slice a replica, the answers concatenated on the first
+        device and cut to the rows given."""
+        n = len(self._replicas)
+        if n == 1:
+            return fn(self.model, *batched)
+        rows = batched[0].shape[0]
+        pad = -rows % n
+        if pad:
+            batched = [torch.cat([b, b.new_zeros((pad, *b.shape[1:]))])
+                       for b in batched]
+        slices = [b.chunk(n) for b in batched]
+        outs = []
+        for i, m in enumerate(self._replicas):
+            d = next(m.parameters()).device
+            outs.append(fn(m, *(s[i].to(d) for s in slices)))
+        return torch.cat([o.to(self.device) for o in outs])[:rows]
+
+    def _encode(self, m, x: torch.Tensor):
         """The causal branch's (mean, logvar, eps, orig_latent, latent,
-        logdet), and the CelebA model's style eps2 (else None)."""
+        logdet) of model ``m``, and the CelebA model's style eps2 (else
+        None)."""
         if self._celeba:
-            causal, (_, _, eps2) = self.model.encode(x, deterministic=True)
+            causal, (_, _, eps2) = m.encode(x, deterministic=True)
             return causal, eps2
-        return self.model.encode(x, deterministic=True), None
+        return m.encode(x, deterministic=True), None
 
     def _to_data(self, out: torch.Tensor):
         """Decoder output -> an answer: the array as it is, or for a TVAE
@@ -170,23 +213,25 @@ class LoadedModel:
     @torch.no_grad()
     def encode(self, x) -> np.ndarray:
         """Deterministic causal latents [batch, node]."""
-        return self._encode(self._input(x))[0][4].cpu().numpy()
+        return self._serve(lambda m, x: self._encode(m, x)[0][4],
+                           self._input(x)).cpu().numpy()
 
-    def _decode(self, latent: torch.Tensor, eps2, x: torch.Tensor, noise):
+    def _decode(self, m, latent: torch.Tensor, eps2, x: torch.Tensor,
+                noise):
         if self._celeba:
-            return self.model.decode(latent, eps2,
-                                     x[..., 3: 3 + self.model.K],
-                                     self._noise(noise))[1]
-        return self.model.decode_fast(latent)
+            return m.decode(latent, eps2, x[..., 3: 3 + m.K],
+                            self._noise(noise))[1]
+        return m.decode_fast(latent)
 
     @torch.no_grad()
     def reconstruct(self, x, noise=None) -> np.ndarray:
         """Reconstructions: images [batch, H, W, 3] in [-1, 1], a tabular
         model's output columns [batch, columns], or a TVAE's rows in data
         space. ``noise``: the CelebA decoder's (module docstring)."""
-        x = self._input(x)
-        causal, eps2 = self._encode(x)
-        return self._to_data(self._decode(causal[4], eps2, x, noise))
+        def fn(m, x):
+            causal, eps2 = self._encode(m, x)
+            return self._decode(m, causal[4], eps2, x, noise)
+        return self._to_data(self._serve(fn, self._input(x)))
 
     @torch.no_grad()
     def counterfactual(self, x, do_index: int, value,
@@ -195,13 +240,18 @@ class LoadedModel:
         the do-operator with ancestral re-propagation, decode. ``value``
         is a scalar or one value per row; ``noise`` the CelebA decoder's
         (module docstring)."""
-        x = self._input(x)
-        (_, _, eps, _, latent, _), eps2 = self._encode(x)
-        if torch.is_tensor(value) or np.ndim(value):
-            value = self._input(value)
-        z_do = self.model.graph.do_intervention(latent, eps, int(do_index),
-                                                value)
-        return self._to_data(self._decode(z_do, eps2, x, noise))
+        per_row = bool(torch.is_tensor(value) or np.ndim(value))
+
+        def fn(m, x, *row_values):
+            (_, _, eps, _, latent, _), eps2 = self._encode(m, x)
+            z_do = m.graph.do_intervention(
+                latent, eps, int(do_index),
+                row_values[0] if per_row else value)
+            return self._decode(m, z_do, eps2, x, noise)
+        args = (self._input(x),)
+        if per_row:
+            args += (self._input(value),)
+        return self._to_data(self._serve(fn, *args))
 
     @torch.no_grad()
     def generate(self, eps) -> np.ndarray:
@@ -211,8 +261,9 @@ class LoadedModel:
                 "celeba generative sampling needs per-sample segmentation "
                 "masks (the GAM decoder composes masked blocks); use "
                 "reconstruct/counterfactual on real inputs instead")
-        _, latent, _ = self.model.graph.transform(self._input(eps))
-        return self._to_data(self.model.decode_fast(latent))
+        return self._to_data(self._serve(
+            lambda m, e: m.decode_fast(m.graph.transform(e)[1]),
+            self._input(eps)))
 
     def sample(self, n: int, generator: torch.Generator | None = None
                ) -> np.ndarray:

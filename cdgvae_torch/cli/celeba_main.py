@@ -28,9 +28,13 @@ TF32 is off for matmuls and for cuDNN convolutions.
 Flags that select nothing here, accepted and recorded in the config:
 ``--packed_params`` (the JAX package's flat-buffer layout for the TPU's
 per-leaf transfers; the checkpoint layout is the same either way) and
-``--chunk`` (epochs a TPU dispatch; the port syncs once an epoch). ``--dp``
-is refused (ROADMAP Queue 1 item 14). ``--wandb`` logs metrics but
-publishes no model artifact, which needs a network.
+``--chunk`` (epochs a TPU dispatch; the port syncs once an epoch).
+``--dp N`` trains on N ranks (``cli/common.py``), ``sn_refresh`` after
+every step on each: the epoch trainer normalises each rank's batch with
+its own BatchNorm statistics, as the JAX package's sharded trainer does,
+and ``--eager`` with the global batch's, as its GSPMD step does.
+``--wandb`` logs metrics but publishes no model artifact, which needs a
+network.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from ..data.celeba import CelebADataset
 from ..factory import build_celeba_model
 from ..models.celeba import is_stacked, stack_decoder, unstack_decoder
 from ..models.sagan import sn_refresh
+from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.celeba_steps import make_celeba_step
 from ..train.loop import format_epoch, run_epochs, train_epoch
 from ..train.steps import make_optimizer
@@ -55,7 +60,8 @@ from ..utils.profiling import trace
 from ..utils.simulation import (EPOCH, VIZ_NOISE, derived_generator,
                                 set_random_seed)
 from ..utils.viz import viz_recon_grid
-from .common import add_infra_args, add_resume_arg, apply_resume, arg_as_bool
+from .common import (add_infra_args, add_resume_arg, apply_resume,
+                     arg_as_bool, train_on_mesh)
 
 
 def get_args(argv=None):
@@ -127,18 +133,25 @@ def get_args(argv=None):
 
 
 def main(argv=None):
-    config = vars(get_args(argv))
-    device = resolve_device(config["device"])
+    return train_on_mesh(train, vars(get_args(argv)))
+
+
+def train(config: dict, mesh=None):
+    """Train the CelebA model of ``config`` (the parsed flags) and save it;
+    under a ``mesh`` this is one rank of the run."""
+    device = mesh.device if mesh is not None else resolve_device(
+        config["device"])
+    main_rank = is_main(mesh)
     # float32 on the card as on the CPU: no TF32 in matmuls or in cuDNN's
     # convolutions (PyTorch's default for the latter is TF32 on)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     set_random_seed(config["seed"])
     seed = config["seed"]
-    logger = MetricLogger(logdir=config["assets_dir"],
-                          use_wandb=config["wandb"], tags=["CelebA"],
-                          config=config)
-    if config["wandb"]:
+    logger = MetricLogger(logdir=config["assets_dir"] if main_rank else None,
+                          use_wandb=config["wandb"] and main_rank,
+                          tags=["CelebA"], config=config)
+    if config["wandb"] and main_rank:
         print("--wandb: metrics are logged; the model artifact is not "
               "published (it needs a network)")
 
@@ -153,7 +166,9 @@ def main(argv=None):
     if config["torch_weights"]:
         sd = torch.load(config["torch_weights"], map_location="cpu")
         model.encoder.load_torch_weights(sd)
-        print(f"imported torchvision trunk from {config['torch_weights']}")
+        if main_rank:
+            print("imported torchvision trunk from "
+                  f"{config['torch_weights']}")
     optimizer = make_optimizer(model, config["lr"])
     stacked = config["stacked_decoder"]
 
@@ -161,7 +176,7 @@ def main(argv=None):
         nonlocal stacked
         # a resumed run keeps its checkpoint's decoder format
         loaded = is_stacked(ck["params"])
-        if loaded != config["stacked_decoder"]:
+        if loaded != config["stacked_decoder"] and main_rank:
             print(f"WARNING: resumed checkpoint stores a "
                   f"{'stacked' if loaded else 'per-generator'} decoder; "
                   f"--stacked_decoder {config['stacked_decoder']} is "
@@ -178,11 +193,14 @@ def main(argv=None):
         return ck
 
     (model, optimizer), start_epoch = apply_resume(
-        config, (model, optimizer), prepare=canonical)
+        config, (model, optimizer), prepare=canonical, mesh=mesh)
+    if mesh is not None:
+        replicate(mesh, model)
     os.makedirs(config["assets_dir"], exist_ok=True)
     ckpt = os.path.join(config["assets_dir"],
                         f"celeba_{config['model']}_{config['scm']}")
-    saver = AsyncCheckpointer() if config["async_ckpt"] else None
+    saver = AsyncCheckpointer() if config["async_ckpt"] and main_rank \
+        else None
     x_viz = x_data[: min(9, len(x_data))]
     beta, lam, bs = config["beta"], config["lambda"], config["batch_size"]
     dtype = torch.bfloat16 if config["bf16"] else None
@@ -198,6 +216,8 @@ def main(argv=None):
         return params, (adam, empty)
 
     def post_epoch(epoch):
+        if not main_rank:
+            return
         with torch.no_grad():
             xhat = model(x_viz, generator=derived_generator(
                 seed, VIZ_NOISE, device=device)).xhat
@@ -218,8 +238,9 @@ def main(argv=None):
             and (epoch + 1) % config["ckpt_every"] == 0
 
     def on_epoch(epoch, metrics):
-        print(format_epoch(epoch, metrics), flush=True)
-        logger.log(metrics, step=epoch)
+        if main_rank:
+            print(format_epoch(epoch, metrics), flush=True)
+            logger.log(metrics, step=epoch)
 
     # alignment-first warmup: epochs [start, warm) on the alignment loss,
     # then [max(start, warm), epochs) on the reference objective
@@ -230,26 +251,31 @@ def main(argv=None):
     if config["epochs"] > max(start_epoch, warm):
         phases.append((max(start_epoch, warm), config["epochs"], False))
     shuffle_rng = np.random.default_rng(seed + start_epoch)
-    with trace(config["profile"]):
+    with trace(config["profile"] if main_rank else ""):
         for e0, e1, align_only in phases:
             step = make_celeba_step(model, optimizer, beta, lam,
                                     compute_dtype=dtype,
-                                    align_only=align_only)
+                                    align_only=align_only, mesh=mesh,
+                                    global_stats=config["eager"])
             if config["eager"]:
                 for epoch in range(e0, e1):
                     on_epoch(epoch, train_epoch(
                         step, x_data, y_data, bs,
-                        derived_generator(seed, EPOCH, epoch, device=device),
+                        derived_generator(seed, EPOCH, epoch,
+                                          *rank_path(mesh), device=device),
                         shuffle_rng, post_update=refresh,
-                        drop_remainder=True))
+                        drop_remainder=True, mesh=mesh))
                     if ckpt_due(epoch):
                         post_epoch(epoch)
             else:
                 run_epochs(step, x_data, y_data, seed=seed, epochs=e1,
                            batch_size=bs, start_epoch=e0, on_epoch=on_epoch,
                            post_epoch=post_epoch, post_epoch_pred=ckpt_due,
-                           post_update=refresh)
+                           post_update=refresh, mesh=mesh)
 
+    if not main_rank:
+        logger.finish()
+        return model, optimizer
     if saver is not None:
         saver.wait()  # the mid-run save in flight, and its errors
     params, opt_state = trees(host=True)

@@ -1,8 +1,16 @@
 """Shared CLI plumbing (port of the parts of ``cdgvae_tpu/cli/common.py``
 the port's CLIs use): list and bool flag parsers, the infrastructure
 flags, ``--device`` and the reference's ``--platform``, ``--resume`` (the
-InfoMax 4-tuple included), and the fixed-dataset (supervised and
-semi-supervised) and online training drivers, single device.
+InfoMax 4-tuple included), ``--dp`` (:func:`resolve_mesh`,
+:func:`train_on_mesh`), and the fixed-dataset (supervised and
+semi-supervised) and online training loops, on one device or on each
+rank of a mesh.
+
+``--dp N`` runs N ranks, one process each (``parallel/mesh.py``): NCCL on
+``cuda:rank``, or gloo with ``--device cpu``. Every rank reads the data
+and a ``--resume`` checkpoint; rank 0 broadcasts the parameters once, and
+only rank 0 prints epoch lines, writes ``metrics.jsonl``, checkpoints,
+figures and ``--profile`` traces.
 """
 from __future__ import annotations
 
@@ -11,15 +19,12 @@ import ast
 
 import torch
 
+from ..parallel.mesh import (check_devices, is_main, launch, shard_rows,
+                             split_batch)
 from ..train.loop import run_epochs, run_epochs_semi
 from ..train.online import make_online_run_from_loss, train_split_size
 from ..train.scanned import Averager
 
-# mesh-specific flags of the reference, refused here
-_UNPORTED_FLAGS = {
-    "--dp": "the data-parallel mesh is not ported yet (ROADMAP Queue 1 "
-            "item 14, data parallel)",
-}
 # --platform values and the device each means
 _PLATFORM_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
@@ -42,12 +47,6 @@ def arg_as_bool(s):
     if v in ("false", "0", "no", "n"):
         return False
     raise argparse.ArgumentTypeError(f'expected a boolean, got "{s}"')
-
-
-class _Unported(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not supported by the port: "
-                     f"{_UNPORTED_FLAGS[option_string]}")
 
 
 def _device_name(value: str) -> str:
@@ -100,14 +99,62 @@ def add_infra_args(parser: argparse.ArgumentParser):
                         help="write a torch.profiler trace of the training "
                              "drive to DIR (utils/profiling.py ranks its "
                              "kernels)")
+    parser.add_argument("--dp", default=0, type=int,
+                        help="ranks of the data-parallel mesh, one process "
+                             "each (0 = every visible GPU if the batch "
+                             "divides over them, else one device; with "
+                             "--device cpu, N gloo ranks)")
     add_device_arg(parser)
-    _add_unported(parser, "--dp")
     return parser
 
 
-def _add_unported(parser: argparse.ArgumentParser, flag: str):
-    parser.add_argument(flag, action=_Unported, default=argparse.SUPPRESS,
-                        help=f"not supported: {_UNPORTED_FLAGS[flag]}")
+def resolve_mesh(config: dict, extra_batch_sizes=()) -> int | None:
+    """The number of ranks ``--dp`` asks for, or None for one device
+    (``cdgvae_tpu/cli/common.py:159-179``): ``--dp 1`` is one device;
+    ``--dp 0`` is every visible device (the GPUs under cuda, 1 on the CPU),
+    or one device when a batch size does not divide over them; an explicit
+    ``--dp N`` raises ``ValueError`` when ``batch_size`` or one of
+    ``extra_batch_sizes`` (the labeled stream's ``batch_sizeL``) does not
+    divide by N, and ``RuntimeError`` when N exceeds the visible GPUs."""
+    dp = config.get("dp", 0)
+    if dp < 0:
+        raise ValueError(f"--dp {dp}: the rank count cannot be negative")
+    kind = torch.device(config["device"]).type
+    visible = torch.cuda.device_count() if kind == "cuda" else 1
+    if dp == 1 or (dp == 0 and visible <= 1):
+        return None
+    n = dp if dp > 0 else visible
+    for name, bs in [("batch_size", config["batch_size"])] + [
+            ("extra batch size", b) for b in extra_batch_sizes]:
+        if bs % n:
+            if dp > 0:
+                raise ValueError(f"{name} {bs} not divisible by dp={n}")
+            return None
+    check_devices(n, kind)
+    return n
+
+
+def _train_rank(mesh, train, config):
+    train(config, mesh=mesh)
+
+
+def train_on_mesh(train, config: dict, extra_batch_sizes=()):
+    """Run ``train(config)`` as ``--dp`` asks: in this process on one
+    device (returning what ``train`` returns), or as ``train(config,
+    mesh=...)`` on each of N spawned ranks (returning None; rank 0 wrote
+    the run's files). A ``--dp`` that cannot run exits naming why, before
+    any rank starts; a rank that fails fails the run."""
+    try:
+        n = resolve_mesh(config, extra_batch_sizes)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"--dp {config.get('dp')}: {e}")
+    if n is None:
+        return train(config)
+    kind = torch.device(config["device"]).type
+    print(f"[dp] training on {n} ranks "
+          f"({'nccl' if kind == 'cuda' else 'gloo'})", flush=True)
+    launch(_train_rank, n, kind, train, config)
+    return None
 
 
 def add_png_data_dir_arg(parser: argparse.ArgumentParser):
@@ -141,7 +188,7 @@ def add_resume_arg(parser: argparse.ArgumentParser):
     return parser
 
 
-def apply_resume(config: dict, state: tuple, prepare=None):
+def apply_resume(config: dict, state: tuple, prepare=None, mesh=None):
     """Restore ``state`` in place from ``--resume``: ``(model,
     optimizer)``, or for InfoMax ``(model, discriminator, optimizer,
     optimizer_d)``, whose discriminator and its Adam come from the
@@ -152,7 +199,7 @@ def apply_resume(config: dict, state: tuple, prepare=None):
     Returns (state, start_epoch). Refuses a checkpoint already at or past
     ``--epochs``, and an InfoMax resume from a checkpoint without the
     discriminator's state. Reads JAX-written checkpoints as well as the
-    port's.
+    port's. Every rank of a ``mesh`` reads it; rank 0 says so.
     """
     if not config.get("resume"):
         return state, 0
@@ -183,58 +230,74 @@ def apply_resume(config: dict, state: tuple, prepare=None):
         model, optimizer = state
     load_jax_params(model, ck["params"])
     load_jax_opt_state(optimizer, model, ck["opt_state"])
-    print(f"resumed from {config['resume']} at epoch {start_epoch}")
+    if is_main(mesh):
+        print(f"resumed from {config['resume']} at epoch {start_epoch}")
     return state, start_epoch
 
 
 def run_scanned_training(config, *, step, data, start_epoch=0, on_epoch=None,
-                         post_epoch=None, post_epoch_pred=None):
+                         post_epoch=None, post_epoch_pred=None, mesh=None):
     """The fixed-dataset training branch: ``train.loop.run_epochs`` over
-    ``data = (x, y)`` from ``start_epoch`` to ``config['epochs']``."""
+    ``data = (x, y)`` from ``start_epoch`` to ``config['epochs']``; under a
+    ``mesh`` the sharded trainer (``step`` averaging over the same
+    mesh)."""
     x, y = data
     return run_epochs(step, x, y, seed=config["seed"],
                       epochs=config["epochs"],
                       batch_size=config["batch_size"],
                       start_epoch=start_epoch, on_epoch=on_epoch,
-                      post_epoch=post_epoch, post_epoch_pred=post_epoch_pred)
+                      post_epoch=post_epoch, post_epoch_pred=post_epoch_pred,
+                      mesh=mesh)
 
 
 def run_scanned_training_semi(config, *, step, data, start_epoch=0,
-                              on_epoch=None):
+                              on_epoch=None, mesh=None):
     """The semi-supervised fixed-dataset branch: ``train.loop.
     run_epochs_semi`` over ``data = (x_u, x_l, y_l)``, each batch size
-    clamped to its stream."""
+    clamped to its stream; under a ``mesh`` both streams are sharded."""
     x_u, x_l, y_l = data
     return run_epochs_semi(step, x_u, x_l, y_l, seed=config["seed"],
                            epochs=config["epochs"],
                            batch_size=config["batch_size"],
                            batch_size_l=config["batch_sizeL"],
-                           start_epoch=start_epoch, on_epoch=on_epoch)
+                           start_epoch=start_epoch, on_epoch=on_epoch,
+                           mesh=mesh)
 
 
 def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
                         on_epoch, sample_batch_builder, labeled=None,
-                        post_epoch=None, post_epoch_pred=None):
+                        post_epoch=None, post_epoch_pred=None, mesh=None):
     """The ``--online`` driver: epoch-equivalents of the reference
     protocol's steps per epoch (from the DGP's train-split size), each a
     run of fresh-batch steps; ``on_epoch`` gets the epoch's mean metrics
     (keys sorted) after one host sync, and ``post_epoch(epoch)`` runs where
     ``post_epoch_pred(epoch)`` holds. ``labeled=(x_l, y_l)`` switches to
     the semi-supervised loss, ``batch_sizeL`` clamped to the labeled
-    rows."""
+    rows. Under a ``mesh`` each rank draws its share of the batch and
+    subsamples its shard of the labeled rows, and the metrics are the
+    cross-rank mean (``cdgvae_tpu/cli/common.py:205-268``)."""
     bs = config["batch_size"]
     steps_per_epoch = max(train_split_size(config["n_samples"]) // bs, 1)
-    kw = {}
+    kw, local_bs = {}, bs
+    if mesh is not None:
+        local_bs = split_batch(bs, mesh)
+        kw = dict(mesh=mesh, local_bs=local_bs)
     if labeled is not None:
-        kw = dict(labeled=labeled,
-                  batch_size_l=min(config["batch_sizeL"], len(labeled[0])))
+        if mesh is None:
+            bs_l = min(config["batch_sizeL"], len(labeled[0]))
+        else:
+            labeled = tuple(shard_rows(mesh, *labeled))
+            bs_l = split_batch(min(config["batch_sizeL"],
+                                   len(labeled[0]) * mesh.size), mesh,
+                               name="batch_sizeL")
+        kw.update(labeled=labeled, batch_size_l=bs_l)
     run = make_online_run_from_loss(loss_fn, optimizer,
-                                    sample_batch_builder(bs),
+                                    sample_batch_builder(local_bs),
                                     steps_per_epoch, seed=config["seed"],
                                     device=device, **kw)
     history = []
     for epoch in range(start_epoch, config["epochs"]):
-        avg = Averager()
+        avg = Averager(mesh)
         avg.add(run(epoch * steps_per_epoch))
         metrics = avg.result()
         on_epoch(epoch, metrics)

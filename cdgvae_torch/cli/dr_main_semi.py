@@ -9,20 +9,22 @@ trainer is ``cli.main_semi.train`` on the DR data.
 Usage: python -m cdgvae_torch.cli.dr_main_semi --device cuda ...
 
 The fixed two-stream trainer, ``--eager``, ``--online`` (the unlabeled
-stream from ``train/online.py::dr_batch_fn``) and ``--resume``. Writes
-``metrics.jsonl`` and at the end the checkpoint
+stream from ``train/online.py::dr_batch_fn``), ``--resume`` and ``--dp``.
+Writes ``metrics.jsonl`` and at the end the checkpoint
 ``<assets_dir>/model_DR_<model>_<scm>`` with ``config["spurious"] =
 True``.
 """
 from __future__ import annotations
 
 from . import main_semi
+from .common import train_on_mesh
 
 
 def main(argv=None):
     config = vars(main_semi.get_args(argv, node=5))
     config["spurious"] = True  # family marker for checkpoint loaders (api.py)
-    return main_semi.train(config)
+    return train_on_mesh(main_semi.train, config,
+                         extra_batch_sizes=(config["batch_sizeL"],))
 
 
 if __name__ == "__main__":

@@ -17,11 +17,10 @@ the reference, skips the mid-run checkpoints. ``--resume`` continues from
 a checkpoint of either package. ``--eager`` runs the per-batch protocol
 that keeps the last partial batch. ``--data_dir`` trains on a
 reference-format PNG tree (``cli/generate_data.py`` writes one) instead
-of the rendered DGP.
-
-Not ported, and refused when asked for: ``--platform``, ``--dp`` and
-``--profile`` (ROADMAP Queue 1 items 14 and 15). ``--wandb`` logs the
-metrics but publishes no model artifact, which needs a network.
+of the rendered DGP. ``--dp N`` trains on N ranks (``cli/common.py``),
+InfoMax then with the ``"roll"`` marginal on each rank's batch.
+``--wandb`` logs the metrics but publishes no model artifact, which needs
+a network.
 """
 from __future__ import annotations
 
@@ -34,6 +33,7 @@ import torch
 from ..data.pendulum import PendulumDataset
 from ..data.pendulum_dr import PendulumDRDataset
 from ..factory import build_pendulum_model
+from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, train_epoch
 from ..train.online import dr_batch_fn, pendulum_batch_fn
 from ..train.steps import (make_infomax_loss_fn, make_infomax_step,
@@ -49,7 +49,8 @@ from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
 from ..utils.viz import viz_recon_grid
 from .common import (add_infra_args, add_png_data_dir_arg, add_resume_arg,
                      apply_resume, arg_as_bool, arg_as_list,
-                     run_online_training, run_scanned_training)
+                     run_online_training, run_scanned_training,
+                     train_on_mesh)
 
 
 def get_args(argv=None, **defaults):
@@ -122,28 +123,31 @@ def _refuse_unsupported(config: dict):
 def main(argv=None):
     config = vars(get_args(argv))
     config["spurious"] = False  # family marker for checkpoint loaders (api.py)
-    return train(config)
+    return train_on_mesh(train, config)
 
 
-def train(config: dict):
+def train(config: dict, mesh=None):
     """Train the model of ``config`` (the parsed flags) and save it. The
     family marker ``config["spurious"]`` picks the data: the pendulum
     family, or the DR family (``PendulumDRDataset`` or ``dr_batch_fn``,
     the spurious decoder wiring, the checkpoint ``model_DR_<model>_<scm>``
     and, as the reference's DR trainer, neither mid-run checkpoints nor
-    ``recon.png``)."""
+    ``recon.png``). Under a ``mesh`` this is one rank of the run."""
     _refuse_unsupported(config)
     dr = config["spurious"]
-    device = resolve_device(config["device"])
+    device = mesh.device if mesh is not None else resolve_device(
+        config["device"])
+    main_rank = is_main(mesh)
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
     seed, bs = config["seed"], config["batch_size"]
     infomax = config["model"] == "InfoMax"
-    logger = MetricLogger(logdir=config["assets_dir"],
-                          use_wandb=config["wandb"],
+    marginal = "permutation" if mesh is None else "roll"
+    logger = MetricLogger(logdir=config["assets_dir"] if main_rank else None,
+                          use_wandb=config["wandb"] and main_rank,
                           tags=["VAEBased", "DR"] if dr else ["VAEBased"],
                           config=config)
-    if config["wandb"]:
+    if config["wandb"] and main_rank:
         print("--wandb: metrics are logged; the model artifact is not "
               "published (it needs a network)")
 
@@ -162,12 +166,15 @@ def train(config: dict):
         optimizer_d = make_optimizer(discriminator, config["lr_D"])
         state = (model, discriminator, optimizer, optimizer_d)
         step = make_infomax_step(model, discriminator, optimizer,
-                                 optimizer_d, beta, lam, config["gamma"])
+                                 optimizer_d, beta, lam, config["gamma"],
+                                 marginal, mesh)
     else:
         state = (model, optimizer)
         step = make_train_step(model, optimizer, beta, lam,
-                               free_bits=config["free_bits"])
-    state, start_epoch = apply_resume(config, state)
+                               free_bits=config["free_bits"], mesh=mesh)
+    state, start_epoch = apply_resume(config, state, mesh=mesh)
+    if mesh is not None:
+        replicate(mesh, *state[:len(state) // 2])
     shuffle_rng = np.random.default_rng(seed + start_epoch)
     os.makedirs(config["assets_dir"], exist_ok=True)
     ckpt = os.path.join(config["assets_dir"],
@@ -176,14 +183,15 @@ def train(config: dict):
 
     # the viz batch: a training-batch-sized slice, or under --online one
     # draw of the online DGP (a batch function of its own, so the
-    # trainer's image buffer never overwrites it)
+    # trainer's image buffer never overwrites it); only rank 0 draws it
     if config["online"]:
         def sample_builder(batch_size):
             return (dr_batch_fn if dr else pendulum_batch_fn)(
                 batch_size, config["image_size"], norm_seed=seed,
                 norm_n=config["n_samples"], device=device)
         x_viz = sample_builder(bs)(
-            derived_generator(seed, VIZ_BATCH, device=device))[0]
+            derived_generator(seed, VIZ_BATCH, device=device))[0] \
+            if main_rank else None
     else:
         x_viz = dataset.x_data[:min(bs, len(dataset))]
 
@@ -211,6 +219,8 @@ def train(config: dict):
         return epoch % 10 == 0
 
     def post_epoch(epoch):
+        if not main_rank:
+            return
         # the reference skips InfoMax's mid-run checkpoints (its hook sees
         # only the model's state); the final one carries the extras
         if ckpt_due(epoch) and not infomax:
@@ -219,15 +229,17 @@ def train(config: dict):
             viz(f"{config['assets_dir']}/tmp_image_{epoch}.png")
 
     def on_epoch(epoch, metrics):
-        print(format_epoch(epoch, metrics), flush=True)
-        logger.log(metrics, step=epoch)
+        if main_rank:
+            print(format_epoch(epoch, metrics), flush=True)
+            logger.log(metrics, step=epoch)
 
     pred = lambda e: ckpt_due(e) or viz_due(e)  # noqa: E731
-    with trace(config["profile"]):
+    with trace(config["profile"] if main_rank else ""):
         if config["online"]:
             if infomax:
                 loss_fn = make_infomax_loss_fn(model, discriminator, beta,
-                                               lam, config["gamma"])
+                                               lam, config["gamma"],
+                                               marginal)
                 opt = pair_infomax_optimizer(optimizer, optimizer_d)
             else:
                 from ..train.scanned import make_supervised_loss_fn
@@ -238,27 +250,29 @@ def train(config: dict):
                 config, loss_fn=loss_fn, optimizer=opt, device=device,
                 start_epoch=start_epoch, on_epoch=on_epoch,
                 sample_batch_builder=sample_builder, post_epoch=post_epoch,
-                post_epoch_pred=pred)
+                post_epoch_pred=pred, mesh=mesh)
         elif not config["eager"]:
             run_scanned_training(
                 config, step=step, data=(dataset.x_data, dataset.y_data),
                 start_epoch=start_epoch, on_epoch=on_epoch,
-                post_epoch=post_epoch, post_epoch_pred=pred)
+                post_epoch=post_epoch, post_epoch_pred=pred, mesh=mesh)
         else:
             for epoch in range(start_epoch, config["epochs"]):
                 metrics = train_epoch(
                     step, dataset.x_data, dataset.y_data, bs,
-                    derived_generator(seed, EPOCH, epoch, device=device),
-                    shuffle_rng)
+                    derived_generator(seed, EPOCH, epoch, *rank_path(mesh),
+                                      device=device),
+                    shuffle_rng, mesh=mesh)
                 on_epoch(epoch, metrics)
                 post_epoch(epoch)
 
-    if not dr:
-        viz(f"{config['assets_dir']}/recon.png")
-        logger.log_image("reconstruction",
-                         f"{config['assets_dir']}/recon.png")
-    save(config["epochs"])
-    print(f"checkpoint saved to {ckpt}")
+    if main_rank:
+        if not dr:
+            viz(f"{config['assets_dir']}/recon.png")
+            logger.log_image("reconstruction",
+                             f"{config['assets_dir']}/recon.png")
+        save(config["epochs"])
+        print(f"checkpoint saved to {ckpt}")
     logger.finish()
     return state
 

@@ -10,7 +10,9 @@ the alignment BCE and Adam; prints one ``[epoch NNN]`` line per epoch and
 saves ``<assets_dir>/CDMClassifier`` in the JAX package's layout. As in
 the reference, the dataset is the full train split, rendered or read
 from ``--data_dir``: ``--labeled_ratio`` and ``--label_normalization``
-are taken and not used.
+are taken and not used, and so is ``--dp`` (the JAX CLI takes it with
+the other infrastructure flags and never builds a mesh): it trains on
+one device.
 """
 from __future__ import annotations
 

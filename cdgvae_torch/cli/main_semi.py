@@ -14,10 +14,9 @@ the reference) writes ``recon.png`` and the checkpoint
 ``<assets_dir>/model_<model>_<scm>``. ``--resume`` continues from a
 checkpoint of either package; ``--eager`` runs the reference's per-batch
 protocol, short batches kept. ``--data_dir`` reads both streams from a
-reference-format PNG tree.
-
-Refused when asked for: ``--platform``, ``--dp`` and ``--profile``
-(ROADMAP Queue 1 items 14 and 15).
+reference-format PNG tree. ``--dp N`` trains on N ranks
+(``cli/common.py``): both ``--batch_size`` and ``--batch_sizeL`` divide
+over them, and each rank cycles its own labeled shard.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ import torch
 from ..data.pendulum import PendulumDataset
 from ..data.pendulum_dr import PendulumDRDataset
 from ..factory import build_pendulum_model
+from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, train_epoch_semi
 from ..train.online import dr_batch_fn, pendulum_batch_fn
 from ..train.steps import make_optimizer, make_semi_loss_fn, make_semi_step
@@ -43,7 +43,8 @@ from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
 from ..utils.viz import viz_recon_grid
 from .common import (add_infra_args, add_png_data_dir_arg, add_resume_arg,
                      apply_resume, arg_as_bool, arg_as_list,
-                     run_online_training, run_scanned_training_semi)
+                     run_online_training, run_scanned_training_semi,
+                     train_on_mesh)
 
 
 def get_args(argv=None, **defaults):
@@ -83,25 +84,29 @@ def get_args(argv=None, **defaults):
 def main(argv=None):
     config = vars(get_args(argv))
     config["spurious"] = False  # family marker for checkpoint loaders (api.py)
-    return train(config)
+    return train_on_mesh(train, config,
+                         extra_batch_sizes=(config["batch_sizeL"],))
 
 
-def train(config: dict):
+def train(config: dict, mesh=None):
     """Train the semi-supervised model of ``config`` (the parsed flags)
     and save it. ``config["spurious"]`` picks the family: the pendulum
     family, or the DR family (``PendulumDRDataset`` or ``dr_batch_fn``,
     the spurious decoder wiring, the checkpoint ``model_DR_<model>_<scm>``
-    and, as the reference's DR trainer, no ``recon.png``)."""
+    and, as the reference's DR trainer, no ``recon.png``). Under a
+    ``mesh`` this is one rank of the run."""
     if config["online"] and (config["eager"] or config.get("data_dir")):
         raise SystemExit("--online supports the scanned path on the "
                          "synthetic DGP only")
     dr = config["spurious"]
-    device = resolve_device(config["device"])
+    device = mesh.device if mesh is not None else resolve_device(
+        config["device"])
+    main_rank = is_main(mesh)
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
     seed = config["seed"]
-    logger = MetricLogger(logdir=config["assets_dir"],
-                          use_wandb=config["wandb"],
+    logger = MetricLogger(logdir=config["assets_dir"] if main_rank else None,
+                          use_wandb=config["wandb"] and main_rank,
                           tags=["VAEBased", "DR", "semi"] if dr
                           else ["VAEBased", "semi"], config=config)
 
@@ -121,16 +126,19 @@ def train(config: dict):
     model, _ = build_pendulum_model(config, spurious=dr, device=device,
                                     seed=seed)
     optimizer = make_optimizer(model, config["lr"])
-    (model, optimizer), start_epoch = apply_resume(config,
-                                                   (model, optimizer))
+    (model, optimizer), start_epoch = apply_resume(
+        config, (model, optimizer), mesh=mesh)
+    if mesh is not None:
+        replicate(mesh, model)
     os.makedirs(config["assets_dir"], exist_ok=True)
 
     def on_epoch(epoch, metrics):
-        print(format_epoch(epoch, metrics), flush=True)
-        logger.log(metrics, step=epoch)
+        if main_rank:
+            print(format_epoch(epoch, metrics), flush=True)
+            logger.log(metrics, step=epoch)
 
     beta, lam = config["beta"], config["lambda"]
-    with trace(config["profile"]):
+    with trace(config["profile"] if main_rank else ""):
         if config["online"]:
             def sample_builder(batch_size):
                 return (dr_batch_fn if dr else pendulum_batch_fn)(
@@ -140,22 +148,27 @@ def train(config: dict):
                 config, loss_fn=make_semi_loss_fn(model, beta, lam),
                 optimizer=optimizer, device=device, start_epoch=start_epoch,
                 on_epoch=on_epoch, sample_batch_builder=sample_builder,
-                labeled=(x_l, y_l))
+                labeled=(x_l, y_l), mesh=mesh)
         elif config["eager"]:
-            step = make_semi_step(model, optimizer, beta, lam)
+            step = make_semi_step(model, optimizer, beta, lam, mesh)
             shuffle_rng = np.random.default_rng(seed + start_epoch)
             for epoch in range(start_epoch, config["epochs"]):
                 on_epoch(epoch, train_epoch_semi(
                     step, x_u, x_l, y_l, config["batch_size"],
                     config["batch_sizeL"],
-                    derived_generator(seed, EPOCH, epoch, device=device),
-                    shuffle_rng))
+                    derived_generator(seed, EPOCH, epoch, *rank_path(mesh),
+                                      device=device),
+                    shuffle_rng, mesh=mesh))
         else:
             run_scanned_training_semi(
-                config, step=make_semi_step(model, optimizer, beta, lam),
+                config, step=make_semi_step(model, optimizer, beta, lam,
+                                            mesh),
                 data=(x_u, x_l, y_l), start_epoch=start_epoch,
-                on_epoch=on_epoch)
+                on_epoch=on_epoch, mesh=mesh)
 
+    if not main_rank:
+        logger.finish()
+        return model, optimizer
     if not dr:
         # under --online there is no unlabeled dataset: a fresh 9-image
         # draw

@@ -13,7 +13,8 @@ it), prints one ``[epoch NNN]`` line per epoch, appends the metrics to
 discriminator and its Adam in ``extras``). ``--resume`` continues from a
 checkpoint of either package. As in the reference, ``--node``,
 ``--factor`` and ``--input_dim`` are taken and then set from the
-dataset's spec.
+dataset's spec. ``--dp N`` trains on N ranks (``cli/common.py``),
+InfoMax then with the ``"roll"`` marginal on each rank's batch.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from ..data.tabular.datasets import DATASET_SPECS, load_tabular
 from ..factory import build_tabular_model
+from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, run_epochs, train_epoch
 from ..train.steps import make_optimizer
 from ..train.tabular_steps import (make_recon_fn, make_tabular_infomax_step,
@@ -36,7 +38,7 @@ from ..utils.logging import MetricLogger
 from ..utils.profiling import trace
 from ..utils.simulation import EPOCH, derived_generator, set_random_seed
 from .common import (add_infra_args, add_resume_arg, apply_resume,
-                     arg_as_bool, arg_as_list)
+                     arg_as_bool, arg_as_list, train_on_mesh)
 
 
 def get_args(argv=None):
@@ -73,8 +75,15 @@ def get_args(argv=None):
 
 
 def main(argv=None):
-    config = vars(get_args(argv))
-    device = resolve_device(config["device"])
+    return train_on_mesh(train, vars(get_args(argv)))
+
+
+def train(config: dict, mesh=None):
+    """Train the tabular model of ``config`` (the parsed flags) and save
+    it; under a ``mesh`` this is one rank of the run."""
+    device = mesh.device if mesh is not None else resolve_device(
+        config["device"])
+    main_rank = is_main(mesh)
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
     seed = config["seed"]
@@ -82,9 +91,9 @@ def main(argv=None):
     config["node"] = spec["node"]
     config["factor"] = list(spec["factor"])
     config["input_dim"] = spec["input_dim"]
-    logger = MetricLogger(logdir=config["assets_dir"],
-                          use_wandb=config["wandb"], tags=["Tabular"],
-                          config=config)
+    logger = MetricLogger(logdir=config["assets_dir"] if main_rank else None,
+                          use_wandb=config["wandb"] and main_rank,
+                          tags=["Tabular"], config=config)
 
     data = load_tabular(config["dataset"], train=True,
                         data_dir=config["data_dir"])
@@ -100,32 +109,42 @@ def main(argv=None):
     if infomax:
         optimizer_d = make_optimizer(discriminator, config["lr_D"])
         state = (model, discriminator, optimizer, optimizer_d)
-        step = make_tabular_infomax_step(model, discriminator, optimizer,
-                                         optimizer_d, beta, lam,
-                                         config["gamma"], recon_fn)
+        step = make_tabular_infomax_step(
+            model, discriminator, optimizer, optimizer_d, beta, lam,
+            config["gamma"], recon_fn,
+            marginal="permutation" if mesh is None else "roll", mesh=mesh)
     else:
         state = (model, optimizer)
-        step = make_tabular_step(model, optimizer, beta, lam, recon_fn)
-    state, start_epoch = apply_resume(config, state)
+        step = make_tabular_step(model, optimizer, beta, lam, recon_fn,
+                                 mesh)
+    state, start_epoch = apply_resume(config, state, mesh=mesh)
+    if mesh is not None:
+        replicate(mesh, *state[:len(state) // 2])
     os.makedirs(config["assets_dir"], exist_ok=True)
 
     def on_epoch(epoch, metrics):
-        print(format_epoch(epoch, metrics), flush=True)
-        logger.log(metrics, step=epoch)
+        if main_rank:
+            print(format_epoch(epoch, metrics), flush=True)
+            logger.log(metrics, step=epoch)
 
-    with trace(config["profile"]):
+    with trace(config["profile"] if main_rank else ""):
         if config["eager"]:
             shuffle_rng = np.random.default_rng(seed + start_epoch)
             for epoch in range(start_epoch, config["epochs"]):
                 on_epoch(epoch, train_epoch(
                     step, x_data, y_data, config["batch_size"],
-                    derived_generator(seed, EPOCH, epoch, device=device),
-                    shuffle_rng))
+                    derived_generator(seed, EPOCH, epoch, *rank_path(mesh),
+                                      device=device),
+                    shuffle_rng, mesh=mesh))
         else:
             run_epochs(step, x_data, y_data, seed=seed,
                        epochs=config["epochs"],
                        batch_size=config["batch_size"],
-                       start_epoch=start_epoch, on_epoch=on_epoch)
+                       start_epoch=start_epoch, on_epoch=on_epoch,
+                       mesh=mesh)
+    if not main_rank:
+        logger.finish()
+        return state
 
     ckpt = os.path.join(config["assets_dir"],
                         f"tabular_{config['model']}_{config['dataset']}")

@@ -20,7 +20,8 @@ data-space serving and ``cli.tabular_inference_tvae`` read). ``--resume``
 continues from a checkpoint of either package: the transformer is fitted
 again from the data, as deterministically as the first time. As in the
 reference, ``--node`` and ``--factor`` are taken and then set from the
-dataset's spec.
+dataset's spec. ``--dp N`` trains on N ranks (``cli/common.py``), the
+sigma clamp after every step on each.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 
 from ..data.tabular.datasets import DATASET_SPECS, load_tabular_tvae
 from ..factory import build_tabular_model, tvae_block_mask
+from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, run_epochs, train_epoch
 from ..train.steps import make_optimizer
 from ..train.tabular_steps import make_sigma_clamp, make_tvae_step
@@ -42,7 +44,7 @@ from ..utils.logging import MetricLogger
 from ..utils.profiling import trace
 from ..utils.simulation import EPOCH, derived_generator, set_random_seed
 from .common import (add_infra_args, add_resume_arg, apply_resume,
-                     arg_as_bool, arg_as_list)
+                     arg_as_bool, arg_as_list, train_on_mesh)
 
 # the transformer's random state per dataset, as the reference sets it
 TRANSFORMER_RANDOM_STATE = {"loan": 8, "adult": 0, "covtype": 0}
@@ -77,8 +79,15 @@ def get_args(argv=None):
 
 
 def main(argv=None):
-    config = vars(get_args(argv))
-    device = resolve_device(config["device"])
+    return train_on_mesh(train, vars(get_args(argv)))
+
+
+def train(config: dict, mesh=None):
+    """Fit the transformer, train the TVAE of ``config`` (the parsed
+    flags) and save both; under a ``mesh`` this is one rank of the run."""
+    device = mesh.device if mesh is not None else resolve_device(
+        config["device"])
+    main_rank = is_main(mesh)
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     set_random_seed(config["seed"])
     seed, dataset = config["seed"], config["dataset"]
@@ -91,39 +100,46 @@ def main(argv=None):
     spans = data.transformer.output_info_list
     config["input_dim"] = data.transformer.output_dimensions
     config["tvae_mask"] = tvae_block_mask(dataset, spans)
-    logger = MetricLogger(logdir=config["assets_dir"],
-                          use_wandb=config["wandb"], tags=["Tabular", "TVAE"],
-                          config=config)
+    logger = MetricLogger(logdir=config["assets_dir"] if main_rank else None,
+                          use_wandb=config["wandb"] and main_rank,
+                          tags=["Tabular", "TVAE"], config=config)
     x_data = torch.as_tensor(data.x_data, device=device)
     y_data = torch.as_tensor(data.label, device=device)
 
     model, _ = build_tabular_model(config, device=device, seed=seed)
     optimizer = make_optimizer(model, config["lr"],
                                weight_decay=config["weight_decay"])
-    step = make_tvae_step(model, optimizer, config["lambda"], spans)
+    step = make_tvae_step(model, optimizer, config["lambda"], spans, mesh)
     clamp = make_sigma_clamp(model, tuple(config["sigma_range"]))
-    (model, optimizer), start_epoch = apply_resume(config,
-                                                   (model, optimizer))
+    (model, optimizer), start_epoch = apply_resume(
+        config, (model, optimizer), mesh=mesh)
+    if mesh is not None:
+        replicate(mesh, model)
     os.makedirs(config["assets_dir"], exist_ok=True)
 
     def on_epoch(epoch, metrics):
-        print(format_epoch(epoch, metrics), flush=True)
-        logger.log(metrics, step=epoch)
+        if main_rank:
+            print(format_epoch(epoch, metrics), flush=True)
+            logger.log(metrics, step=epoch)
 
-    with trace(config["profile"]):
+    with trace(config["profile"] if main_rank else ""):
         if config["eager"]:
             shuffle_rng = np.random.default_rng(seed + start_epoch)
             for epoch in range(start_epoch, config["epochs"]):
                 on_epoch(epoch, train_epoch(
                     step, x_data, y_data, config["batch_size"],
-                    derived_generator(seed, EPOCH, epoch, device=device),
-                    shuffle_rng, post_update=clamp))
+                    derived_generator(seed, EPOCH, epoch, *rank_path(mesh),
+                                      device=device),
+                    shuffle_rng, post_update=clamp, mesh=mesh))
         else:
             run_epochs(step, x_data, y_data, seed=seed,
                        epochs=config["epochs"],
                        batch_size=config["batch_size"],
                        start_epoch=start_epoch, on_epoch=on_epoch,
-                       post_update=clamp)
+                       post_update=clamp, mesh=mesh)
+    if not main_rank:
+        logger.finish()
+        return model, optimizer
 
     ckpt = os.path.join(config["assets_dir"],
                         f"tabular_{config['model']}_{dataset}")

@@ -13,9 +13,15 @@ Init follows torch ``nn.Linear``'s distribution
 (uniform ±1/sqrt(fan_in) for weight and bias), drawn on the host from an
 explicit ``torch.Generator`` so a seed gives the same weights on every
 device, then moved to ``device``.
+
+Under :func:`global_batch_stats` the batch-statistics BatchNorms
+normalise with the statistics of the global batch over a mesh's ranks, as
+the JAX package's GSPMD step computes them for a batch split over chips.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Callable, Sequence
 
@@ -166,11 +172,46 @@ class Conv2d(nn.Module):
         return hwio_conv2d(x, self.w, self.b, stride)
 
 
+# the mesh whose global batch the BatchNorms normalise over, or None
+_stats_mesh = contextvars.ContextVar("stats_mesh", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_stats(mesh):
+    """Within the block, :func:`batchnorm` takes its mean and variance over
+    the global batch of ``mesh``'s ranks (each rank holding an equal
+    slice): two ``all_reduce``s a layer, which carry the gradient back to
+    every rank. A ``None`` mesh changes nothing."""
+    token = _stats_mesh.set(mesh)
+    try:
+        yield
+    finally:
+        _stats_mesh.reset(token)
+
+
+def _global_batchnorm(x, scale, bias, eps, mesh):
+    from torch.distributed.nn.functional import all_reduce
+
+    count = x.numel() // x.shape[1] * mesh.size
+    dims = (0, 2, 3)
+    mean = all_reduce(x.sum(dim=dims, keepdim=True),
+                      group=mesh.group) / count
+    var = all_reduce(((x - mean) ** 2).sum(dim=dims, keepdim=True),
+                     group=mesh.group) / count
+    shape = (1, -1, 1, 1)
+    return ((x - mean) * torch.rsqrt(var + eps) * scale.view(shape)
+            + bias.view(shape))
+
+
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """Batch-statistics BatchNorm over (N, H, W) of an NCHW tensor, biased
     variance, ``rsqrt(var + eps)``, in every mode (``nn.py:148-157``):
-    no running averages are read or kept."""
+    no running averages are read or kept. Under :func:`global_batch_stats`
+    the statistics are those of the mesh's global batch."""
+    mesh = _stats_mesh.get()
+    if mesh is not None:
+        return _global_batchnorm(x, scale, bias, eps, mesh)
     if x.numel() > x.shape[1]:
         return F.batch_norm(x, None, None, scale, bias, training=True,
                             eps=eps)

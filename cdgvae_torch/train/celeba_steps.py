@@ -15,6 +15,13 @@ recon and KL are still computed for the logs.
 After each optimizer step ``models.sagan.sn_refresh`` advances every
 spectral-norm site one power iteration; the epoch drivers run it as
 their ``post_update``.
+
+Under a mesh the step averages the gradients over the ranks. The JAX
+package's two mesh paths differ in their BatchNorm statistics: the
+sharded epoch trainer (``shard_map``) normalises each shard with its own,
+which is what a rank's local BatchNorm does; the eager ``--dp`` step is
+GSPMD over the global batch, so ``global_stats=True`` takes the
+statistics over the global batch (``nn.global_batch_stats``).
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ from typing import Callable
 import torch
 from torch.func import functional_call
 
+from ..nn import global_batch_stats
 from ..ops import losses
+from ..parallel.mesh import GradBuffer
 
 
 def _cast_forward(model, x, dtype, noise, generator):
@@ -70,7 +79,8 @@ def make_celeba_loss_fn(model, beta: float, lam: float,
 
 def make_celeba_step(model, optimizer: torch.optim.Optimizer, beta: float,
                      lam: float, compute_dtype: torch.dtype | None = None,
-                     align_only: bool = False) -> Callable:
+                     align_only: bool = False, mesh=None,
+                     global_stats: bool = False) -> Callable:
     """``step(x, y, noise=None, generator=None) -> metrics``: forward,
     backward, one Adam step. ``models.sagan.sn_refresh`` runs after it
     as the epoch driver's ``post_update``.
@@ -78,18 +88,29 @@ def make_celeba_step(model, optimizer: torch.optim.Optimizer, beta: float,
     Every trained parameter steps every step, as under optax's one step
     count: one the loss does not reach (the decoder under ``align_only``)
     steps with a zero gradient, which leaves it in place and keeps its
-    Adam bias correction in step with the others'."""
+    Adam bias correction in step with the others'. ``mesh`` averages the
+    gradients over its ranks; ``global_stats`` (under a mesh) normalises
+    with the global batch's statistics (module docstring)."""
     loss_fn = make_celeba_loss_fn(model, beta, lam, compute_dtype,
                                   align_only)
     trained = [p for p in model.parameters() if p.requires_grad]
+    stats_mesh = mesh if global_stats else None
+    grads = GradBuffer(trained, mesh) if mesh is not None else None
 
     def step(*batch, **draws):
-        loss, metrics = loss_fn(*batch, **draws)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for p in trained:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        with global_batch_stats(stats_mesh):
+            loss, metrics = loss_fn(*batch, **draws)
+            if grads is None:
+                optimizer.zero_grad(set_to_none=True)
+            else:
+                grads.zero()
+            loss.backward()
+        if grads is not None:
+            grads.mean()
+        else:
+            for p in trained:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 

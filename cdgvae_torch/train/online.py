@@ -23,8 +23,15 @@ metrics stay on it until the caller reads them. The semi-supervised
 trainer takes a fresh unlabeled batch every step and a subsample of a
 labeled set that lies on the device. The DR DGP (:func:`dr_batch_fn`)
 draws one more uniform, the background's, and renders the background bit
-through the same kernel launch. Sharded online training is not ported yet
-(ROADMAP Queue 1 item 14).
+through the same kernel launch.
+
+Under a mesh (``parallel.mesh.Mesh``) each rank draws its own batch of
+``local_bs`` rows through the render kernel, from a generator derived from
+``(seed, step, rank)`` (at world size 1 the single-device ``(seed,
+step)``), with the corruption offset to the global rows ``rank ·
+local_bs`` on; semi draws its labeled rows from the rank's own shard, and
+the step averages the gradients (``cdgvae_tpu/train/online.py:
+315-407``).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 from ..data.pendulum import _BETA, sample_factors_real, shadow_physics
 from ..data.pendulum_dr import sample_factors_dr
 from ..ops.renderer import render
+from ..parallel.mesh import rank_path
 from ..utils.simulation import ONLINE_STEP, derived_seed
 from .scanned import make_supervised_loss_fn
 from .steps import step_from_loss
@@ -221,7 +229,8 @@ def make_online_run_from_loss(loss_fn: Callable, optimizer,
                               n_steps_per_call: int, *, seed: int,
                               device: str | torch.device,
                               labeled: tuple | None = None,
-                              batch_size_l: int = 0) -> Callable:
+                              batch_size_l: int = 0, mesh=None,
+                              local_bs: int = 0) -> Callable:
     """Online trainer for a supervised ``loss_fn(x, y, generator=...) ->
     (loss, metrics)`` over the models that ``optimizer`` updates (the
     InfoMax pair through ``steps.pair_infomax_optimizer``), or with
@@ -235,20 +244,34 @@ def make_online_run_from_loss(loss_fn: Callable, optimizer,
     and optimizer step, with data and noise drawn from the generator
     derived from ``(seed, step)``. The metrics come back as device tensors
     [n_steps_per_call] keyed like ``loss_fn``'s, unsynced.
+
+    Under a ``mesh`` this is one rank of the sharded trainer (module
+    docstring): ``sample_batch`` draws ``local_bs`` rows, ``labeled`` is
+    the rank's shard and ``batch_size_l`` its share, and the metrics are
+    this rank's own (``cli.common.run_online_training`` averages them
+    over the ranks).
     """
+    if mesh is not None and local_bs <= 0:
+        raise ValueError(
+            "local_bs (each rank's draw size) is required under a mesh: "
+            "without it the DGP's positional corruption would be offset by "
+            "0 on every rank, changing the sampled distribution with the "
+            "device count")
+    offset = 0 if mesh is None else mesh.rank * local_bs
+    path = rank_path(mesh)
     if labeled is not None and not 0 < batch_size_l <= len(labeled[0]):
         raise ValueError(
             f"labeled set ({len(labeled[0])} rows) cannot give a labeled "
             f"batch of {batch_size_l}; lower batch_sizeL or use more "
             "labeled data")
     generator = torch.Generator(device=device)
-    step = step_from_loss(loss_fn, optimizer)
+    step = step_from_loss(loss_fn, optimizer, mesh)
 
     def run(step0: int) -> dict:
         per_step = []
         for i in range(step0, step0 + n_steps_per_call):
-            generator.manual_seed(derived_seed(seed, ONLINE_STEP, i))
-            x, y = sample_batch(generator)
+            generator.manual_seed(derived_seed(seed, ONLINE_STEP, i, *path))
+            x, y = sample_batch(generator, offset)
             if labeled is None:
                 batch = (x, y)
             else:

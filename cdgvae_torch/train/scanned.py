@@ -8,6 +8,13 @@ permutation of the flat ``[n, 3·H·W]`` dataset per epoch from the epoch's
 seed and the epoch), the last partial batch dropped, metrics accumulated
 on the device and averaged per epoch with one host sync per epoch. Steps
 run as a plain Python loop.
+
+Under a mesh (``parallel.mesh.Mesh``) the same runners are the sharded
+trainers of ``cdgvae_tpu/train/scanned.py:276-466``: each rank runs them
+on its own shard of the rows, with its own generator, at the local batch
+size, the step averages the gradients, and the epoch metrics are the
+cross-rank mean, reduced once an epoch (the mean is linear, so this equals
+the reference's per-step ``pmean`` of the metrics).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Callable
 import torch
 
 from ..ops import losses
+from ..parallel.mesh import all_reduce_mean
 from .steps import _metrics
 
 
@@ -23,10 +31,12 @@ class Averager:
     """Accumulates dicts of device tensors, each a step's scalar or a run's
     [steps] stack; ``result()`` is the mean over every step added, in one
     host sync, its keys sorted as JAX's pytree flattening orders them (and
-    so the JAX trainers' console lines and logs)."""
+    so the JAX trainers' console lines and logs). Under a ``mesh`` the
+    result is the mean over its ranks too, one ``all_reduce``."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         self._acc = []
+        self._mesh = mesh
 
     def add(self, metrics: dict):
         self._acc.append(metrics)
@@ -38,6 +48,8 @@ class Averager:
         means = torch.stack([torch.cat([m[k].reshape(-1)
                                         for m in self._acc]).mean()
                              for k in keys])
+        if self._mesh is not None:
+            all_reduce_mean([means], self._mesh)
         return dict(zip(keys, means.tolist()))
 
 
@@ -75,7 +87,8 @@ def epoch_batches(n: int, batch_size: int,
 
 
 def make_epoch_runner(step_fn: Callable, batch_size: int,
-                      post_update: Callable | None = None) -> Callable:
+                      post_update: Callable | None = None,
+                      mesh=None) -> Callable:
     """Wrap a ``step(x, y, generator=...) -> metrics`` into an epoch runner,
     the counterpart of ``make_scanned_epochs``.
 
@@ -83,7 +96,8 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
     floats, keys sorted. ``x`` is [n, ...] items, ``y`` [n, .]; both on
     the generator's device, which draws the permutation and then each
     step's noise. ``post_update()`` runs after every step (the TVAE's
-    sigma clamp).
+    sigma clamp, the CelebA ``sn_refresh``). Under a ``mesh`` each rank
+    runs it on its shard at its local ``batch_size`` (module docstring).
     """
 
     def run(x, y, generator: torch.Generator) -> dict:
@@ -94,7 +108,7 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
                 f"dataset ({n}) smaller than batch_size ({batch_size}); "
                 "clamp the batch size (train.loop.run_epochs does)")
         xf, item_shape = x.reshape(n, -1), x.shape[1:]
-        avg = Averager()
+        avg = Averager(mesh)
         for idx in epoch_batches(n, batch_size, generator):
             xi = xf[idx].reshape(batch_size, *item_shape)
             avg.add(step_fn(xi, y[idx], generator=generator))
@@ -117,7 +131,7 @@ def labeled_batches(n_l: int, steps: int, batch_size_l: int,
 
 
 def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
-                             batch_size_l: int) -> Callable:
+                             batch_size_l: int, mesh=None) -> Callable:
     """Semi-supervised epoch runner, the counterpart of
     ``make_scanned_epochs_semi``: the unlabeled stream drives the epoch and
     drops its remainder; the labeled stream cycles through
@@ -128,7 +142,8 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
     ``step_fn(x_u, x_l, y_l, generator=...) -> metrics``. Returns
     run(x_u, x_l, y_l, generator) -> the epoch's mean metrics as host
     floats, keys sorted. Use ``train.loop.train_epoch_semi`` (``--eager``)
-    for the reference's protocol with short batches.
+    for the reference's protocol with short batches. Under a ``mesh``
+    each rank cycles its own labeled shard (module docstring).
     """
 
     def run(x_u, x_l, y_l, generator: torch.Generator) -> dict:
@@ -142,7 +157,7 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
         xf_u, xf_l = x_u.reshape(n_u, -1), x_l.reshape(n_l, -1)
         idx_u = epoch_batches(n_u, batch_size, generator)
         idx_l = labeled_batches(n_l, steps, batch_size_l, generator)
-        avg = Averager()
+        avg = Averager(mesh)
         for iu, il in zip(idx_u, idx_l):
             avg.add(step_fn(xf_u[iu].reshape(batch_size, *x_u.shape[1:]),
                             xf_l[il].reshape(batch_size_l, *x_l.shape[1:]),

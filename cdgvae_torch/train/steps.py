@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 
 from ..ops import losses
+from ..parallel.mesh import GradBuffer
 
 
 def _metrics(loss, recon, kl, align, logvar, node, extra=None) -> dict:
@@ -44,15 +45,32 @@ def make_optimizer(model: torch.nn.Module, lr: float,
                             weight_decay=weight_decay)
 
 
-def step_from_loss(loss_fn: Callable, optimizer) -> Callable:
+def trained_params(optimizer) -> list:
+    """The parameters ``optimizer`` updates (both models' for the InfoMax
+    pair), in a fixed order."""
+    return [p for opt in getattr(optimizer, "optimizers", (optimizer,))
+            for group in opt.param_groups for p in group["params"]]
+
+
+def step_from_loss(loss_fn: Callable, optimizer, mesh=None) -> Callable:
     """``step(*batch, **draws) -> metrics``: ``loss_fn(*batch, **draws) ->
     (loss, metrics)``, backward, and one ``optimizer.step()``; the metrics
-    come back as detached device scalars."""
+    come back as detached device scalars, this rank's own. Under a
+    ``mesh`` (``parallel.mesh.Mesh``) the gradients live in one flat
+    buffer (``parallel.mesh.GradBuffer``), averaged over the ranks between
+    backward and the optimizer step."""
+    grads = GradBuffer(trained_params(optimizer), mesh) \
+        if mesh is not None else None
 
     def step(*batch, **draws):
         loss, metrics = loss_fn(*batch, **draws)
-        optimizer.zero_grad(set_to_none=True)
+        if grads is None:
+            optimizer.zero_grad(set_to_none=True)
+        else:
+            grads.zero()
         loss.backward()
+        if grads is not None:
+            grads.mean()
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -60,17 +78,19 @@ def step_from_loss(loss_fn: Callable, optimizer) -> Callable:
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, beta: float,
-                    lam: float, free_bits: float = 0.0) -> Callable:
+                    lam: float, free_bits: float = 0.0,
+                    mesh=None) -> Callable:
     """Supervised VAE/CDG-VAE step.
 
     Returns step(x, y, noise=None, generator=None) -> metrics dict of
-    detached device scalars. ``free_bits > 0`` floors the per-dim KL.
+    detached device scalars. ``free_bits > 0`` floors the per-dim KL;
+    ``mesh`` averages the gradients over its ranks.
     """
     from .scanned import make_supervised_loss_fn
 
     return step_from_loss(make_supervised_loss_fn(model, beta, lam,
                                                   free_bits=free_bits),
-                          optimizer)
+                          optimizer, mesh)
 
 
 def marginal_epsilon(epsilon: torch.Tensor, mode: str = "permutation", *,
@@ -164,15 +184,20 @@ def pair_infomax_optimizer(optimizer: torch.optim.Optimizer,
 def make_infomax_step(model, discriminator,
                       optimizer: torch.optim.Optimizer,
                       optimizer_d: torch.optim.Optimizer,
-                      beta: float, lam: float, gamma: float) -> Callable:
-    """InfoMax step ``step(x, y, noise=None, perm=None, generator=None) ->
-    metrics`` (see :func:`make_infomax_loss_fn` for the gradient). It
-    updates both models in place, so it already has the single-state
-    shape of the reference's ``pair_infomax_step``: the epoch runners
-    drive it as they drive the supervised step."""
+                      beta: float, lam: float, gamma: float,
+                      marginal: str = "permutation",
+                      mesh=None) -> Callable:
+    """InfoMax step ``step(x, y, noise=None, perm=None, shift=None,
+    generator=None) -> metrics`` (see :func:`make_infomax_loss_fn` for the
+    gradient). It updates both models in place, so it already has the
+    single-state shape of the reference's ``pair_infomax_step``: the epoch
+    runners drive it as they drive the supervised step. Under a ``mesh``
+    both models' gradients are averaged in one buffer; pass ``marginal=
+    "roll"`` there, as every sharded trainer of the reference does."""
     return step_from_loss(
-        make_infomax_loss_fn(model, discriminator, beta, lam, gamma),
-        pair_infomax_optimizer(optimizer, optimizer_d))
+        make_infomax_loss_fn(model, discriminator, beta, lam, gamma,
+                             marginal),
+        pair_infomax_optimizer(optimizer, optimizer_d), mesh)
 
 
 def make_semi_loss_fn(model, beta: float, lam: float) -> Callable:
@@ -196,7 +221,9 @@ def make_semi_loss_fn(model, beta: float, lam: float) -> Callable:
 
 
 def make_semi_step(model, optimizer: torch.optim.Optimizer, beta: float,
-                   lam: float) -> Callable:
+                   lam: float, mesh=None) -> Callable:
     """Semi-supervised step ``step(x_u, x_l, y_l, noise=None,
-    generator=None) -> metrics``."""
-    return step_from_loss(make_semi_loss_fn(model, beta, lam), optimizer)
+    generator=None) -> metrics``; ``mesh`` averages the gradients over its
+    ranks."""
+    return step_from_loss(make_semi_loss_fn(model, beta, lam), optimizer,
+                          mesh)

@@ -12,7 +12,9 @@ the dataset's reconstruction term:
 
 The alignment reads every label column (a tabular label has one column a
 node). On one device InfoMax's marginal is a permutation of the batch,
-as the JAX CLI's single-device paths build it.
+as the JAX CLI's single-device paths build it; under a mesh the CLI
+passes ``marginal="roll"`` (``cdgvae_tpu/cli/tabular_main.py:133-135``).
+Every step builder takes a ``mesh`` that averages its gradients.
 
 The CDG-TVAE's reconstruction walks the DataTransformer's output spans:
 a Gaussian NLL with the learned ``sigma`` for each tanh column and a
@@ -81,34 +83,39 @@ def make_tabular_loss_fn(model, beta: float, lam: float,
 
 
 def make_tabular_step(model, optimizer: torch.optim.Optimizer, beta: float,
-                      lam: float, recon_fn: Callable) -> Callable:
+                      lam: float, recon_fn: Callable, mesh=None) -> Callable:
     """Supervised tabular VAE/CDG-VAE step ``step(x, y, noise=None,
     generator=None) -> metrics``."""
     return step_from_loss(make_tabular_loss_fn(model, beta, lam, recon_fn),
-                          optimizer)
+                          optimizer, mesh)
 
 
 def make_tabular_infomax_loss_fn(model, discriminator, beta: float,
                                  lam: float, gamma: float,
-                                 recon_fn: Callable) -> Callable:
+                                 recon_fn: Callable,
+                                 marginal: str = "permutation") -> Callable:
     """Tabular InfoMax loss ``loss_fn(x, y, noise=None, perm=None,
     shift=None, generator=None) -> (ref_loss + MI, metrics)``: the
-    (γ+1)·MI gradient reaches the model and the discriminator."""
+    (γ+1)·MI gradient reaches the model and the discriminator.
+    ``marginal`` is :func:`steps.marginal_epsilon`'s mode."""
     return make_infomax_loss_fn(model, discriminator, beta, lam, gamma,
-                                recon_fn=recon_fn)
+                                marginal=marginal, recon_fn=recon_fn)
 
 
 def make_tabular_infomax_step(model, discriminator,
                               optimizer: torch.optim.Optimizer,
                               optimizer_d: torch.optim.Optimizer,
                               beta: float, lam: float, gamma: float,
-                              recon_fn: Callable) -> Callable:
+                              recon_fn: Callable,
+                              marginal: str = "permutation",
+                              mesh=None) -> Callable:
     """Tabular InfoMax step: updates the model and the discriminator in
-    place, each with its own Adam."""
+    place, each with its own Adam (under a ``mesh`` both gradients are
+    averaged in one buffer)."""
     return step_from_loss(
         make_tabular_infomax_loss_fn(model, discriminator, beta, lam, gamma,
-                                     recon_fn),
-        pair_infomax_optimizer(optimizer, optimizer_d))
+                                     recon_fn, marginal),
+        pair_infomax_optimizer(optimizer, optimizer_d), mesh)
 
 
 def flatten_spans(output_info_list) -> tuple:
@@ -181,8 +188,8 @@ def make_sigma_clamp(model, sigma_range=(0.01, 0.1)) -> Callable:
 
 
 def make_tvae_step(model, optimizer: torch.optim.Optimizer, lam: float,
-                   output_info_list) -> Callable:
+                   output_info_list, mesh=None) -> Callable:
     """CDG-TVAE step ``step(x, y, noise=None, generator=None) -> metrics``;
     the drivers follow each with :func:`make_sigma_clamp`'s hook."""
     return step_from_loss(make_tvae_loss_fn(model, lam, output_info_list),
-                          optimizer)
+                          optimizer, mesh)

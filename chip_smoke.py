@@ -101,11 +101,27 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     op over the same 10 steps, achieved TFLOP/s from the FLOP count
     (held to torch's ``FlopCounterMode`` within 1%) against the float32
     and bfloat16 peaks, and the peak memory. It renders nothing: 0
-    launches.
+    launches;
+19. data parallelism in a world-1 NCCL group (the one card): the flagship
+    through the sharded epoch runner for 2 epochs against the one-device
+    runner (losses and params bit for bit), host ms a step of the two
+    interleaved and the time of the gradient mean (NCCL's all-reduce of
+    the flat gradient buffer and its division) on CUDA events, its device
+    time (events around calls queued behind a sleeping kernel, and the
+    profiler's kernels); the sharded online trainer
+    for 2 epoch-equivalents against the one-device one (bit for bit; its
+    render launches counted as ``dp online``); one CelebA epoch at
+    ``cli.celeba_main``'s defaults through the sharded trainer with
+    ``sn_refresh`` against the one-device one (cuDNN deterministic; bit
+    for bit) and its gradient mean's times; ``cli.main --dp 1``,
+    ``--dp 0`` and ``--dp 1 --online`` on one device, ``--dp 2`` refused
+    by the device count; ``LoadedModel(mesh=make_mesh(1, "cuda"))``
+    against plain serving (max |d| 0); ``dryrun_multichip`` over every
+    card.
 
-The render kernel's launches are counted around each path (phases 4, 8
-and 10-15, and 17's and 18's 0) and summed in the ``{"kernels": [...]}``
-JSON line, which is
+The render kernel's launches are counted around each path (phases 4, 8,
+10-15 and 19, and 17's and 18's 0) and summed in the ``{"kernels":
+[...]}`` JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -237,6 +253,23 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The device time of ``fn`` a call, from CUDA events around ``reps``
+    calls that the host queues while a sleeping kernel holds the stream,
+    so that no host gap falls between them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # about 0.1 s at the H100's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def host_waits(kernels_and_events) -> dict:
@@ -1666,6 +1699,246 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
         f"{k} {v:.3f}" for k, v in walls.items()) + f" [{card}]")
 
 
+def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
+                  path_launches: dict) -> None:
+    """Phase 19: data parallelism on the card in a world-1 NCCL group (see
+    the module docstring)."""
+    import tempfile
+
+    from cdgvae_torch.api import LoadedModel
+    from cdgvae_torch.cli.celeba_main import get_args as celeba_args
+    from cdgvae_torch.data.celeba import synthetic_celeba
+    from cdgvae_torch.factory import build_celeba_model, build_pendulum_model
+    from cdgvae_torch.models.sagan import sn_refresh
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.parallel import make_mesh, process_group, replicate
+    from cdgvae_torch.parallel.mesh import GradBuffer
+    from cdgvae_torch.parallel.dryrun import dryrun_multichip
+    from cdgvae_torch.train.celeba_steps import make_celeba_step
+    from cdgvae_torch.train.loop import run_epochs
+    from cdgvae_torch.train.online import (make_online_run_from_loss,
+                                           pendulum_batch_fn,
+                                           train_split_size)
+    from cdgvae_torch.train.scanned import (Averager, make_epoch_runner,
+                                            make_supervised_loss_fn)
+    from cdgvae_torch.train.steps import make_optimizer, make_train_step
+    from cdgvae_torch.utils.interop import export_params
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    def same(a: dict, b: dict) -> tuple[bool, float]:
+        """Bit-equal params, and the largest |d|."""
+        fa, fb = dict(flat(a)), dict(flat(b))
+        check(fa.keys() == fb.keys(), "param trees differ in their leaves")
+        worst = max(float(np.abs(fa[k].astype(np.float64)
+                                 - fb[k].astype(np.float64)).max())
+                    for k in fa)
+        return all(np.array_equal(fa[k], fb[k]) for k in fa), worst
+
+    def allreduce_window(name, params, mesh, size_mb):
+        """The gradient mean (the NCCL all_reduce of the flat gradient
+        buffer and its division) a step: its time on CUDA events, host
+        enqueue included and not, and its device time and kernels over 10
+        profiled calls."""
+        grads = GradBuffer(params, mesh)
+        ev_ms = time_ms(grads.mean)
+        print(f"dp {name}: gradient mean over one {size_mb:.2f} MB float32 "
+              f"buffer: {ev_ms * 1e3:.2f} us a call (CUDA events), "
+              f"{device_ms(grads.mean) * 1e3:.2f} us of device time a call "
+              f"(CUDA events, the calls queued behind a sleeping kernel) "
+              f"[{card}]")
+        busy, wall, table, kernels, _ = profile_window(
+            lambda: [grads.mean() for _ in range(10)])
+        if not kernels:
+            print(f"dp {name}: the profiler saw no device kernels in its "
+                  "window: device time not measured by it")
+            return
+        nccl = sum(e.self_device_time_total for e in kernels
+                   if "nccl" in e.key.lower()) * 1e-6 / 10
+        print(f"dp {name}: profiled 10 calls: {busy / 10 * 1e6:.2f} us "
+              f"device time a step (NCCL's own kernels {nccl * 1e6:.2f} "
+              f"us), {wall / 10 * 1e6:.2f} us wall a call [{card}]")
+        print(table)
+
+    t0 = time.perf_counter()
+    x, y = dataset.x_data, dataset.y_data
+    steps = len(x) // BATCH
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_")) / "store"
+    with process_group(0, 1, "cuda", str(store)) as mesh:
+        check(mesh.backend == "nccl" and mesh.size == 1,
+              f"not a world-1 NCCL group: {mesh}")
+
+        # the flagship through the sharded epoch runner against the
+        # one-device runner: 2 epochs, bit for bit
+        runs = {}
+        for name, m in (("one device", None), ("dp world 1", mesh)):
+            model, _ = build_pendulum_model(FLAGSHIP, device=dev, seed=0)
+            if m is not None:
+                replicate(m, model)
+            opt = make_optimizer(model, LR)
+            step = make_train_step(model, opt, BETA, LAM, mesh=m)
+            hist = run_epochs(step, x, y, seed=1, epochs=2, batch_size=BATCH,
+                              mesh=m)
+            runs[name] = (hist, export_params(model), model, step)
+        equal, worst = same(runs["one device"][1], runs["dp world 1"][1])
+        print(f"dp flagship, 2 epochs of {steps} steps: sharded runner "
+              f"losses {[h['loss'] for h in runs['dp world 1'][0]]}, "
+              f"one-device {[h['loss'] for h in runs['one device'][0]]}; "
+              f"params bit-equal {equal} (max |d| {worst:.3e})")
+        check(runs["dp world 1"][0] == runs["one device"][0] and equal,
+              "the world-1 sharded epochs differ from the one-device ones")
+        params = trained_params_of(runs["dp world 1"][2])
+        n_params = sum(p.numel() for p in params)
+        size_mb = n_params * 4 / 1e6
+
+        # host time a step, interleaved, and the all-reduce's device time
+        epoch_runners = {
+            name: make_epoch_runner(runs[name][3], BATCH,
+                                    mesh=None if name == "one device"
+                                    else mesh)
+            for name in runs}
+        interleaved_ms({name: (lambda k, r=r: r(
+            x, y, torch.Generator(device=dev).manual_seed(400 + k)))
+            for name, r in epoch_runners.items()}, steps, card)
+        allreduce_window(f"flagship ({n_params:,} parameters)", params,
+                         mesh, size_mb)
+
+        # the sharded online trainer against the one-device one, 2
+        # epoch-equivalents, its render launches counted
+        online_steps = train_split_size(N_SAMPLES) // BATCH
+        got = {}
+        for name, m in (("one device", None), ("dp world 1", mesh)):
+            model, _ = build_pendulum_model(FLAGSHIP, device=dev, seed=0)
+            if m is not None:
+                replicate(m, model)
+            run = make_online_run_from_loss(
+                make_supervised_loss_fn(model, BETA, LAM),
+                make_optimizer(model, LR),
+                pendulum_batch_fn(BATCH, 64, device=dev), online_steps,
+                seed=1, device=dev, mesh=m,
+                local_bs=BATCH if m is not None else 0)
+            renderer_cuda.launches = 0
+            hist = []
+            for e in range(2):
+                avg = Averager(m)
+                avg.add(run(e * online_steps))
+                hist.append(avg.result())
+            torch.cuda.synchronize()
+            key = "dp online" if m is not None else "dp online one-device"
+            path_launches[key] = renderer_cuda.launches
+            got[name] = (hist, export_params(model))
+        equal, worst = same(got["one device"][1], got["dp world 1"][1])
+        print(f"dp online, 2 epoch-equivalents of {online_steps} steps: "
+              f"losses {[h['loss'] for h in got['dp world 1'][0]]}; params "
+              f"bit-equal to the one-device trainer's {equal} (max |d| "
+              f"{worst:.3e}); render launches {path_launches['dp online']}")
+        check(got["dp world 1"][0] == got["one device"][0] and equal,
+              "the world-1 sharded online trainer differs from the "
+              "one-device one")
+        check(path_launches["dp online"] >= 2 * online_steps,
+              "the sharded online trainer launched the render kernel "
+              f"{path_launches['dp online']} times")
+
+        # one CelebA epoch at celeba_main's defaults through the sharded
+        # trainer with sn_refresh, against the one-device trainer
+        config = vars(celeba_args([]))
+        cx, cy = (torch.as_tensor(a, device=dev) for a in synthetic_celeba(
+            64, config["img_size"], seed=config["seed"]))
+        torch.backends.cudnn.deterministic = True
+        celeba_runs = {}
+        for name, m in (("one device", None), ("dp world 1", mesh)):
+            model = build_celeba_model(config, device=dev, seed=0)
+            if m is not None:
+                replicate(m, model)
+            step = make_celeba_step(model, make_optimizer(model, CELEBA_LR),
+                                    CELEBA_BETA, CELEBA_LAM, mesh=m)
+            hist = run_epochs(step, cx, cy, seed=1, epochs=1,
+                              batch_size=CELEBA_BATCH, mesh=m,
+                              post_update=lambda model=model:
+                              sn_refresh(model))
+            celeba_runs[name] = (hist, export_params(model), model)
+        torch.backends.cudnn.deterministic = False
+        equal, worst = same(celeba_runs["one device"][1],
+                            celeba_runs["dp world 1"][1])
+        hist = celeba_runs["dp world 1"][0]
+        print(f"dp CelebA at the defaults, one epoch of {CELEBA_STEPS} "
+              f"steps with sn_refresh: loss {hist[0]['loss']:.4f}; params "
+              f"bit-equal to the one-device trainer's {equal} (max |d| "
+              f"{worst:.3e}; cuDNN deterministic) [{card}]")
+        check(all(math.isfinite(v) for v in hist[0].values()),
+              f"CelebA sharded epoch metrics {hist[0]}")
+        check(hist == celeba_runs["one device"][0] and equal,
+              "the world-1 sharded CelebA epoch differs from the one-device "
+              "one")
+        cparams = trained_params_of(celeba_runs["dp world 1"][2])
+        c_n = sum(p.numel() for p in cparams)
+        allreduce_window(f"CelebA ({c_n:,} parameters)", cparams, mesh,
+                         c_n * 4 / 1e6)
+        del celeba_runs, cparams, cx, cy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI: --dp 1 and, on one card, --dp 0 run on one device in this
+    # process (their render launches counted here); --dp 2 is refused
+    renderer_cuda.launches = 0
+    for args in (["--dp", "1"], ["--dp", "0"], ["--dp", "1", "--online"]):
+        run_dir = work / f"dp_cli_{'_'.join(a.strip('-') for a in args)}"
+        said, _, wall = run_cli(["--n_samples", "1000", "--epochs", "1",
+                                 "--assets_dir", str(run_dir), *args])
+        check("[dp] training" not in said and "[epoch 001]" in said
+              and (run_dir / "model_CDGVAE_linear" / "state.pkl").is_file(),
+              f"cli.main {' '.join(args)} did not train on one device")
+        print(f"cli.main {' '.join(args)}: one device, 1 epoch in "
+              f"{wall:.3f} s (host clock) [{card}]")
+    path_launches["dp cli"] = renderer_cuda.launches
+    check(path_launches["dp cli"] > 0, "the --dp CLI runs rendered nothing")
+    try:
+        run_cli(["--n_samples", "1000", "--epochs", "1", "--dp", "2",
+                 "--assets_dir", str(work / "dp_cli_2")])
+        refused = ""
+    except SystemExit as e:
+        refused = str(e.code)
+    print(f"cli.main --dp 2 on {torch.cuda.device_count()} card: {refused}")
+    check("2-device mesh" in refused and not (work / "dp_cli_2"
+                                              ).exists(),
+          "cli.main --dp 2 was not refused by the device count")
+
+    # mesh serving of phase 8's checkpoint against plain serving
+    plain = LoadedModel.load(str(ckpt), device=dev)
+    meshed = LoadedModel.load(str(ckpt), mesh=make_mesh(1, "cuda"))
+    xs = dataset.x_data[:BATCH].cpu().numpy()
+    eps = np.random.default_rng(3).standard_normal((BATCH, 4)).astype(
+        np.float32)
+    worst = 0.0
+    for call in (lambda m: m.encode(xs), lambda m: m.reconstruct(xs),
+                 lambda m: m.counterfactual(xs, 2, 0.5),
+                 lambda m: m.generate(eps)):
+        worst = max(worst, float(np.abs(call(meshed) - call(plain)).max()))
+    print(f"mesh serving (make_mesh(1, 'cuda')) against plain serving: max "
+          f"|d| {worst}")
+    check(worst == 0.0, "mesh serving differs from plain serving")
+
+    # the multi-rank dry run on every card of this machine
+    renderer_cuda.launches = 0
+    dryrun_multichip(torch.cuda.device_count(), "cuda")
+    torch.cuda.synchronize()
+    path_launches["dp dryrun"] = renderer_cuda.launches
+    launches = sum(v for k, v in path_launches.items()
+                   if k.startswith("dp "))
+    print(f"phase 19 (data parallel, NCCL world 1): "
+          f"{time.perf_counter() - t0:.1f} s (host clock); launches "
+          f"{{'render': {launches}}} [{card}]")
+
+
+def trained_params_of(model) -> list:
+    return [p for p in model.parameters() if p.requires_grad]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2295,8 +2568,12 @@ def main() -> int:
           f"render kernel {path_launches['celeba']} times")
     print(f"phase 18 (CelebA): {time.perf_counter() - t0:.1f} s (host "
           f"clock); launches {{'render': 0}} [{card}]")
+
+    # 19. data parallelism in a world-1 NCCL group
+    data_parallel(work=work, card=card, dev=dev, dataset=dataset, ckpt=ckpt,
+                  path_launches=path_launches)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

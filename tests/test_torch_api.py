@@ -164,6 +164,8 @@ def test_tabular_checkpoint_serves(tmp_path):
 
 
 def test_mesh_serving_raises(tmp_path):
+    # mesh serving is ported (tests/test_torch_parallel_cli.py); what is
+    # not a mesh is refused by name
     ckpt, _, _ = _checkpoint(tmp_path, CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+    with pytest.raises(TypeError, match="not a mesh"):
         LoadedModel.load(ckpt, device="cpu", mesh=object())

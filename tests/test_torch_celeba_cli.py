@@ -207,8 +207,12 @@ def test_needs_cuda_unless_asked_for_the_cpu(tmp_path):
         celeba_main.main(["--img_size", str(SIZE), "--conv_dim", str(CONV),
                           "--epochs", "1", "--assets_dir",
                           str(tmp_path / "x")])
-    with pytest.raises(SystemExit):
-        celeba_main.main(SMALL + ["--dp", "2"])
+    # --dp is ported: on the GPU, more ranks than visible GPUs are refused
+    # with the device count
+    with pytest.raises(SystemExit, match="2-device mesh"):
+        celeba_main.main(["--img_size", str(SIZE), "--conv_dim", str(CONV),
+                          "--dp", "2", "--assets_dir",
+                          str(tmp_path / "y")])
 
 
 # ----------------------------------------------------------------- serving

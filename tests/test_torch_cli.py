@@ -171,7 +171,10 @@ def test_online_loss_falls(tmp_path):
     # contradicts the --device cpu of SMALL, are refused
     pytest.param(["--platform", "tpu"], "--platform tpu is not supported",
                  id="args3-item 15"),
-    (["--dp", "2"], "item 14"),
+    # --dp is ported (tests/test_torch_parallel_cli.py): a rank count that
+    # does not divide the batch is refused before any rank starts
+    pytest.param(["--dp", "3", "--batch_size", "8"],
+                 "batch_size 8 not divisible by dp=3", id="args4-item 14"),
     pytest.param(["--profile", "trace", "--platform", "gpu"],
                  "--platform gpu contradicts --device cpu",
                  id="args5-item 15"),

@@ -240,9 +240,13 @@ def test_cli_without_gpu_exits_nonzero():
 
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
-    proc = _cli("--device", "cpu", "--dp", "2")
+    # --dp is ported: on the GPU, more ranks than visible GPUs (2 where
+    # there is none) are refused with the device count, and no rank starts
+    n = max(2, torch.cuda.device_count() + 1)
+    proc = _cli("--dp", str(n), "--batch_size", str(8 * n))
     assert proc.returncode != 0 and "[epoch" not in proc.stdout
-    assert "ROADMAP Queue 1 item" in proc.stderr
+    assert "[dp] training" not in proc.stdout
+    assert f"{n}-device mesh" in proc.stderr
     # --data_dir is ported: a tree written by cli.generate_data trains
     tree = tmp_path / "tree"
     gen = subprocess.run(

@@ -25,10 +25,12 @@ the alignment loss alone. ``--bf16`` runs the network in bfloat16 with
 float32 losses and optimizer. The CelebA entry points compute in float32:
 TF32 is off for matmuls and for cuDNN convolutions.
 
-Flags that select nothing here, accepted and recorded in the config:
-``--packed_params`` (the JAX package's flat-buffer layout for the TPU's
-per-leaf transfers; the checkpoint layout is the same either way) and
-``--chunk`` (epochs a TPU dispatch; the port syncs once an epoch).
+``--packed_params`` (true by default, as in the JAX package) trains in
+the packed layout (``ops/packing.py``): the small trained parameters are
+views of one flat buffer per dtype, which Adam steps, and in bfloat16 each
+buffer is cast once a step; the checkpoint is the same either way, so
+either setting resumes the other. ``--chunk`` (epochs a TPU dispatch; the
+port syncs once an epoch) is accepted and recorded, and selects nothing.
 ``--dp N`` trains on N ranks (``cli/common.py``), ``sn_refresh`` after
 every step on each: the epoch trainer normalises each rank's batch with
 its own BatchNorm statistics, as the JAX package's sharded trainer does,
@@ -48,6 +50,7 @@ from ..data.celeba import CelebADataset
 from ..factory import build_celeba_model
 from ..models.celeba import is_stacked, stack_decoder, unstack_decoder
 from ..models.sagan import sn_refresh
+from ..ops.packing import Packer
 from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.celeba_steps import make_celeba_step
 from ..train.loop import format_epoch, run_epochs, train_epoch
@@ -107,10 +110,10 @@ def get_args(argv=None):
                              "the reference objective; 0 = the reference "
                              "protocol")
     parser.add_argument("--packed_params", default=True, type=arg_as_bool,
-                        help="accepted and recorded; selects nothing here "
-                             "(the JAX package's flat-buffer layout for "
-                             "the TPU's per-leaf transfers; checkpoints "
-                             "are the same either way)")
+                        help="train the small parameters as views of one "
+                             "flat buffer per dtype, which Adam steps "
+                             "(false: one tensor each); checkpoints are "
+                             "the same either way")
     parser.add_argument("--bf16", action="store_true",
                         help="run the network in bfloat16 (parameters, "
                              "losses and optimizer stay float32)")
@@ -169,7 +172,8 @@ def train(config: dict, mesh=None):
         if main_rank:
             print("imported torchvision trunk from "
                   f"{config['torch_weights']}")
-    optimizer = make_optimizer(model, config["lr"])
+    packer = Packer(model) if config["packed_params"] else None
+    optimizer = make_optimizer(model, config["lr"], packer=packer)
     stacked = config["stacked_decoder"]
 
     def canonical(ck):

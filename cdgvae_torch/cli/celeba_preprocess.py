@@ -1,0 +1,48 @@
+"""CelebAMask-HQ preprocessing entry point (port of ``cdgvae_tpu/cli/
+celeba_preprocess.py``, the same flags plus ``--device``): convert the
+raw corpus into per-sample [H, W, 3+5] npy files and labels
+(``data/celeba.py::preprocess``), decoding on the card unless ``--device
+cpu`` is given.
+
+Usage: python -m cdgvae_torch.cli.celeba_preprocess --base_dir
+./CelebAMask-HQ --out_dir ./data [--causal_structure attractive]
+[--img_size 64] [--test] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+
+from ..data.celeba import preprocess
+from .common import add_device_arg
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser("parameters")
+    parser.add_argument("--base_dir", type=str, default="./CelebAMask-HQ",
+                        help="directory with CelebA-HQ-img/, "
+                             "CelebAMask-HQ-mask-anno/, attribute anno txt")
+    parser.add_argument("--out_dir", type=str, default="./data")
+    parser.add_argument("--causal_structure", type=str, default="smile",
+                        help="smile or attractive")
+    parser.add_argument("--img_size", type=int, default=128)
+    parser.add_argument("--test", action="store_true",
+                        help="write the test split instead of train")
+    add_device_arg(parser)
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = get_args(argv)
+    s = preprocess(args.base_dir, args.out_dir, args.causal_structure,
+                   args.img_size, train=not args.test,
+                   device=args.device)
+    wall = s["host"] + s["device"] + s["write"]
+    print(f"preprocessed {s['files']} {'test' if args.test else 'train'} "
+          f"images at {args.img_size} px in {wall:.3f} s: host decode "
+          f"{s['host']:.3f} s, device {s['device']:.3f} s, writes "
+          f"{s['write']:.3f} s; {s['files'] / max(wall, 1e-9):.2f} files/s")
+    return s
+
+
+if __name__ == "__main__":
+    main()

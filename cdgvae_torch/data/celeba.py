@@ -1,6 +1,13 @@
-"""CelebA(Mask-HQ) data: the npy-directory dataset and its synthetic
-fallback (port of ``cdgvae_tpu/data/celeba.py:109-207``, numpy).
+"""CelebA(Mask-HQ) data: the raw corpus's preprocessing, the npy-directory
+dataset and its synthetic fallback (port of ``cdgvae_tpu/data/
+celeba.py``).
 
+* :func:`preprocess` converts CelebAMask-HQ (JPEG images, part-mask PNGs,
+  the attribute table) into the npy files below, byte for byte as the JAX
+  package's ``preprocess`` writes them with OpenCV and pandas: the port's
+  own JPEG and PNG decoders on the host (``data/jpeg.py``, ``data/
+  png_io.py``), the IDCT, upsampling, colour conversion and OpenCV's
+  bilinear resize (``data/cv_resize.py``) on the device.
 * :class:`CelebADataset` loads the reference CelebALoader's layout,
   ``<data_dir>/{train,test}/{smile,attractive}/<i>.npy`` ([H, W, 3+5]
   float: RGB in [0, 1] and five part masks) and ``<data_dir>/{train,test}/
@@ -9,18 +16,156 @@ fallback (port of ``cdgvae_tpu/data/celeba.py:109-207``, numpy).
 * :func:`synthetic_celeba` is a bit-for-bit copy of the JAX package's,
   draw order included: face-like scenes whose six attributes are visible
   in pixels, with the five part masks.
-
-The preprocessing of the raw CelebAMask-HQ corpus (JPEGs and annotation
-tables) is not ported.
 """
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..models.celeba import ATTRACTIVE_NODES, SMILE_NODES
+from ..utils.device import resolve_device
+from .cv_resize import resize_linear
+from .jpeg import jpeg_pixels, read_jpeg_file
+from .png_io import read_png_bgr
+
+SMILE_SEG_MAP = [
+    ["skin"],                                          # High_Cheekbones
+    ["mouth", "u_lip", "l_lip"],                       # Mouth_Slightly_Open
+    ["skin", "nose", "neck", "neck_l"],                # Chubby
+    ["l_brow", "r_brow", "l_eye", "r_eye", "eye_g"],   # Narrow_Eyes
+    ["l_ear", "r_ear", "ear_r", "cloth", "hair", "hat"],  # etc
+]
+ATTRACTIVE_SEG_MAP = [
+    ["l_eye", "r_eye", "eye_g"],                       # Bags_Under_Eyes
+    ["skin", "nose", "neck", "neck_l"],                # Chubby
+    ["l_brow", "r_brow", "l_eye", "r_eye", "eye_g", "u_lip", "l_lip"],
+    ["hair", "hat"],                                   # Receding_Hairline
+    ["mouth", "l_ear", "r_ear", "ear_r", "cloth", "hair", "hat"],
+]
+# uint8 level / 255.0 in float64, as numpy divides
+_LEVELS = np.arange(256) / 255.0
+# files decoded and resized in one batch: bounds the device memory a batch
+# holds (16 images at 1024 px and their part masks)
+_CHUNK = 16
+
+
+def _split(base_dir: str, train: bool) -> list:
+    """The split's image file names, sorted: partition 0 (train) or 2
+    (test) of ``list_eval_partition.txt``, matched through
+    ``lstrip('0')``; without that file, image index mod 5 == 4 is test."""
+    names = sorted(x for x in os.listdir(base_dir + "/CelebA-HQ-img")
+                   if x != ".DS_Store")
+    part_file = os.path.join(base_dir, "list_eval_partition.txt")
+    if not os.path.exists(part_file):
+        return [x for x in names if (int(x.split(".")[0]) % 5 == 4) != train]
+    want = 0 if train else 2
+    keep = set()
+    with open(part_file) as f:
+        for line in f:
+            fields = line.split()
+            if fields and int(fields[1]) == want:
+                keep.add(fields[0].lstrip("0"))
+    return [x for x in names if x in keep]
+
+
+def _labels(base_dir: str, nodes: list) -> dict:
+    """file name -> its ``nodes`` attributes as float32 [len(nodes)], -1
+    mapped to 0."""
+    with open(base_dir + "/CelebAMask-HQ-attribute-anno.txt") as f:
+        lines = f.readlines()
+    columns = lines[1].split()
+    cols = [1 + columns.index(n) for n in nodes]
+    out = {}
+    for line in lines[2:]:
+        fields = line.split()
+        if fields:
+            out[fields[0]] = np.array(
+                [0.0 if float(fields[c]) == -1 else float(fields[c])
+                 for c in cols], dtype=np.float32)
+    return out
+
+
+def _resized(images: list, size: int) -> torch.Tensor:
+    """uint8 [n, size, size, 3] of BGR images [h, w, 3] (tensors of one
+    device, any sizes), each resized as ``cv2.resize`` does."""
+    out = torch.empty((len(images), size, size, 3), dtype=torch.uint8,
+                      device=images[0].device)
+    groups: dict = {}
+    for i, img in enumerate(images):
+        groups.setdefault(tuple(img.shape), []).append(i)
+    for idx in groups.values():
+        out[idx] = resize_linear(torch.stack([images[i] for i in idx]),
+                                 size, size)
+    return out
+
+
+def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
+               img_size: int = 128, train: bool = True,
+               device: str | torch.device = "cuda") -> dict:
+    """CelebAMask-HQ under ``base_dir`` -> ``{out_dir}/{train|test}/
+    {causal_structure}/{idx}.npy`` (float64 [S, S, 8]: RGB / 255 and the
+    structure's five part-mask groups, 1 where any part is nonzero) and
+    ``{out_dir}/{train|test}/label/{idx}.npy`` (float32 [6]), the files
+    the JAX package writes, :data:`_CHUNK` files at a time.
+    Returns the seconds spent: ``host`` (reading and entropy-decoding the
+    files), ``device`` (pixels and resizes, until their copy to the host
+    returns) and ``write``, with ``files``."""
+    device = resolve_device(device)
+    nodes = list(SMILE_NODES if causal_structure == "smile"
+                 else ATTRACTIVE_NODES)
+    seg_map = (SMILE_SEG_MAP if causal_structure == "smile"
+               else ATTRACTIVE_SEG_MAP)
+    img_list = _split(base_dir, train)
+    labels = _labels(base_dir, nodes)
+    tag = "train" if train else "test"
+    img_out = os.path.join(out_dir, tag, causal_structure)
+    lab_out = os.path.join(out_dir, tag, "label")
+    os.makedirs(img_out, exist_ok=True)
+    os.makedirs(lab_out, exist_ok=True)
+    seconds = {"files": len(img_list), "host": 0.0, "device": 0.0,
+               "write": 0.0}
+    for at in range(0, len(img_list), _CHUNK):
+        names = img_list[at:at + _CHUNK]
+        t0 = time.perf_counter()
+        idxs = [int(x.split(".")[0]) for x in names]
+        jpegs = [read_jpeg_file(base_dir + "/CelebA-HQ-img/" + x)
+                 for x in names]
+        # each image's groups of existing part files, each part read once
+        groups, paths = [], {}
+        for idx in idxs:
+            d = f"{base_dir}/CelebAMask-HQ-mask-anno/{idx // 2000}/"
+            per = []
+            for seg in seg_map:
+                files = [d + f"{idx:05d}_{a}.png" for a in seg]
+                per.append([paths.setdefault(f, len(paths)) for f in files
+                            if os.path.exists(f)])
+            groups.append(per)
+        masks = read_png_bgr(list(paths)) if paths else []
+        t1 = time.perf_counter()
+        imgs = _resized(jpeg_pixels(jpegs, device), img_size).cpu().numpy()
+        if masks:
+            parts = _resized([torch.as_tensor(m, device=device)
+                              for m in masks], img_size)
+            # a group is 1 where the channel sum of its parts is nonzero
+            nonzero = (parts != 0).any(dim=-1).cpu().numpy()
+        t2 = time.perf_counter()
+        for k, (name, idx) in enumerate(zip(names, idxs)):
+            seg_imgs = [nonzero[g].any(axis=0)[..., None].astype(np.float64)
+                        if g else np.zeros((img_size, img_size, 1))
+                        for g in groups[k]]
+            img = _LEVELS[imgs[k]][:, :, ::-1]
+            concat = np.concatenate([img] + seg_imgs, axis=-1)
+            np.save(os.path.join(img_out, str(idx)), concat)
+            np.save(os.path.join(lab_out, str(idx)), labels[name])
+        t3 = time.perf_counter()
+        seconds["host"] += t1 - t0
+        seconds["device"] += t2 - t1
+        seconds["write"] += t3 - t2
+    return seconds
 
 
 def synthetic_celeba(n: int = 64, img_size: int = 128, seed: int = 0):

@@ -16,6 +16,9 @@ its labels in the file name rounded to 4 decimals.
   -0.5, 22-bit fixed-point weights, the horizontal pass first, integer
   arithmetic, so every device gives Pillow's bytes), and the images are
   normalised by ``(x - 127.5) / 127.5``.
+* :func:`read_png_bgr` reads 8-bit greyscale, RGB and RGBA files as
+  ``cv2.imread(path, IMREAD_COLOR)`` does: BGR, grey replicated to three
+  channels, alpha dropped (the CelebAMask-HQ part masks).
 
 File names are sorted, as the JAX package sorts them (the reference's
 ``os.listdir`` order is filesystem-dependent); the order matters only for
@@ -35,10 +38,12 @@ from ..utils.device import resolve_device
 from ..utils.viz import write_png
 
 __all__ = ["save_png_dataset", "load_png_dataset", "sample_filename",
-           "decode_pngs", "resize_bicubic"]
+           "decode_pngs", "read_png_bgr", "resize_bicubic"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}  # PNG colour type -> samples a pixel (RGB, RGBA)
+# PNG colour type -> samples a pixel (grey, RGB, RGBA); grey only where
+# the caller asks for it
+_CHANNELS = {0: 1, 2: 3, 6: 4}
 _COLOUR_NAMES = {0: "greyscale", 3: "palette", 4: "greyscale with alpha"}
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point weights
 # (v - 127.5) / 127.5 of each uint8 level in float32, as numpy computes it.
@@ -102,8 +107,10 @@ def save_png_dataset(root: str, factors: np.ndarray, is_test: np.ndarray,
     return counts[0], counts[1]
 
 
-def _read_png(path: str) -> tuple[tuple[int, int, int], bytes]:
-    """One file's ((height, width, channels), inflated scanlines)."""
+def _read_png(path: str, grey: bool = False
+              ) -> tuple[tuple[int, int, int], bytes]:
+    """One file's ((height, width, channels), inflated scanlines); 8-bit
+    greyscale only with ``grey``."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:8] != _SIGNATURE:
@@ -122,10 +129,11 @@ def _read_png(path: str) -> tuple[tuple[int, int, int], bytes]:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, colour, _, _, interlace = header
-    if colour not in _CHANNELS:
+    if colour not in _CHANNELS or (colour == 0 and not grey):
         raise ValueError(f"{path}: colour type {colour} "
                          f"({_COLOUR_NAMES.get(colour, 'unknown')}) is not "
-                         "supported; only 8-bit RGB (2) and RGBA (6)")
+                         "supported; only 8-bit RGB (2) and RGBA (6)"
+                         + (" and greyscale (0)" if grey else ""))
     if depth != 8:
         raise ValueError(f"{path}: bit depth {depth} is not supported; "
                          "only 8")
@@ -193,13 +201,13 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_pngs(paths: list[str]) -> list[np.ndarray]:
-    """Decode 8-bit RGB or RGBA PNGs (non-interlaced) to [h, w, channels]
-    uint8 arrays, in ``paths`` order. Files of one shape are unfiltered
-    together. The files are read and inflated one after another: for
-    files of a few kilobytes, threads contend for the interpreter lock
-    and read slower."""
-    files = [_read_png(p) for p in paths]
+def decode_pngs(paths: list[str], grey: bool = False) -> list[np.ndarray]:
+    """Decode 8-bit RGB or RGBA PNGs (non-interlaced), and with ``grey``
+    8-bit greyscale ones, to [h, w, channels] uint8 arrays, in ``paths``
+    order. Files of one shape are unfiltered together. The files are read
+    and inflated one after another: for files of a few kilobytes, threads
+    contend for the interpreter lock and read slower."""
+    files = [_read_png(p, grey) for p in paths]
     groups: dict[tuple, list[int]] = {}
     for i, (shape, _) in enumerate(files):
         groups.setdefault(shape, []).append(i)
@@ -217,6 +225,18 @@ def decode_pngs(paths: list[str]) -> list[np.ndarray]:
         for k, i in enumerate(idx):
             images[i] = pixels[k]
     return images
+
+
+def read_png_bgr(paths: list[str]) -> list[np.ndarray]:
+    """``cv2.imread(path, IMREAD_COLOR)`` of 8-bit greyscale, RGB or RGBA
+    PNGs: BGR uint8 [h, w, 3] arrays, grey replicated, alpha dropped."""
+    out = []
+    for img in decode_pngs(paths, grey=True):
+        if img.shape[-1] == 1:
+            out.append(np.repeat(img, 3, axis=-1))
+        else:
+            out.append(np.ascontiguousarray(img[..., 2::-1]))
+    return out
 
 
 def _bicubic(x: np.ndarray) -> np.ndarray:

@@ -184,7 +184,7 @@ def all_reduce_mean(tensors, mesh: Mesh) -> None:
 
 
 class GradBuffer:
-    """The gradients of ``params`` (float32, one device) held as views of
+    """The gradients of ``params`` (one dtype, one device) held as views of
     one flat buffer, as DDP's ``gradient_as_bucket_view`` holds them:
     backward accumulates into them in place, so the gradient mean over the
     mesh is one ``all_reduce`` of the buffer, with nothing gathered into it
@@ -192,13 +192,16 @@ class GradBuffer:
     would call ``optimizer.zero_grad`` (which would unbind the views) and
     :meth:`mean` between backward and the optimizer step. Every gradient
     is defined from the start: a parameter the loss does not reach steps
-    with a zero gradient."""
+    with a zero gradient. Without a ``mesh`` it is the one gradient
+    buffer of a packed layout's step (``ops/packing.py``), and
+    :meth:`mean` leaves it as it is."""
 
-    def __init__(self, params, mesh: Mesh):
+    def __init__(self, params, mesh: Mesh | None):
         params = list(params)
         self.mesh = mesh
         self.flat = torch.zeros(sum(p.numel() for p in params),
-                                dtype=torch.float32, device=params[0].device)
+                                dtype=params[0].dtype,
+                                device=params[0].device)
         offset = 0
         for p in params:
             p.grad = self.flat[offset:offset + p.numel()].view_as(p)
@@ -208,6 +211,8 @@ class GradBuffer:
         self.flat.zero_()
 
     def mean(self) -> None:
+        if self.mesh is None:
+            return
         dist.all_reduce(self.flat, group=self.mesh.group)
         self.flat.div_(self.mesh.size)
 

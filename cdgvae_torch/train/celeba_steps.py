@@ -16,6 +16,12 @@ After each optimizer step ``models.sagan.sn_refresh`` advances every
 spectral-norm site one power iteration; the epoch drivers run it as
 their ``post_update``.
 
+An optimizer built over the packed layout (``ops/packing.py``; its
+``packer``) runs the module on the packer's views of its flat buffers
+(``Packer.unpack``, whose backward is one ``cat`` a buffer), in bfloat16
+casting each buffer once before cutting it; the gradients live in one
+flat buffer (``parallel.mesh.GradBuffer``), zeroed in place each step.
+
 Under a mesh the step averages the gradients over the ranks. The JAX
 package's two mesh paths differ in their BatchNorm statistics: the
 sharded epoch trainer (``shard_map``) normalises each shard with its own,
@@ -33,16 +39,25 @@ from torch.func import functional_call
 from ..nn import global_batch_stats
 from ..ops import losses
 from ..parallel.mesh import GradBuffer
+from .steps import trained_params
 
 
-def _cast_forward(model, x, dtype, noise, generator):
-    """The model's forward on ``dtype`` copies of its floating leaves and
-    of ``x``, the outputs upcast to float32."""
-    leaves = {name: t.to(dtype) if t.is_floating_point() else t
-              for name, t in (*model.named_parameters(),
-                              *model.named_buffers())}
-    out = functional_call(model, leaves, (x.to(dtype),),
-                          {"noise": noise, "generator": generator})
+def _forward(model, x, dtype, packer, noise, generator):
+    """The model's forward: on ``dtype`` copies of its floating leaves and
+    of ``x`` (the outputs upcast to float32) when ``dtype`` is given, and
+    with a ``packer`` on the views of its flat buffers (cast once each)."""
+    draws = {"noise": noise, "generator": generator}
+    if dtype is None and packer is None:
+        return model(x, **draws)
+    leaves = packer.unpack(dtype=dtype) if packer is not None else {}
+    if dtype is not None:
+        for name, t in (*model.named_parameters(), *model.named_buffers()):
+            if name not in leaves:
+                leaves[name] = t.to(dtype) if t.is_floating_point() else t
+        x = x.to(dtype)
+    out = functional_call(model, leaves, (x,), draws)
+    if dtype is None:
+        return out
     up = [tuple(s.float() for s in v) if isinstance(v, tuple) else v.float()
           for v in out]
     return type(out)(*up)
@@ -50,16 +65,15 @@ def _cast_forward(model, x, dtype, noise, generator):
 
 def make_celeba_loss_fn(model, beta: float, lam: float,
                         compute_dtype: torch.dtype | None = None,
-                        align_only: bool = False) -> Callable:
+                        align_only: bool = False, packer=None) -> Callable:
     """``loss_fn(x, y, noise=None, generator=None) -> (loss, metrics)``,
-    metrics ``loss, recon, KL, alignment, active`` as device scalars."""
+    metrics ``loss, recon, KL, alignment, active`` as device scalars;
+    with a ``packer`` the small parameters are read through its flat
+    buffers."""
     node, latent_dim = model.node, model.latent_dim
 
     def loss_fn(x, y, noise=None, generator=None):
-        if compute_dtype is not None:
-            out = _cast_forward(model, x, compute_dtype, noise, generator)
-        else:
-            out = model(x, noise=noise, generator=generator)
+        out = _forward(model, x, compute_dtype, packer, noise, generator)
         recon = losses.l1_recon(out.xhat, x[..., :3] * 2.0 - 1.0)
         # KL2 subtracts node (not latent_dim) in the reference; they agree
         kl1 = losses.kl_std_normal(out.mean1, out.logvar1)
@@ -90,12 +104,24 @@ def make_celeba_step(model, optimizer: torch.optim.Optimizer, beta: float,
     steps with a zero gradient, which leaves it in place and keeps its
     Adam bias correction in step with the others'. ``mesh`` averages the
     gradients over its ranks; ``global_stats`` (under a mesh) normalises
-    with the global batch's statistics (module docstring)."""
+    with the global batch's statistics (module docstring). An optimizer
+    over the packed layout trains it (module docstring): its flat buffers'
+    and big parameters' gradients are one buffer, which under a mesh is
+    also the one the mean runs on.
+
+    Unpacked on one device the gradients stay autograd's own, unbound
+    each step: autograd hands a parameter the gradient it computed, where
+    a view of one buffer takes one more kernel to accumulate it. At
+    ``celeba_main``'s defaults that buffer cost 284 more kernels a step
+    and 0.5-0.8 ms more device time, f32 and bf16, on an NVIDIA H100 80GB
+    HBM3 at 700 W (``chip_smoke.py``'s phase 20 with and without it)."""
+    packer = getattr(optimizer, "packer", None)
     loss_fn = make_celeba_loss_fn(model, beta, lam, compute_dtype,
-                                  align_only)
-    trained = [p for p in model.parameters() if p.requires_grad]
+                                  align_only, packer=packer)
+    trained = [p for p in trained_params(optimizer) if p.requires_grad]
     stats_mesh = mesh if global_stats else None
-    grads = GradBuffer(trained, mesh) if mesh is not None else None
+    grads = GradBuffer(trained, mesh) \
+        if mesh is not None or packer is not None else None
 
     def step(*batch, **draws):
         with global_batch_stats(stats_mesh):
@@ -115,4 +141,3 @@ def make_celeba_step(model, optimizer: torch.optim.Optimizer, beta: float,
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
-

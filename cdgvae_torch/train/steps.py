@@ -32,17 +32,24 @@ def _metrics(loss, recon, kl, align, logvar, node, extra=None) -> dict:
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,
-                   capturable: bool = False,
-                   weight_decay: float = 0.0) -> torch.optim.Adam:
+                   capturable: bool = False, weight_decay: float = 0.0,
+                   packer=None) -> torch.optim.Adam:
     """Adam with optax.adam's defaults, whose update is algebraically the
     same: b1 0.9, b2 0.999, eps 1e-8 added outside the square root.
     ``capturable=True`` keeps its step counts on the device, so that a CUDA
     graph can hold the update. ``weight_decay`` adds ``wd * param`` to the
     gradient before the moments, as ``optax.chain(add_decayed_weights(wd),
-    scale_by_adam(), scale(-lr))`` does."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8, capturable=capturable,
-                            weight_decay=weight_decay)
+    scale_by_adam(), scale(-lr))`` does. With a ``packer``
+    (``ops.packing.Packer`` of ``model``) it steps the packer's flat
+    buffers and big parameters instead of ``model.parameters()``, and
+    keeps the packer as its ``packer`` attribute, which the train steps
+    and ``utils/interop.py`` read."""
+    params = model.parameters() if packer is None else packer.params()
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                 eps=1e-8, capturable=capturable,
+                                 weight_decay=weight_decay)
+    optimizer.packer = packer
+    return optimizer
 
 
 def trained_params(optimizer) -> list:

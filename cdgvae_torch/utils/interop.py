@@ -18,6 +18,11 @@ EmptyState())``. ``torch.optim.Adam`` keeps ``step``, ``exp_avg`` and
 ``count -> step`` of every parameter. The namedtuples below stand in for
 the optax classes (the port does not import optax); ``utils/
 checkpoint.py`` pickles them under optax's names.
+
+An optimizer built over the packed layout (``ops/packing.py``; its
+``packer`` attribute) steps one flat buffer per dtype: a small leaf's
+moments are its slice of the buffer's, read and written here in the
+canonical per-leaf layout, so a checkpoint does not depend on the layout.
 """
 from __future__ import annotations
 
@@ -106,15 +111,28 @@ def export_params(module: nn.Module, host: bool = True) -> dict:
                   for name, p in _leaves(module).items()})
 
 
+def _layout(optimizer: torch.optim.Optimizer, module: nn.Module) -> list:
+    """``(optimizer parameter, [(leaf name, shape, numel, offset), ...])``
+    in the order of the optimizer's one param group: each of ``module``'s
+    parameters alone, or under a packer its flat buffers and big
+    parameters."""
+    packer = getattr(optimizer, "packer", None)
+    if packer is not None:
+        return packer.layout()
+    return [(p, [(name, tuple(p.shape), p.numel(), 0)])
+            for name, p in module.named_parameters()]
+
+
 def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
                        opt_tree) -> None:
     """Load optax Adam state, ``(ScaleByAdamState(count, mu, nu),
     EmptyState())`` or the TVAE chain's 3-tuple around it, into
     ``optimizer``, whose one param group holds ``module``'s parameters in
-    ``named_parameters`` order. The next ``optimizer.step()`` then takes
-    the step optax would take. The moments of leaves that never step
-    (buffers, frozen parameters: optax keeps them at zero) are not
-    loaded."""
+    ``named_parameters`` order, or its packer's flat buffers and big
+    parameters (each buffer's moments hold its leaves' moments at their
+    offsets, zero between them). The next ``optimizer.step()`` then takes the step optax
+    would take. The moments of leaves that never step (buffers, frozen
+    parameters: optax keeps them at zero) are not loaded."""
     states = [s for s in opt_tree if hasattr(s, "mu") and hasattr(s, "nu")]
     if len(states) != 1:
         raise TypeError("not an optax Adam state: "
@@ -123,17 +141,22 @@ def load_jax_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
     mu, nu = _flatten(adam.mu), _flatten(adam.nu)
     if set(mu) != set(_leaves(module)) or set(nu) != set(mu):
         raise KeyError("Adam state does not match the module's parameters")
-    named = list(module.named_parameters())
+    layout = _layout(optimizer, module)
     group_params = optimizer.param_groups[0]["params"]
-    if [id(p) for p in group_params] != [id(p) for _, p in named]:
+    if [id(p) for p in group_params] != [id(p) for p, _ in layout]:
         raise ValueError("the optimizer's params are not the module's, in "
-                         "named_parameters order")
+                         "named_parameters order, nor its packer's")
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
-    state = {i: {"step": step.clone(),
-                 "exp_avg": torch.as_tensor(np.array(mu[name], np.float32)),
-                 "exp_avg_sq": torch.as_tensor(np.array(nu[name],
-                                                        np.float32))}
-             for i, (name, p) in enumerate(named) if _steps(p)}
+
+    def moment(tree, p, leaves):
+        flat = torch.zeros(p.numel(), dtype=torch.float32)
+        for name, _, n, offset in leaves:
+            flat[offset:offset + n] = torch.as_tensor(
+                np.array(tree[name], np.float32)).reshape(-1)
+        return flat.view(p.shape)
+    state = {i: {"step": step.clone(), "exp_avg": moment(mu, p, leaves),
+                 "exp_avg_sq": moment(nu, p, leaves)}
+             for i, (p, leaves) in enumerate(layout) if _steps(p)}
     # load_state_dict moves each moment to its param's device and dtype
     optimizer.load_state_dict({
         "state": state,
@@ -145,18 +168,26 @@ def export_opt_state(optimizer: torch.optim.Adam, module: nn.Module,
     """``optimizer``'s Adam state as optax's ``(ScaleByAdamState(count, mu,
     nu), EmptyState())``, or with ``decayed`` as the TVAE chain's
     ``(EmptyState(), ScaleByAdamState(...), EmptyState())``: numpy arrays,
-    or with ``host=False`` tensors on the device. A leaf that has not
+    or with ``host=False`` tensors on the device (a packed leaf's, views
+    of its buffer's moments). A leaf that has not
     stepped (a buffer, a frozen parameter, any parameter before the first
     step) has zero moments, and ``count`` is the one step count of those
     that have, as optax keeps them; 0 before the first step."""
-    mu, nu, steps = {}, {}, set()
-    for name, p in _leaves(module).items():
+    moments, steps = {}, set()
+    for p, leaves in _layout(optimizer, module):
         st = optimizer.state.get(p, {}) if _steps(p) else {}
         if "step" in st:
             steps.add(int(st["step"]))
+        if "exp_avg" in st:
+            m, v = st["exp_avg"].reshape(-1), st["exp_avg_sq"].reshape(-1)
+            for name, shape, n, offset in leaves:
+                moments[name] = (m[offset:offset + n].view(shape),
+                                 v[offset:offset + n].view(shape))
+    mu, nu = {}, {}
+    for name, p in _leaves(module).items():
         zeros = torch.zeros_like(p, dtype=torch.float32)
-        mu[name] = _host(st.get("exp_avg", zeros), host)
-        nu[name] = _host(st.get("exp_avg_sq", zeros), host)
+        m, v = moments.get(name, (zeros, zeros))
+        mu[name], nu[name] = _host(m, host), _host(v, host)
     if len(steps) > 1:
         raise ValueError(f"parameters are at different Adam steps {steps}; "
                          "optax keeps one count")

@@ -117,10 +117,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     ``--dp 0`` and ``--dp 1 --online`` on one device, ``--dp 2`` refused
     by the device count; ``LoadedModel(mesh=make_mesh(1, "cuda"))``
     against plain serving (max |d| 0); ``dryrun_multichip`` over every
-    card.
+    card;
+20. the packed parameter layout (``ops/packing.py``) at
+    ``cli.celeba_main``'s defaults, f32 and bf16: 3 steps packed against
+    unpacked from one init and one draw stream (cuDNN deterministic;
+    params, Adam moments and metrics bit for bit), then host ms a step of
+    the four paths interleaved and 2 profiled steps each (kernels a step,
+    device busy, ``cudaLaunchKernel`` ms); CelebAMask-HQ preprocessing of
+    ``tests/torch_fixtures/celeba_hq/corpus`` through ``python -m
+    cdgvae_torch.cli.celeba_preprocess`` (once in its own process, then
+    in this one) at 128 and 64 px, both structures and both splits, every
+    ``.npy`` file's hash against ``expected.json`` (the JAX package's
+    output), and files a second at 1024 px over copies of the 1024 px
+    face, enough for 15 s of decoding (host decode and device ms a
+    file). Neither path renders: 0
+    launches each.
 
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15 and 19, and 17's and 18's 0) and summed in the ``{"kernels":
+10-15 and 19, and 17's, 18's and 20's 0) and summed in the ``{"kernels":
 [...]}`` JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
@@ -1935,6 +1949,237 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
           f"{{'render': {launches}}} [{card}]")
 
 
+def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
+                           path_launches: dict) -> None:
+    """Phase 20: the packed parameter layout at cli.celeba_main's defaults
+    and CelebAMask-HQ preprocessing on the card (see the module
+    docstring)."""
+    import hashlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cdgvae_torch.cli.celeba_main import get_args
+    from cdgvae_torch.data.celeba import synthetic_celeba
+    from cdgvae_torch.data.jpeg import read_jpeg_file
+    from cdgvae_torch.factory import build_celeba_model
+    from cdgvae_torch.models.sagan import sn_refresh
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.ops.packing import Packer
+    from cdgvae_torch.train.celeba_steps import make_celeba_step
+    from cdgvae_torch.train.scanned import epoch_batches
+    from cdgvae_torch.train.steps import make_optimizer
+    from cdgvae_torch.utils.interop import export_opt_state, export_params
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    t0 = time.perf_counter()
+    renderer_cuda.launches = 0
+    config = vars(get_args([]))  # the defaults, --packed_params true
+    check(config["packed_params"] is True,
+          "celeba_main's --packed_params is not true by default")
+    x_np, y_np = synthetic_celeba(64, config["img_size"], seed=config["seed"])
+    x_all, y_all = (torch.as_tensor(a, device=dev) for a in (x_np, y_np))
+
+    # 3 steps of each layout from one init and one draw stream, cuDNN
+    # deterministic: params, Adam moments and metrics bit for bit
+    steppers = {}
+    for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        torch.backends.cudnn.deterministic = True
+        after = {}
+        for layout in ("packed", "unpacked"):
+            m = build_celeba_model(config, device=dev, seed=0)
+            packer = Packer(m) if layout == "packed" else None
+            opt = make_optimizer(m, CELEBA_LR, packer=packer)
+            step = make_celeba_step(m, opt, CELEBA_BETA, CELEBA_LAM,
+                                    compute_dtype=dtype)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            hist = []
+            for idx in epoch_batches(64, CELEBA_BATCH, gen)[:3]:
+                out = step(x_all[idx], y_all[idx], generator=gen)
+                sn_refresh(m)
+                hist.append({k: v.item() for k, v in out.items()})
+            adam = export_opt_state(opt, m)[0]
+            after[layout] = (hist, dict(flat(export_params(m))),
+                             dict(flat({"mu": adam.mu, "nu": adam.nu})))
+            steppers[f"{dname} {layout}"] = (m, step)
+            if packer is not None:
+                tensors = (f"{packer.n_small} small leaves in "
+                           f"{len(packer.flats)} buffer of "
+                           f"{sum(f.numel() for f in packer.flats.values()):,}"
+                           f" elements, {packer.n_big} big: "
+                           f"{len(opt.param_groups[0]['params'])} tensors")
+            else:
+                tensors = f"{len(opt.param_groups[0]['params'])} tensors"
+            print(f"CelebA {dname} {layout}: Adam steps {tensors}")
+        torch.backends.cudnn.deterministic = False
+        a, b = after["packed"], after["unpacked"]
+        equal = a[0] == b[0] and all(
+            a[k].keys() == b[k].keys()
+            and all(np.array_equal(a[k][n], b[k][n]) for n in a[k])
+            for k in (1, 2))
+        worst = max(float(np.abs(a[1][n].astype(np.float64)
+                                 - b[1][n].astype(np.float64)).max())
+                    for n in a[1])
+        print(f"CelebA {dname}, 3 steps at the defaults (cuDNN "
+              f"deterministic): packed losses "
+              f"{[round(h['loss'], 4) for h in a[0]]}; params, Adam "
+              f"moments and metrics bit-equal to unpacked {equal} (params "
+              f"max |d| {worst:.3e}) [{card}]")
+        check(equal and all(math.isfinite(h["loss"]) for h in a[0]),
+              f"CelebA {dname}: packed steps differ from unpacked")
+    print(f"phase 20, the bit-for-bit steps (4 models built): "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
+
+    # host ms a step over whole epochs, the four paths interleaved, then
+    # 2 profiled steps each (warm from the epochs): kernels a step, busy
+    # share, cudaLaunchKernel
+    def epoch_of(name, k):
+        m, step = steppers[name]
+        gen = torch.Generator(device=dev).manual_seed(1000 + k)
+        for idx in epoch_batches(64, CELEBA_BATCH, gen):
+            step(x_all[idx], y_all[idx], generator=gen)
+            sn_refresh(m)
+        torch.cuda.synchronize()
+
+    host = interleaved_ms({f"CelebA {name}": (lambda k, name=name:
+                                              epoch_of(name, k))
+                           for name in steppers}, CELEBA_STEPS, card)
+    summary = {}
+    for name, (m, step) in steppers.items():
+        gen = torch.Generator(device=dev).manual_seed(77)
+        order = epoch_batches(64, CELEBA_BATCH, gen)[:2]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in order:
+                step(x_all[i], y_all[i], generator=gen)
+                sn_refresh(m)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        waits = host_waits(events)
+        check(not waits, f"CelebA {name} waits for the device or copies: "
+              f"{waits}")
+        launch_ms = sum(e.self_cpu_time_total for e in events
+                        if e.key.startswith("cudaLaunchKernel")) / 1e3 / 2
+        n_kernels = sum(e.count for e in kernels) / 2
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+        step_ms = host[f"CelebA {name}"] * 1e3
+        summary[name] = (step_ms, n_kernels, busy, launch_ms)
+        print(f"CelebA {name}: host {step_ms:.3f} ms a step; profiled 2 "
+              f"steps: {n_kernels:.0f} kernels a step, device busy "
+              f"{busy:.3f} ms a step, busy share "
+              + (f"{busy / step_ms:.3f}" if busy > 0 else "not measured")
+              + f", cudaLaunchKernel {launch_ms:.3f} ms a step [{card}]")
+    for dname in ("f32", "bf16"):
+        p, u = summary[f"{dname} packed"], summary[f"{dname} unpacked"]
+        print(f"CelebA {dname} packed against unpacked: host ms a step "
+              f"{p[0]:.3f} / {u[0]:.3f}, kernels a step {p[1]:.0f} / "
+              f"{u[1]:.0f}, busy ms {p[2]:.3f} / {u[2]:.3f}, "
+              f"cudaLaunchKernel ms {p[3]:.3f} / {u[3]:.3f} [{card}]")
+    print(f"phase 20, through the timed and profiled steps: "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
+    del steppers, x_all, y_all
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    path_launches["packing"] = renderer_cuda.launches
+    check(path_launches["packing"] == 0, "the packed CelebA path launched "
+          f"the render kernel {path_launches['packing']} times")
+
+    # preprocessing of the fixture corpus: the module entry point in its
+    # own process once, then in this one; every file's hash against the
+    # JAX package's (expected.json)
+    fixtures = root / "tests" / "torch_fixtures" / "celeba_hq"
+    corpus = fixtures / "corpus"
+    want = json.loads((fixtures / "expected.json").read_text())
+    pre = work / "preprocess"
+    renderer_cuda.launches = 0
+    t_pre = time.perf_counter()
+    args = ["--base_dir", str(corpus), "--img_size", "128"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "cdgvae_torch.cli.celeba_preprocess", *args,
+         "--out_dir", str(pre / "128" / "smile")], cwd=root,
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and "preprocessed" in proc.stdout,
+          f"python -m cdgvae_torch.cli.celeba_preprocess: {proc.returncode} "
+          f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    print(f"python -m cdgvae_torch.cli.celeba_preprocess (its own "
+          f"process, on the card): {proc.stdout.strip()} "
+          f"({time.perf_counter() - t_pre:.1f} s with the start) [{card}]")
+    for size in (128, 64):
+        for structure in ("smile", "attractive"):
+            for split in ([], ["--test"]):
+                if size == 128 and structure == "smile" and not split:
+                    continue  # the run above
+                run_cli(["--base_dir", str(corpus), "--img_size", str(size),
+                         "--causal_structure", structure, "--out_dir",
+                         str(pre / str(size) / structure), *split],
+                        "celeba_preprocess")
+    got = {f"{p.relative_to(pre)}": hashlib.sha256(p.read_bytes()
+                                                   ).hexdigest()
+           for p in sorted(pre.rglob("*.npy"))}
+    same = sum(got.get(k) == v for k, v in want.items())
+    print(f"preprocess on the card: {len(got)} .npy files, {same} of "
+          f"{len(want)} equal to expected.json (the JAX package's)")
+    check(got == want, "preprocess on the card differs from expected.json: "
+          f"{sorted(k for k in want if got.get(k) != want[k])[:6]}")
+
+    # files a second at 1024 px: copies of the 1024 px face and its masks
+    big = work / "preprocess_1024"
+    (big / "CelebA-HQ-img").mkdir(parents=True)
+    masks = big / "CelebAMask-HQ-mask-anno" / "0"
+    masks.mkdir(parents=True)
+    lines = (corpus / "CelebAMask-HQ-attribute-anno.txt").read_text(
+        ).splitlines()
+    row0 = next(line for line in lines[2:] if line.startswith("0.jpg"))
+    # enough copies for 15 s of decoding: 4 in 5 go to the train split
+    # (index mod 5 != 4)
+    read_jpeg_file(corpus / "CelebA-HQ-img" / "0.jpg")  # warm
+    t_one = time.perf_counter()
+    read_jpeg_file(corpus / "CelebA-HQ-img" / "0.jpg")
+    n_train = math.ceil(15.0 / (time.perf_counter() - t_one))
+    n_copies = n_train + -(-n_train // 4)
+    rows = []
+    for i in range(n_copies):
+        shutil.copy(corpus / "CelebA-HQ-img" / "0.jpg",
+                    big / "CelebA-HQ-img" / f"{i}.jpg")
+        for part in (corpus / "CelebAMask-HQ-mask-anno" / "0").glob(
+                "00000_*.png"):
+            shutil.copy(part, masks / part.name.replace("00000",
+                                                        f"{i:05d}"))
+        rows.append(row0.replace("0.jpg", f"{i}.jpg", 1))
+    (big / "CelebAMask-HQ-attribute-anno.txt").write_text(
+        "\n".join([str(n_copies), lines[1], *rows]) + "\n")
+    said, s, wall = run_cli(["--base_dir", str(big), "--out_dir",
+                             str(work / "preprocess_1024_out")],
+                            "celeba_preprocess")
+    n = s["files"]
+    print(f"preprocess at 1024 -> 128 px, {n} files (one 4:2:0 q95 face, "
+          f"{(corpus / 'CelebA-HQ-img' / '0.jpg').stat().st_size:,} bytes, "
+          f"and its masks): {n / wall:.3f} files/s over {wall:.3f} s; host "
+          f"decode (JPEG entropy decoding, PNG inflate) "
+          f"{s['host'] / n * 1e3:.1f} ms a file, device (IDCT, upsampling, "
+          f"colour, resizes, to the host) {s['device'] / n * 1e3:.1f} ms, "
+          f"writes {s['write'] / n * 1e3:.1f} ms; 30,000 files would take "
+          f"{30000 / (n / wall) / 3600:.2f} h [{card}]")
+    check(s["host"] + s["device"] >= 10.0, f"the 1024 px run did only "
+          f"{s['host'] + s['device']:.1f} s of work")
+    torch.cuda.synchronize()
+    path_launches["preprocess"] = renderer_cuda.launches
+    check(path_launches["preprocess"] == 0, "preprocessing launched the "
+          f"render kernel {path_launches['preprocess']} times")
+    print(f"phase 20 (packing, preprocessing): {time.perf_counter() - t0:.1f}"
+          f" s (host clock); launches {{'render': 0}} on both [{card}]")
+
+
 def trained_params_of(model) -> list:
     return [p for p in model.parameters() if p.requires_grad]
 
@@ -2572,8 +2817,13 @@ def main() -> int:
     # 19. data parallelism in a world-1 NCCL group
     data_parallel(work=work, card=card, dev=dev, dataset=dataset, ckpt=ckpt,
                   path_launches=path_launches)
+
+    # 20. the packed layout and CelebAMask-HQ preprocessing, which render
+    # nothing
+    packing_and_preprocess(root=root, work=work, card=card, dev=dev,
+                           path_launches=path_launches)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

@@ -75,7 +75,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.models.celeba", "cdgvae_torch.data.celeba",
                  "cdgvae_torch.data.prefetch",
                  "cdgvae_torch.train.celeba_steps",
-                 "cdgvae_torch.cli.celeba_main"):
+                 "cdgvae_torch.cli.celeba_main",
+                 "cdgvae_torch.ops.packing", "cdgvae_torch.data.jpeg",
+                 "cdgvae_torch.data.cv_resize",
+                 "cdgvae_torch.cli.celeba_preprocess"):
         assert name in result["modules"]
 
 

@@ -23,7 +23,9 @@ in the stacked format (``decoder.stacked``), which the port trains as five
 per-generator modules. ``--align_warmup N`` trains the first N epochs on
 the alignment loss alone. ``--bf16`` runs the network in bfloat16 with
 float32 losses and optimizer. The CelebA entry points compute in float32:
-TF32 is off for matmuls and for cuDNN convolutions.
+TF32 is off for matmuls and for cuDNN convolutions, and cuDNN runs its
+deterministic algorithms, so that a run repeats bit for bit on the card
+as on the CPU (``--resume`` equals the uninterrupted run).
 
 ``--packed_params`` (true by default, as in the JAX package) trains in
 the packed layout (``ops/packing.py``): the small trained parameters are
@@ -139,16 +141,27 @@ def main(argv=None):
     return train_on_mesh(train, vars(get_args(argv)))
 
 
+def float32_and_repeatable():
+    """Float32 on the card as on the CPU, and the same sums run to run.
+    No TF32 in matmuls or in cuDNN's convolutions (PyTorch's default for
+    the latter is TF32 on). cuDNN's deterministic algorithms, without
+    autotuning: its default weight-gradient convolutions sum in an order
+    that changes from call to call, so a resumed run would drift from the
+    uninterrupted one (``tools/celeba_determinism.py`` measures both
+    modes). The switches are the process's own, on every rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def train(config: dict, mesh=None):
     """Train the CelebA model of ``config`` (the parsed flags) and save it;
     under a ``mesh`` this is one rank of the run."""
     device = mesh.device if mesh is not None else resolve_device(
         config["device"])
     main_rank = is_main(mesh)
-    # float32 on the card as on the CPU: no TF32 in matmuls or in cuDNN's
-    # convolutions (PyTorch's default for the latter is TF32 on)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    float32_and_repeatable()
     set_random_seed(config["seed"])
     seed = config["seed"]
     logger = MetricLogger(logdir=config["assets_dir"] if main_rank else None,

@@ -85,7 +85,8 @@ class VAE(nn.Module):
             if noise is None:
                 noise = torch.randn(mean.shape, generator=generator,
                                     dtype=mean.dtype, device=mean.device)
-            epsilon = mean + torch.exp(logvar / 2.0) * noise
+            # the reference draws in mean's dtype: a given draw takes it
+            epsilon = mean + torch.exp(logvar / 2.0) * noise.to(mean.dtype)
         orig_latent, latent, logdet = self.graph.transform(epsilon)
         return mean, logvar, epsilon, orig_latent, latent, logdet
 
@@ -212,7 +213,10 @@ class CDGVAE(nn.Module):
     def _band_pieces(self, h: torch.Tensor) -> list[torch.Tensor]:
         """[K, batch, hidden] -> per-band final-layer outputs."""
         out = self.decoder["out"]
-        return [h[k] @ out[f"w{k}"] + out[f"b{k}"] for k in range(self.K)]
+        # in h's dtype: under a bf16 cast_compute h is float32 and the
+        # weights bf16, which JAX promotes (see nn.stacked_dense)
+        return [h[k] @ out[f"w{k}"].to(h.dtype) + out[f"b{k}"]
+                for k in range(self.K)]
 
     def _image(self, flat: torch.Tensor) -> torch.Tensor:
         return flat.reshape(-1, self.image_size, self.image_size, 3)

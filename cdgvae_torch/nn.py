@@ -45,8 +45,11 @@ def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def stacked_dense(w: torch.Tensor, b: torch.Tensor,
                   x: torch.Tensor) -> torch.Tensor:
-    """x: [K, B, in] -> [K, B, out] via one batched matmul."""
-    return torch.bmm(x, w) + b
+    """x: [K, B, in] -> [K, B, out] via one batched matmul, in ``x``'s
+    dtype: a bfloat16 ``w`` under a float32 ``x`` is cast up, as JAX's
+    ``dot_general(..., preferred_element_type=x.dtype)`` promotes it (the
+    CDG-VAE decoder under ``train/steps.py::cast_compute``)."""
+    return torch.bmm(x, w.to(x.dtype)) + b
 
 
 class Dense(nn.Module):

@@ -21,7 +21,10 @@ drives one of:
 * ``replicated``: epochs of the sharded trainer on seeded data, for the
   parameters every rank ends with;
 * ``batchnorm``: ``nn.batchnorm`` under ``nn.global_batch_stats`` on each
-  rank's slice of a batch, its output and its gradients.
+  rank's slice of a batch, its output and its gradients;
+* ``uint8``: epochs of the sharded trainer (supervised, or semi) on uint8
+  storage and on its dequantised float32 copy, for the params and
+  histories of both.
 """
 from __future__ import annotations
 
@@ -38,12 +41,12 @@ from ..ops.causal import CausalGraph
 from ..train.loop import run_epochs, run_epochs_semi, train_epoch
 from ..train.online import (Draws, factors_from_draws,
                             make_online_run_from_loss, pendulum_batch_fn)
-from ..train.scanned import make_supervised_loss_fn
+from ..train.scanned import make_supervised_loss_fn, unflatten_items
 from ..train.steps import (make_infomax_step, make_optimizer,
                            make_semi_step, make_train_step)
 from ..utils.interop import export_params, load_jax_params
 from ..utils.simulation import EPOCH, derived_generator
-from .mesh import Mesh, rank_path
+from .mesh import Mesh, rank_path, shard_rows
 
 
 def _t(a) -> torch.Tensor:
@@ -189,8 +192,39 @@ def _batchnorm(mesh, case: dict) -> dict:
             "scale": scale.grad.numpy(), "bias": bias.grad.numpy()}
 
 
+def _dequantised(x: torch.Tensor) -> torch.Tensor:
+    return unflatten_items(x.reshape(len(x), -1), x.shape[1:])
+
+
+def _uint8(mesh, case: dict) -> dict:
+    """``case["x"]`` (and for semi ``case["x_l"]``) are uint8 images. The
+    sharded trainer runs on them and on their dequantised float32 copies
+    from the same params; also the dtype of this rank's shard."""
+    semi = case.get("semi", False)
+    names = ("x", "x_l", "y_l") if semi else ("x", "y")
+    data = {k: _t(case[k]) for k in names}
+    out = {"shard_dtype": str(shard_rows(mesh, data["x"])[0].dtype)}
+    for storage in ("uint8", "float32"):
+        model, _ = _models(case["spec"])
+        step = _step(case, model, None, mesh)
+        xs = {k: _dequantised(v) if storage == "float32"
+              and v.dtype == torch.uint8 else v for k, v in data.items()}
+        kw = dict(seed=case["seed"], epochs=case["epochs"],
+                  batch_size=case["batch_size"], mesh=mesh)
+        if semi:
+            history = run_epochs_semi(step, xs["x"], xs["x_l"], xs["y_l"],
+                                      batch_size_l=case["batch_size_l"],
+                                      **kw)
+        else:
+            history = run_epochs(step, xs["x"], xs["y"], **kw)
+        out[storage] = {"history": history,
+                        "params": export_params(model)}
+    return out
+
+
 _KINDS = {"eager": _eager, "sharded": _sharded, "online": _online,
-          "replicated": _replicated, "batchnorm": _batchnorm}
+          "replicated": _replicated, "batchnorm": _batchnorm,
+          "uint8": _uint8}
 
 
 def run_cases(mesh, case_path: str, out_dir: str) -> None:

@@ -291,13 +291,17 @@ def make_online_scanned_steps(model, optimizer, beta: float, lam: float,
                               image_size: int = 64, norm_seed: int = 1,
                               sample_batch: Callable | None = None, *,
                               seed: int = 0,
-                              device: str | torch.device = "cuda"
+                              device: str | torch.device = "cuda",
+                              compute_dtype: torch.dtype | None = None
                               ) -> Callable:
     """``n_steps_per_call`` supervised train steps of ``model``, each on a
     freshly sampled and rendered batch. ``sample_batch`` defaults to
-    :func:`pendulum_batch_fn`. Returns ``run(step0)`` as
-    :func:`make_online_run_from_loss`."""
-    loss_fn = make_supervised_loss_fn(model, beta, lam)
+    :func:`pendulum_batch_fn`; ``compute_dtype`` runs the forward in that
+    dtype (``train/steps.py::cast_compute``), as the sharded online path
+    does through ``make_supervised_loss_fn(compute_dtype=)``. Returns
+    ``run(step0)`` as :func:`make_online_run_from_loss`."""
+    loss_fn = make_supervised_loss_fn(model, beta, lam,
+                                      compute_dtype=compute_dtype)
     if sample_batch is None:
         sample_batch = pendulum_batch_fn(batch_size, image_size, norm_seed,
                                          device=device)

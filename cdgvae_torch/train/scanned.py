@@ -1,5 +1,5 @@
-"""The supervised loss and the epoch runners (port of
-``cdgvae_tpu/train/scanned.py:75-199,219-247``).
+"""The supervised loss, the epoch runners and uint8 dataset storage (port
+of ``cdgvae_tpu/train/scanned.py:38-199,219-247``).
 
 The epoch runners keep the semantics of ``make_scanned_epochs`` and
 ``make_scanned_epochs_semi``: one
@@ -8,6 +8,11 @@ permutation of the flat ``[n, 3·H·W]`` dataset per epoch from the epoch's
 seed and the epoch), the last partial batch dropped, metrics accumulated
 on the device and averaged per epoch with one host sync per epoch. Steps
 run as a plain Python loop.
+
+A uint8 dataset is quantized images (:func:`quantize_images`): both
+runners gather its rows as bytes and decode them in the step
+(:func:`unflatten_items`), so it trains what its dequantised float32
+copy trains, bit for bit, on a quarter of the device memory.
 
 Under a mesh (``parallel.mesh.Mesh``) the same runners are the sharded
 trainers of ``cdgvae_tpu/train/scanned.py:276-466``: each rank runs them
@@ -24,7 +29,7 @@ import torch
 
 from ..ops import losses
 from ..parallel.mesh import all_reduce_mean
-from .steps import _metrics
+from .steps import _metrics, forward
 
 
 class Averager:
@@ -55,15 +60,19 @@ class Averager:
 
 def make_supervised_loss_fn(model, beta: float, lam: float,
                             free_bits: float = 0.0,
-                            recon_fn: Callable = losses.gaussian_recon
+                            recon_fn: Callable = losses.gaussian_recon,
+                            compute_dtype: torch.dtype | None = None
                             ) -> Callable:
     """ELBO + alignment loss as ``loss_fn(x, y, noise=None,
     generator=None) -> (loss, metrics)``; ``recon_fn(xhat, x)`` is the
-    reconstruction term (the tabular family's is per dataset)."""
+    reconstruction term (the tabular family's is per dataset).
+    ``compute_dtype`` runs the forward in that dtype
+    (``train/steps.py::cast_compute``); the losses take float32 and the
+    float32 ``x``."""
     node = model.node
 
     def loss_fn(x, y, noise=None, generator=None):
-        out = model(x, noise=noise, generator=generator, fast=True)
+        out = forward(model, x, noise, generator, compute_dtype)
         recon = recon_fn(out.xhat, x)
         if free_bits > 0.0:
             kl = losses.kl_std_normal_free_bits(out.mean, out.logvar,
@@ -75,6 +84,28 @@ def make_supervised_loss_fn(model, beta: float, lam: float,
         return loss, _metrics(loss, recon, kl, align, out.logvar, node)
 
     return loss_fn
+
+
+def quantize_images(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float images -> uint8 dataset storage,
+    ``clip(round(x * 127.5 + 127.5), 0, 255)``: the product and the sum
+    rounded apart, then half to even, as ``data/png_io.py::_to_uint8``
+    encodes a PNG (``cdgvae_tpu/train/scanned.py:50-72``). The epoch
+    runners decode it in the step. A capacity option: four times less
+    device memory for the dataset, not a faster step."""
+    return torch.round(x * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)
+
+
+def unflatten_items(xi: torch.Tensor, item_shape) -> torch.Tensor:
+    """Gathered flat rows [b, prod] back to items [b, *item_shape].
+    CONTRACT, as the reference's ``_unflatten_item``: uint8 means a
+    quantized image, decoded to ``(u8 - 127.5) / 127.5``. Discrete or
+    one-hot tabular data must be float: a uint8 table would be rescaled
+    to [-1, 1]."""
+    xi = xi.reshape(xi.shape[0], *item_shape)
+    if xi.dtype == torch.uint8:
+        xi = (xi.float() - 127.5) / 127.5
+    return xi
 
 
 def epoch_batches(n: int, batch_size: int,
@@ -95,9 +126,11 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
     Returns run(x, y, generator) -> the epoch's mean metrics as host
     floats, keys sorted. ``x`` is [n, ...] items, ``y`` [n, .]; both on
     the generator's device, which draws the permutation and then each
-    step's noise. ``post_update()`` runs after every step (the TVAE's
-    sigma clamp, the CelebA ``sn_refresh``). Under a ``mesh`` each rank
-    runs it on its shard at its local ``batch_size`` (module docstring).
+    step's noise; a uint8 ``x`` is decoded in the step
+    (:func:`unflatten_items`). ``post_update()`` runs after every step
+    (the TVAE's sigma clamp, the CelebA ``sn_refresh``). Under a ``mesh``
+    each rank runs it on its shard at its local ``batch_size`` (module
+    docstring).
     """
 
     def run(x, y, generator: torch.Generator) -> dict:
@@ -110,7 +143,7 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
         xf, item_shape = x.reshape(n, -1), x.shape[1:]
         avg = Averager(mesh)
         for idx in epoch_batches(n, batch_size, generator):
-            xi = xf[idx].reshape(batch_size, *item_shape)
+            xi = unflatten_items(xf[idx], item_shape)
             avg.add(step_fn(xi, y[idx], generator=generator))
             if post_update is not None:
                 post_update()
@@ -143,7 +176,8 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
     run(x_u, x_l, y_l, generator) -> the epoch's mean metrics as host
     floats, keys sorted. Use ``train.loop.train_epoch_semi`` (``--eager``)
     for the reference's protocol with short batches. Under a ``mesh``
-    each rank cycles its own labeled shard (module docstring).
+    each rank cycles its own labeled shard (module docstring). A uint8
+    stream is decoded in the step (:func:`unflatten_items`).
     """
 
     def run(x_u, x_l, y_l, generator: torch.Generator) -> dict:
@@ -159,8 +193,8 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
         idx_l = labeled_batches(n_l, steps, batch_size_l, generator)
         avg = Averager(mesh)
         for iu, il in zip(idx_u, idx_l):
-            avg.add(step_fn(xf_u[iu].reshape(batch_size, *x_u.shape[1:]),
-                            xf_l[il].reshape(batch_size_l, *x_l.shape[1:]),
+            avg.add(step_fn(unflatten_items(xf_u[iu], x_u.shape[1:]),
+                            unflatten_items(xf_l[il], x_l.shape[1:]),
                             y_l[il], generator=generator))
         return avg.result()  # the one host sync
 

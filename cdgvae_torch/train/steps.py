@@ -10,12 +10,18 @@ accumulates them on the device and syncs once per epoch.
 Every stochastic input is either given (``noise=``, and for InfoMax the
 marginal's ``perm=``/``shift=``) or drawn from the step's
 ``torch.Generator``, so a test can hand both packages the same draws.
+
+The supervised step takes ``compute_dtype`` (``torch.bfloat16``) as the
+reference's does: the forward runs on cast copies of the floating
+parameters and of ``x`` (:func:`cast_compute`), while the parameters,
+the optimizer and its state stay float32 and the losses upcast.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+from torch.func import functional_call
 
 from ..ops import losses
 from ..parallel.mesh import GradBuffer
@@ -29,6 +35,38 @@ def _metrics(loss, recon, kl, align, logvar, node, extra=None) -> dict:
     for i in range(node):
         m[f"posterior_variance{i + 1}"] = pv[i]
     return m
+
+
+def cast_compute(model: torch.nn.Module, x: torch.Tensor,
+                 compute_dtype: torch.dtype) -> tuple[dict, torch.Tensor]:
+    """Mixed precision as the reference's ``cast_compute``
+    (``cdgvae_tpu/train/steps.py:43-49``): the model's floating
+    parameters, as a name -> tensor dict for ``functional_call``, and
+    ``x``, each cast to ``compute_dtype``. The casts are differentiable,
+    so the gradients reach the float32 parameters as float32.
+
+    The buffers are not cast: they are the reference's constants, which
+    keep the model's float32. So the CDG-VAE's gathered latent times its
+    float32 ``_valid`` is float32, and its whole decoder runs in float32
+    on the bf16-rounded weights (``nn.stacked_dense`` and the band
+    products cast the weight up where JAX promotes), while the encoder,
+    the SEM solve (``I_B_inv`` follows eps's dtype) and the flows run in
+    ``compute_dtype``; the baseline VAE runs wholly in it."""
+    params = {n: p.to(compute_dtype) if p.is_floating_point() else p
+              for n, p in model.named_parameters()}
+    return params, x.to(compute_dtype)
+
+
+def forward(model, x: torch.Tensor, noise=None, generator=None,
+            compute_dtype: torch.dtype | None = None):
+    """The model's band-sliced forward (``fast=True``); with a
+    ``compute_dtype``, on :func:`cast_compute`'s copies. The outputs keep
+    the dtypes the forward gives them: the losses upcast."""
+    draws = {"noise": noise, "generator": generator, "fast": True}
+    if compute_dtype is None:
+        return model(x, **draws)
+    params, x = cast_compute(model, x, compute_dtype)
+    return functional_call(model, params, (x,), draws)
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,
@@ -85,19 +123,20 @@ def step_from_loss(loss_fn: Callable, optimizer, mesh=None) -> Callable:
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, beta: float,
-                    lam: float, free_bits: float = 0.0,
-                    mesh=None) -> Callable:
+                    lam: float, free_bits: float = 0.0, mesh=None,
+                    compute_dtype: torch.dtype | None = None) -> Callable:
     """Supervised VAE/CDG-VAE step.
 
     Returns step(x, y, noise=None, generator=None) -> metrics dict of
     detached device scalars. ``free_bits > 0`` floors the per-dim KL;
-    ``mesh`` averages the gradients over its ranks.
+    ``mesh`` averages the gradients over its ranks; ``compute_dtype``
+    runs the forward in that dtype (module docstring).
     """
     from .scanned import make_supervised_loss_fn
 
-    return step_from_loss(make_supervised_loss_fn(model, beta, lam,
-                                                  free_bits=free_bits),
-                          optimizer, mesh)
+    return step_from_loss(make_supervised_loss_fn(
+        model, beta, lam, free_bits=free_bits, compute_dtype=compute_dtype),
+        optimizer, mesh)
 
 
 def marginal_epsilon(epsilon: torch.Tensor, mode: str = "permutation", *,

@@ -90,7 +90,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 18. the CelebA family at ``cli.celeba_main``'s defaults (128 px,
     conv_dim 32, ResNet-18, batch 16) on its 64 synthetic faces:
     ``cli.celeba_main`` for 2 epochs with a checkpoint each, ``--resume``
-    to 3, then ``--eager``, ``--bf16``, ``--train_trunk``,
+    to 3 and an uninterrupted 3-epoch run, whose params must equal the
+    resumed run's bit for bit (``celeba_main`` runs cuDNN's deterministic
+    algorithms), the same three with ``--bf16``, then ``--eager``,
+    ``--train_trunk``,
     ``--align_warmup 1``, ``--stacked_decoder true``, ``--async_ckpt
     true`` and ``--profile`` (1-2 epochs each, the checkpoint's step and
     Adam count checked); the full-width loss on the card against the CPU
@@ -131,10 +134,23 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     output), and files a second at 1024 px over copies of the 1024 px
     face, enough for 15 s of decoding (host decode and device ms a
     file). Neither path renders: 0
-    launches each.
+    launches each;
+21. the library options that no CLI sets, at full width: 10 bf16 steps
+    (``compute_dtype``) against 10 float32 steps from one init (losses
+    finite and falling, params and Adam state float32); one bf16 step on
+    the card against the same step on the CPU (the metrics within one
+    bf16 ulp, the gradients within 2e-2 of each tensor's largest entry);
+    host ms and device busy a step, bf16 against f32, on the dataset and
+    the online paths; uint8
+    storage of phase 4's dataset (``quantize_images``): one epoch on it
+    against one on its dequantised float32 copy (params bit for bit), its
+    bytes on the device and host ms a step; then the CDM study of
+    ``tools/cdm_seeds.py`` cut to one seed, 2 epochs and a 1-epoch
+    classifier on the cut DGP, whose protected cells must be exactly 0.0
+    (one render launch).
 
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15 and 19, and 17's, 18's and 20's 0) and summed in the ``{"kernels":
+10-15, 19 and 21, and 17's, 18's and 20's 0) and summed in the ``{"kernels":
 [...]}`` JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
@@ -212,6 +228,13 @@ TVAE_STEPS = {"loan": 15, "adult": 15, "covtype": 39}
 # 64 synthetic faces, 4 steps an epoch
 CELEBA_BATCH, CELEBA_BETA, CELEBA_LAM, CELEBA_LR = 16, 0.1, 5.0, 1e-3
 CELEBA_STEPS = 4
+# phase 21: one bf16 step on the card against the same step on the CPU.
+# cuBLAS and the CPU's bf16 GEMMs accumulate in other orders, so a bf16
+# activation can round to its neighbour: the metrics within one bf16 unit
+# in the last place, relative (2^-7; the JAX-against-port bound of
+# tests/test_torch_bf16.py, 1e-4, read 1.638e-3 here at full width); a
+# gradient's max |d| within 2e-2 of its tensor's largest entry, as there
+BF16_METRIC_RTOL, BF16_GRAD_FRACTION = 2.0 ** -7, 2e-2
 # TVAE serving in data space, card against CPU: the encode as SERVE_TOL;
 # a float column within this times 4 sigma of its widest valid component
 # (the inverse scales the decoder's float32 output by it), integer and
@@ -1526,10 +1549,16 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
     out, walls = work / "celeba", {}
     ckpt = out / "celeba_CDGVAE_linear"
     trace_dir = work / "celeba_trace"
+    bf16_out = work / "celeba_bf16"
+    bf16_ckpt = bf16_out / "celeba_CDGVAE_linear"
     runs = [("fixed", ["--ckpt_every", "1"], 2, out),
             ("resume", ["--resume", str(ckpt)], 3, out),
+            ("uninterrupted", [], 3, None),
             ("eager", ["--eager"], 1, None),
-            ("bf16", ["--bf16"], 1, None),
+            ("bf16", ["--bf16", "--ckpt_every", "1"], 2, bf16_out),
+            ("bf16 resume", ["--bf16", "--resume", str(bf16_ckpt)], 3,
+             bf16_out),
+            ("bf16 uninterrupted", ["--bf16"], 3, None),
             ("train_trunk", ["--train_trunk"], 1, None),
             ("align_warmup", ["--align_warmup", "1"], 2, None),
             ("stacked_decoder", ["--stacked_decoder", "true"], 1, None),
@@ -1537,7 +1566,7 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
              None),
             ("profile", ["--profile", str(trace_dir)], 2, None)]
     for name, extra, epochs, run_dir in runs:
-        run_dir = run_dir or work / f"celeba_{name}"
+        run_dir = run_dir or work / f"celeba_{name.replace(' ', '_')}"
         said, _, walls[name] = run_cli(
             ["--epochs", str(epochs), "--assets_dir", str(run_dir), *extra],
             "celeba_main")
@@ -1554,9 +1583,29 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
             check((run_dir / "tmp_image_0.png").exists()
                   and (run_dir / "tmp_image_1.png").exists(),
                   "celeba_main: no tmp_image_{0,1}.png")
-        if name == "resume":
-            check(f"resumed from {ckpt} at epoch 2" in said,
-                  "celeba_main --resume: no 'resumed' line")
+        if name.endswith("resume"):
+            check(f"resumed from {run_dir / 'celeba_CDGVAE_linear'} at "
+                  f"epoch 2" in said, f"celeba_main {name}: no 'resumed' "
+                  "line")
+        if name.endswith("uninterrupted"):
+            # --resume to 3 equals the uninterrupted 3 epochs bit for bit
+            # (cuDNN's deterministic algorithms, which celeba_main sets)
+            resumed = load_checkpoint(str((bf16_out if "bf16" in name
+                                           else out)
+                                          / "celeba_CDGVAE_linear"))
+            la, lb = flat_leaves(resumed["params"]), flat_leaves(
+                ck["params"])
+            check(len(la) == len(lb) > 0, f"celeba_main {name}: the "
+                  "checkpoints' params differ in layout")
+            drift = max(float(np.abs(np.asarray(a, np.float64)
+                                     - np.asarray(b, np.float64)).max())
+                        for a, b in zip(la, lb))
+            print(f"celeba_main {name.replace('uninterrupted', 'resume')} "
+                  f"2 -> 3 against {name} 3 epochs: params max |d| "
+                  f"{drift:.3e}; cuDNN deterministic "
+                  f"{torch.backends.cudnn.deterministic} [{card}]")
+            check(drift == 0.0, f"celeba_main --resume differs from the "
+                  f"uninterrupted run ({name}): max |d| {drift}")
         if name == "align_warmup":
             check(abs(records[0]["loss"] - 5 * records[0]["alignment"])
                   <= 1e-4 * records[0]["loss"],
@@ -2178,6 +2227,195 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
           f"render kernel {path_launches['preprocess']} times")
     print(f"phase 20 (packing, preprocessing): {time.perf_counter() - t0:.1f}"
           f" s (host clock); launches {{'render': 0}} on both [{card}]")
+
+
+def library_options(*, card: str, dev, dataset, path_launches: dict,
+                    profiled_steps) -> None:
+    """Phase 21: the library options that no CLI sets, and the CDM study
+    cut (see the module docstring)."""
+    from cdgvae_torch.factory import build_pendulum_model
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.tools.cdm_seeds import CONFIG as STUDY
+    from cdgvae_torch.tools.cdm_seeds import PROTECTED, run_seed
+    from cdgvae_torch.train.loop import run_epochs
+    from cdgvae_torch.train.online import make_online_scanned_steps
+    from cdgvae_torch.train.scanned import (epoch_batches,
+                                            make_epoch_runner,
+                                            quantize_images, unflatten_items)
+    from cdgvae_torch.train.steps import make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    x, y = dataset.x_data, dataset.y_data
+    n, steps = len(x), len(x) // BATCH
+    dtypes = {"f32": None, "bf16": torch.bfloat16}
+
+    # (a) 10 bf16 steps against 10 f32 steps from one init and one draw
+    # stream: finite falling losses, params and Adam state float32
+    models = {}
+    order = epoch_batches(n, BATCH,
+                          torch.Generator(device=dev).manual_seed(21))[:10]
+    for name, dtype in dtypes.items():
+        m, _ = build_pendulum_model(FLAGSHIP, device=dev, seed=0)
+        opt = make_optimizer(m, LR)
+        step = make_train_step(m, opt, BETA, LAM, compute_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(22)
+        losses = [step(x[i], y[i], generator=gen)["loss"].item()
+                  for i in order]
+        check(all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0],
+              f"{name} steps: losses not finite and falling: {losses}")
+        kept = {str(t.dtype) for t in (*m.parameters(), *(
+            v for st in opt.state.values() for v in st.values()
+            if torch.is_tensor(v) and v.is_floating_point() and v.dim()))}
+        check(kept == {"torch.float32"}, f"{name}: params and Adam state "
+              f"hold {kept}")
+        models[name] = (m, opt, step)
+        print(f"flagship {name} (compute_dtype {dtype}), 10 steps from one "
+              f"init: losses {[round(v, 2) for v in losses]}; params and "
+              f"Adam state {sorted(kept)}")
+
+    # one bf16 step on the card against the same step on the CPU: same
+    # weights, batch and bf16 noise; the metrics and the gradients
+    noise = torch.randn((BATCH, FLAGSHIP["node"]),
+                        generator=torch.Generator().manual_seed(23)).to(
+                            torch.bfloat16)
+    got = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        m, _ = build_pendulum_model(FLAGSHIP, device=d, seed=0)
+        opt = make_optimizer(m, LR)
+        grads = {}
+        opt.register_step_pre_hook(lambda *_, m=m, grads=grads: grads.update(
+            {k: p.grad.cpu() for k, p in m.named_parameters()}))
+        metrics = make_train_step(m, opt, BETA, LAM,
+                                  compute_dtype=torch.bfloat16)(
+            x[:BATCH].to(d), y[:BATCH].to(d), noise=noise.to(d))
+        got[name] = ({k: v.float().item() for k, v in metrics.items()},
+                     grads)
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = got["card"], got["cpu"]
+    rel = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+              for k in m_cpu)
+    frac = max(float((g_gpu[k] - g_cpu[k]).abs().max()
+                     / g_cpu[k].abs().max().clamp_min(1e-30))
+               for k in g_cpu)
+    print(f"bf16 step, card against the CPU (full width, batch {BATCH}): "
+          f"metrics max rel {rel:.3e} (loss {m_gpu['loss']:.4f} / "
+          f"{m_cpu['loss']:.4f}), gradients max |d| / max |g| {frac:.3e}; "
+          f"limits {BF16_METRIC_RTOL:g} and {BF16_GRAD_FRACTION:g}")
+    check(rel <= BF16_METRIC_RTOL and frac <= BF16_GRAD_FRACTION,
+          "the bf16 step on the card disagrees with the CPU")
+
+    # host ms a step, bf16 against f32, on the dataset path and the online
+    # path (whole epochs of 29 steps, interleaved), then 10 and 29
+    # profiled steps: device busy a step
+    renderer_cuda.launches = 0
+    online = {name: make_online_scanned_steps(
+        m, opt, BETA, LAM, BATCH, steps, seed=21, device=dev,
+        compute_dtype=dtypes[name]) for name, (m, opt, _) in models.items()}
+
+    def dataset_epoch(name, k):
+        make_epoch_runner(models[name][2], BATCH)(
+            x, y, torch.Generator(device=dev).manual_seed(300 + k))
+        torch.cuda.synchronize()
+
+    def online_epoch(name, k):
+        online[name](k * steps)
+        torch.cuda.synchronize()
+
+    paths = {}
+    for name in dtypes:
+        paths[f"dataset {name}"] = lambda k, name=name: dataset_epoch(name, k)
+        paths[f"online {name}"] = lambda k, name=name: online_epoch(name, k)
+    host = interleaved_ms(paths, steps, card)
+    busy = {}
+    for name in dtypes:
+        step = models[name][2]
+        gen = torch.Generator(device=dev).manual_seed(24)
+        kernels = profiled_steps(
+            f"flagship dataset step {name}",
+            lambda: [step(x[i], y[i], generator=gen) for i in order], 10,
+            host[f"dataset {name}"])
+        busy[f"dataset {name}"] = sum(
+            e.self_device_time_total for e in kernels) / 1e3 / 10
+        kernels = profiled_steps(
+            f"flagship online step {name}",
+            lambda: online_epoch(name, 50), steps, host[f"online {name}"])
+        busy[f"online {name}"] = sum(
+            e.self_device_time_total for e in kernels) / 1e3 / steps
+    torch.cuda.synchronize()
+    path_launches["library online"] = renderer_cuda.launches
+    check(path_launches["library online"] > 0,
+          "the online bf16 and f32 paths never launched the render kernel")
+    for where in ("dataset", "online"):
+        b, f = f"{where} bf16", f"{where} f32"
+        print(f"flagship {where} step, bf16 / f32: host "
+              f"{host[b] * 1e3:.3f} / {host[f] * 1e3:.3f} ms a step, device "
+              f"busy {busy[b]:.3f} / {busy[f]:.3f} ms a step [{card}]")
+
+    # (b) uint8 storage of the phase-4 dataset: one epoch on it against
+    # one on its dequantised float32 copy, from one init, bit for bit
+    u8 = quantize_images(x)
+    deq = unflatten_items(u8.reshape(n, -1), x.shape[1:])
+    runs = {}
+    for name, data in (("uint8", u8), ("float32", deq)):
+        m, _ = build_pendulum_model(FLAGSHIP, device=dev, seed=0)
+        step = make_train_step(m, make_optimizer(m, LR), BETA, LAM)
+        hist = run_epochs(step, data, y, seed=1, epochs=1, batch_size=BATCH)
+        runs[name] = (hist, [p.detach().clone() for p in m.parameters()],
+                      step, data)
+    a, b = runs["uint8"], runs["float32"]
+    same = a[0] == b[0] and all(torch.equal(p, q)
+                                for p, q in zip(a[1], b[1]))
+    print(f"uint8 storage, one epoch of {steps} steps against the "
+          f"dequantised float32 copy: loss {a[0][0]['loss']:.4f} / "
+          f"{b[0][0]['loss']:.4f}, params bit-equal {same}")
+    check(same, "uint8 storage trains another trajectory than its "
+          "dequantised float32 copy")
+
+    def storage_epoch(name, k):
+        _, _, step, data = runs[name]
+        make_epoch_runner(step, BATCH)(
+            data, y, torch.Generator(device=dev).manual_seed(400 + k))
+        torch.cuda.synchronize()
+
+    host = interleaved_ms({f"storage {name}": (lambda k, name=name:
+                                               storage_epoch(name, k))
+                           for name in runs}, steps, card)
+    print(f"dataset on the device, {n} images: uint8 "
+          f"{u8.numel() * u8.element_size():,} bytes, float32 "
+          f"{deq.numel() * deq.element_size():,} bytes; host "
+          f"{host['storage uint8'] * 1e3:.3f} / "
+          f"{host['storage float32'] * 1e3:.3f} ms a step, uint8 / float32 "
+          f"[{card}]")
+    del models, online, runs, u8, deq
+
+    # (c) the CDM study cut: one seed, 2 epochs, the classifier 1 epoch,
+    # on the cut DGP; the protected cells exactly 0.0
+    renderer_cuda.launches = 0
+    result = run_seed(1, dict(STUDY, epochs=2, classifier_epochs=1,
+                              n_samples=N_SAMPLES), device=dev)
+    torch.cuda.synchronize()
+    path_launches["study"] = renderer_cuda.launches
+    upper, lower = result["upper"], result["lower"]
+    zeros = [float(m[i][j]) for m in (upper, lower) for i, j in PROTECTED]
+    print(f"tools.cdm_seeds.run_seed cut (seed 1, 2 epochs, classifier 1 "
+          f"epoch, {N_SAMPLES} samples): losses "
+          f"{[round(v, 2) for v in result['loss_curve']]}, upper diagonal "
+          f"{np.round(np.diag(upper), 4).tolist()}, protected cells "
+          f"{zeros}; train {result['train_seconds']:.2f} s, CDM "
+          f"{result['cdm_seconds']:.2f} s; launches {{'render': "
+          f"{path_launches['study']}}} [{card}]")
+    check(all(v == 0.0 for v in zeros) and np.isfinite(upper).all(),
+          "the study's protected CDM cells are not exactly 0.0")
+    check(path_launches["study"] == 1,
+          f"the study rendered {path_launches['study']} times, not once")
+    print(f"phase 21 (library options and the study): "
+          f"{time.perf_counter() - t0:.1f} s (host clock) [{card}]")
+
+
+def flat_leaves(tree: dict) -> list:
+    """The leaves of a nested dict, in key order."""
+    return [leaf for k in sorted(tree) for leaf in (
+        flat_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
 
 
 def trained_params_of(model) -> list:
@@ -2822,8 +3060,14 @@ def main() -> int:
     # nothing
     packing_and_preprocess(root=root, work=work, card=card, dev=dev,
                            path_launches=path_launches)
+
+    # 21. the library options (bf16 steps, uint8 storage) and the CDM study
+    # cut
+    library_options(card=card, dev=dev, dataset=dataset,
+                    path_launches=path_launches,
+                    profiled_steps=profiled_steps)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

@@ -147,10 +147,17 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     bytes on the device and host ms a step; then the CDM study of
     ``tools/cdm_seeds.py`` cut to one seed, 2 epochs and a 1-epoch
     classifier on the cut DGP, whose protected cells must be exactly 0.0
-    (one render launch).
+    (one render launch);
+22. the studies of ``tools/``, each cut to seed 1, 2 epochs and 512
+    samples: ``cdm_seeds.run_seed`` from the JAX package's initial
+    parameters (``tools/jax_init.py``), ``se_seeds.run_seed``,
+    ``online_seeds.run_seed`` (a render launch a step) and
+    ``dr_sweep.run_config`` at lambda 40 with 1 robustness repeat, on
+    the JAX init too; the results must be finite and the protected CDM
+    cells exactly 0.0, and each study's render launches are counted.
 
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15, 19 and 21, and 17's, 18's and 20's 0) and summed in the ``{"kernels":
+10-15, 19, 21 and 22, and 17's, 18's and 20's 0) and summed in the ``{"kernels":
 [...]}`` JSON line, which is
 followed by the ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
@@ -196,6 +203,7 @@ FLAGSHIP = dict(model="CDGVAE", node=4, scm="linear", flow_num=1,
                 adjacency_scaling=True)
 BATCH, BETA, LAM, LR, EPOCHS = 128, 0.1, 5.0, 1e-3, 3
 N_SAMPLES = 4949  # its train split is 3,712 images = 29 batches of 128
+STUDY_N = 512  # phase 22's cut of the studies' DGP
 MAX_ABS_TOL, MEAN_ABS_TOL = 5e-5, 1e-6
 # at 512 px (renderer_cuda.MAX_SIZE) max |d| read 6.7e-5 on the case below
 # and 1.0e-4 on tests/test_torch_kernels.py's factors (H100); twice the
@@ -2412,6 +2420,77 @@ def library_options(*, card: str, dev, dataset, path_launches: dict,
           f"{time.perf_counter() - t0:.1f} s (host clock) [{card}]")
 
 
+def studies(*, card: str, dev, path_launches: dict) -> None:
+    """Phase 22: the studies of ``tools/`` cut (see the module
+    docstring)."""
+    from cdgvae_torch.data.pendulum_dr import PendulumDRDataset
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.tools import cdm_seeds, dr_sweep, online_seeds, se_seeds
+    from cdgvae_torch.train.online import train_split_size
+
+    t0 = time.perf_counter()
+    cut = dict(cdm_seeds.CONFIG, epochs=2, classifier_epochs=2,
+               n_samples=STUDY_N)
+    runs = {
+        "study jax init": (lambda: cdm_seeds.run_seed(
+            1, cut, device=dev, init="jax"), 1),
+        "se study": (lambda: se_seeds.run_seed(1, cut, device=dev), 3),
+        "online study": (lambda: online_seeds.run_seed(1, cut, device=dev),
+                         1 + 2 * (train_split_size(STUDY_N) // BATCH)),
+    }
+    results = {}
+    for path, (run, expected) in runs.items():
+        renderer_cuda.launches = 0
+        t1 = time.perf_counter()
+        results[path] = run()
+        torch.cuda.synchronize()
+        path_launches[path] = renderer_cuda.launches
+        print(f"{path}: {time.perf_counter() - t1:.1f} s; launches "
+              f"{{'render': {path_launches[path]}}} [{card}]")
+        check(path_launches[path] == expected, f"{path}: "
+              f"{path_launches[path]} render launches, not {expected}")
+    for path in ("study jax init", "online study"):
+        upper, lower = results[path]["upper"], results[path]["lower"]
+        zeros = [float(m[i][j]) for m in (upper, lower)
+                 for i, j in cdm_seeds.PROTECTED]
+        print(f"{path}: losses {np.round(results[path]['loss_curve'], 2)}, "
+              f"upper diagonal {np.round(np.diag(upper), 4).tolist()}, "
+              f"protected cells {zeros}")
+        check(np.isfinite(upper).all() and np.isfinite(lower).all()
+              and all(math.isfinite(v) for v in results[path]["loss_curve"]),
+              f"{path}: non-finite CDM or loss")
+        check(all(v == 0.0 for v in zeros),
+              f"{path}: the protected CDM cells are not exactly 0.0")
+    se = results["se study"]["record"]
+    print(f"se study: {se}")
+    check(all(math.isfinite(v) for v in se.values()),
+          f"se study: non-finite record {se}")
+
+    renderer_cuda.launches = 0
+    t1 = time.perf_counter()
+    dr_cut = dict(dr_sweep.CONFIG, epochs=2, n_samples=STUDY_N)
+    ds_tr, ds_te, ds_align = (
+        PendulumDRDataset(train=train, seed=1, n=STUDY_N,
+                          downstream=downstream, device=dev)
+        for train, downstream in ((True, True), (False, True),
+                                  (True, False)))
+    record = dr_sweep.run_config(0.1, 40.0, ds_align.x_data,
+                                 ds_align.y_data, ds_tr, ds_te, dr_cut,
+                                 seed=1, repeats=1, init="jax")
+    torch.cuda.synchronize()
+    path_launches["dr study"] = renderer_cuda.launches
+    print(f"dr study: {record}; {time.perf_counter() - t1:.1f} s; launches "
+          f"{{'render': {path_launches['dr study']}}} [{card}]")
+    check(path_launches["dr study"] == 3, f"dr study: "
+          f"{path_launches['dr study']} render launches, not 3")
+    check(all(math.isfinite(v) for v in (
+        record["final_loss"], record["avg_accuracy"],
+        record["worst_group_accuracy"], *record["bg_corr_per_latent"])),
+        f"dr study: non-finite record {record}")
+    print(f"phase 22 (the studies): {time.perf_counter() - t0:.1f} s (host "
+          f"clock) [{card}]")
+
+
 def flat_leaves(tree: dict) -> list:
     """The leaves of a nested dict, in key order."""
     return [leaf for k in sorted(tree) for leaf in (
@@ -3066,8 +3145,11 @@ def main() -> int:
     library_options(card=card, dev=dev, dataset=dataset,
                     path_launches=path_launches,
                     profiled_steps=profiled_steps)
+
+    # 22. the studies of tools/, cut
+    studies(card=card, dev=dev, path_launches=path_launches)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

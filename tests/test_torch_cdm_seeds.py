@@ -40,8 +40,9 @@ def test_cli_has_the_jax_scripts_flags_and_defaults():
     assert set(flags) == {"seeds", "scm", "semi", "model", "gamma",
                           "free_bits", "out"}
     got = vars(cdm_seeds.get_args([]))
-    assert set(got) == set(flags) | {"device"}
+    assert set(got) == set(flags) | {"device", "init", "first_seed"}
     assert got["device"] == "cuda"
+    assert got["init"] == "torch" and got["first_seed"] == 1
     for name, default in flags.items():
         if name != "out":  # each package writes under its own tree
             assert got[name] == default, name

@@ -12,7 +12,8 @@ on (its default): ``jax/_src/prng.py`` (``threefry_2x32``,
 On top of those draws it builds the trees that the pendulum family's
 ``init`` returns (``cdgvae_tpu/nn.py:27-35, 77-110``, ``ops/flows.py:
 36-40``, ``models/vae.py:77-89, 194-217``, ``models/classifier.py:27-29,
-51-54``), for ``utils/interop.py::load_jax_params``. With them the port
+51-54``) and the tabular CDG-VAE's and CDG-TVAE's (``models/tabular.py:
+114-130, 170-185``), for ``utils/interop.py::load_jax_params``. With them the port
 trains from the JAX package's initial parameters, so that a study on the
 card and the JAX package's run of the same seed start from one point.
 The planar flows of the nonlinear SCM draw ``jax.random.normal``, which
@@ -147,6 +148,29 @@ def pendulum_init(config: dict, seed: int, spurious: bool = False) -> dict:
             decoder["out"][f"w{j}"] = last["w"][j, :, c0:c1]
             decoder["out"][f"b{j}"] = last["b"][j, 0, c0:c1]
     tree["decoder"] = decoder
+    return tree
+
+
+def _mlp_sizes(mlp) -> list[int]:
+    """[in, ..., out] of a port ``nn.MLP``."""
+    layers = [getattr(mlp, f"layer{i}") for i in range(mlp.n_layers)]
+    return [layers[0].w.shape[0]] + [layer.w.shape[1] for layer in layers]
+
+
+def tabular_init(model, seed: int, scm: str = "linear") -> dict:
+    """The numpy tree of ``TabularCDGVAE.init`` or ``TVAE.init`` of
+    ``jax.random.key(seed)`` for the JAX model of the same configuration
+    as the port's ``model`` (``factory.build_tabular_model``), whose
+    widths it reads: the encoder, the causal graph, one MLP a decoder
+    block, and the TVAE's ``sigma`` at 0.1."""
+    keys = split(key(seed), model.K + 2)
+    tree = {"encoder": mlp_init(keys[0], _mlp_sizes(model.encoder)),
+            "causal": _causal_init(keys[1], {"scm": scm}, model.node),
+            "decoder": {f"block{i}": mlp_init(
+                keys[2 + i], _mlp_sizes(model.decoder[f"block{i}"]))
+                for i in range(model.K)}}
+    if hasattr(model, "sigma"):
+        tree["sigma"] = np.full((model.input_dim,), 0.1, np.float32)
     return tree
 
 

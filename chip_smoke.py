@@ -154,7 +154,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     ``online_seeds.run_seed`` (a render launch a step) and
     ``dr_sweep.run_config`` at lambda 40 with 1 robustness repeat, on
     the JAX init too; the results must be finite and the protected CDM
-    cells exactly 0.0, and each study's render launches are counted.
+    cells exactly 0.0, and each study's render launches are counted;
+    then the tabular study through ``python -m
+    cdgvae_torch.tools.tabular_seeds``'s ``main`` on loan, seed 1: the
+    CDG-VAE for 2 epochs and ``--tvae`` for 1, whose summaries (SHDs,
+    efficacy, losses) are printed and must be finite; they render
+    nothing: 0 launches each.
 
 The render kernel's launches are counted around each path (phases 4, 8,
 10-15, 19, 21 and 22, and 17's, 18's and 20's 0) and summed in the ``{"kernels":
@@ -2420,12 +2425,13 @@ def library_options(*, card: str, dev, dataset, path_launches: dict,
           f"{time.perf_counter() - t0:.1f} s (host clock) [{card}]")
 
 
-def studies(*, card: str, dev, path_launches: dict) -> None:
+def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
     """Phase 22: the studies of ``tools/`` cut (see the module
     docstring)."""
     from cdgvae_torch.data.pendulum_dr import PendulumDRDataset
     from cdgvae_torch.ops import renderer_cuda
-    from cdgvae_torch.tools import cdm_seeds, dr_sweep, online_seeds, se_seeds
+    from cdgvae_torch.tools import (cdm_seeds, dr_sweep, online_seeds,
+                                    se_seeds, tabular_seeds)
     from cdgvae_torch.train.online import train_split_size
 
     t0 = time.perf_counter()
@@ -2487,6 +2493,30 @@ def studies(*, card: str, dev, path_launches: dict) -> None:
         record["final_loss"], record["avg_accuracy"],
         record["worst_group_accuracy"], *record["bg_corr_per_latent"])),
         f"dr study: non-finite record {record}")
+
+    for path, flags in (("tabular study", ["--epochs", "2"]),
+                        ("tabular tvae study", ["--tvae", "--epochs", "1"])):
+        renderer_cuda.launches = 0
+        t1 = time.perf_counter()
+        out = work / f"{path.replace(' ', '_')}.json"
+        summary = tabular_seeds.main(["--datasets", "loan", "--seeds", "1",
+                                      "--out", str(out), *flags])
+        path_launches[path] = renderer_cuda.launches
+        loan = summary["loan"]
+        print(f"{path}: {time.perf_counter() - t1:.1f} s; summary "
+              f"{json.dumps({k: loan[k] for k in ('per_seed', 'efficacy_baseline', 'efficacy_rows')})}"
+              f", loss curve {np.round(loan['loss_curves'][0], 3).tolist()}, "
+              f"device {summary['device']}; launches {{'render': "
+              f"{path_launches[path]}}} [{card}]")
+        check(summary["card"] is not None and out.is_file(),
+              f"{path}: no card record or no summary file")
+        check(path_launches[path] == 0, f"{path}: the tabular study "
+              f"launched the render kernel {path_launches[path]} times")
+        (row,) = loan["per_seed"]
+        check(all(math.isfinite(v) for v in (
+            row["final_loss"], row["efficacy_synthetic"],
+            *loan["loss_curves"][0])) and row["shd_sample"] >= 0,
+            f"{path}: non-finite summary {row}")
     print(f"phase 22 (the studies): {time.perf_counter() - t0:.1f} s (host "
           f"clock) [{card}]")
 
@@ -3147,7 +3177,7 @@ def main() -> int:
                     profiled_steps=profiled_steps)
 
     # 22. the studies of tools/, cut
-    studies(card=card, dev=dev, path_launches=path_launches)
+    studies(work=work, card=card, dev=dev, path_launches=path_launches)
     shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")

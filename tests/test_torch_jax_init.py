@@ -13,11 +13,12 @@ import torch
 
 from cdgvae_tpu.data.pendulum import PendulumDataset as JaxDataset
 from cdgvae_tpu.factory import build_pendulum_model as jax_build
+from cdgvae_tpu.factory import build_tabular_model as jax_build_tabular
 from cdgvae_tpu.models.classifier import FactorClassifier as JaxClassifier
 from cdgvae_tpu.cli.main_classifier import classifier_masks as jax_masks
 from cdgvae_tpu.train import steps as jax_steps
 
-from cdgvae_torch.factory import build_pendulum_model
+from cdgvae_torch.factory import build_pendulum_model, build_tabular_model
 from cdgvae_torch.models.classifier import FactorClassifier
 from cdgvae_torch.tools import jax_init
 from cdgvae_torch.tools.cdm_seeds import CONFIG, build_model
@@ -69,6 +70,27 @@ def test_pendulum_init_equals_jax_init(case):
     tm, _ = build_pendulum_model(config, spurious=spurious, device="cpu")
     load_jax_params(tm, ours)
     _assert_trees_equal(export_params(tm), ours)
+
+
+# the TVAE at loan's widths: the transformer that load_tabular_tvae fits
+# on the synthetic loan table at random state 1 (the tabular study's seed
+# 1) encodes 52 columns, 19, 22 and 11 a decoder block
+@pytest.mark.parametrize("config", [
+    dict(model="CDGVAE", dataset="loan"),
+    dict(model="CDGVAE", dataset="adult"),
+    dict(model="CDGVAE", dataset="covtype"),
+    dict(model="TVAE", dataset="loan", input_dim=52, tvae_mask=[19, 22, 11]),
+], ids=["loan", "adult", "covtype", "tvae-loan"])
+def test_tabular_init_equals_jax_init(config):
+    config = dict(config, scm="linear", flow_num=1, inverse_loop=100,
+                  adjacency_scaling=True)
+    for seed in (1, 5):
+        jm, _ = jax_build_tabular(dict(config))
+        tm, _ = build_tabular_model(dict(config), device="cpu", seed=seed)
+        ours = jax_init.tabular_init(tm, seed)
+        _assert_trees_equal(ours, jm.init(jax.random.key(seed)))
+        load_jax_params(tm, ours)
+        _assert_trees_equal(export_params(tm), ours)
 
 
 def test_discriminator_and_classifier_init_equal_jax_init():

@@ -17,7 +17,12 @@ and skip without a card:
   bit, to the epoch on its dequantised float32 copy;
 - ``cli.celeba_main --resume`` from epoch 2 to 3 equal, bit for bit, to
   the uninterrupted 3-epoch run, f32 and bf16 (32 px, conv_dim 4): the
-  trainer runs cuDNN's deterministic algorithms.
+  trainer runs cuDNN's deterministic algorithms;
+- the online DGP drawn from the card's generators as the trainer seeds
+  them, 64 steps of 2,048 rows, against the same steps on CPU generators
+  (which ``tests/test_torch_online.py`` holds to the JAX package's draws):
+  each column's two-sample KS statistic under the alpha = 1e-3 critical
+  value 1.95 sqrt(2 / n).
 """
 import numpy as np
 import pytest
@@ -28,7 +33,9 @@ from cdgvae_torch.factory import build_pendulum_model
 from cdgvae_torch.train.loop import run_epochs
 from cdgvae_torch.train.scanned import quantize_images, unflatten_items
 from cdgvae_torch.train.steps import make_optimizer, make_train_step
+from cdgvae_torch.train.online import sample_factors_device
 from cdgvae_torch.utils.checkpoint import load_checkpoint
+from cdgvae_torch.utils.simulation import ONLINE_STEP, derived_seed
 
 SMALL = dict(model="CDGVAE", node=4, scm="linear", flow_num=1,
              inverse_loop=100, factor=[1, 1, 2], image_size=16,
@@ -131,3 +138,26 @@ def test_celeba_resume_on_the_card_equals_uninterrupted(cuda_device, dtype,
     assert la.keys() == lb.keys()
     for k in la:
         np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_online_dgp_on_the_card_draws_the_cpu_distribution(cuda_device):
+    steps, rows = 64, 2048
+
+    def draw(device):
+        g = torch.Generator(device=device)
+        out = []
+        for i in range(steps):
+            g.manual_seed(derived_seed(1001, ONLINE_STEP, i))
+            out.append(sample_factors_device(g, rows).cpu().numpy())
+        return np.concatenate(out)
+
+    card, cpu = draw(cuda_device), draw("cpu")
+    n = steps * rows
+    crit = 1.95 * np.sqrt(2.0 / n)
+    for col in range(card.shape[1]):
+        a, b = np.sort(card[:, col]), np.sort(cpu[:, col])
+        grid = np.concatenate([a, b])
+        d = np.abs(np.searchsorted(a, grid, side="right")
+                   - np.searchsorted(b, grid, side="right")).max() / n
+        assert d < crit, (col, d, crit)

@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from cdgvae_tpu.data.pendulum import shadow_physics as jshadow_physics
 from cdgvae_tpu.ops.renderer import render as jax_render
 from cdgvae_tpu.train import online as jonline
 from cdgvae_torch.models import vae as tvae
@@ -25,6 +26,7 @@ from cdgvae_torch.ops.causal import CausalGraph
 from cdgvae_torch.factory import pendulum_B
 from cdgvae_torch.train import online as tonline
 from cdgvae_torch.train.steps import make_optimizer
+from cdgvae_torch.utils.simulation import ONLINE_STEP, derived_seed
 
 
 def _jax_draws(rng, n):
@@ -118,3 +120,94 @@ def test_online_run_trains_and_is_deterministic():
     torch.testing.assert_close(again, m1, rtol=0, atol=0)
     other, _ = _run(seed=1, step0=100)
     assert not torch.equal(other, m1)
+
+
+# The online DGP as a distribution: the rows the port's trainer draws
+# (one CPU generator a step, seeded ``derived_seed(seed, ONLINE_STEP,
+# step)``) against the rows the JAX trainer draws (the data half of
+# ``jax.random.split(fold_in(key(seed), step))``), 64 steps of 2,048 rows
+# each, seed 1001 (study seed 1's training seed). Each column's two-sample
+# KS statistic must be under the alpha = 1e-3 critical value 1.95 sqrt(2 /
+# n); the target's mean and the share of rows off the shadow physics (the
+# corrupted rows) must agree within 4 standard errors of the difference.
+DIST_STEPS, DIST_ROWS, DIST_SEED = 64, 2048, 1001
+
+
+def _ks(a, b):
+    """The two-sample Kolmogorov-Smirnov statistic of equal-size samples."""
+    a, b = np.sort(a), np.sort(b)
+    grid = np.concatenate([a, b])
+    return float(np.abs(np.searchsorted(a, grid, side="right")
+                        - np.searchsorted(b, grid, side="right")).max()
+                 / len(a))
+
+
+def _off_physics(f):
+    """Rows whose length or position lies more than 6 noise sigmas (0.6)
+    from the shadow of their light and angle: the corrupted rows, less the
+    few resampled values that land near the physics."""
+    length, position = jshadow_physics(f[:, 0].astype(np.float64),
+                                       f[:, 1].astype(np.float64))
+    return (np.abs(f[:, 2] - length) > 0.6) | (np.abs(f[:, 3] - position)
+                                                > 0.6)
+
+
+def _assert_same_distribution(jax_rows, port_rows, binary):
+    n = len(jax_rows)
+    assert port_rows.shape == jax_rows.shape == (DIST_STEPS * DIST_ROWS,
+                                                 jax_rows.shape[1])
+    crit = 1.95 * math.sqrt(2.0 / n)
+    for col in range(jax_rows.shape[1]):
+        d = _ks(jax_rows[:, col], port_rows[:, col])
+        assert d < crit, (col, d, crit)
+
+    def share(a, b):
+        p = (a.mean() + b.mean()) / 2
+        return abs(a.mean() - b.mean()), 4 * math.sqrt(p * (1 - p) * 2 / n)
+
+    for col in binary:
+        diff, bound = share(jax_rows[:, col], port_rows[:, col])
+        assert diff < bound, (col, diff, bound)
+    corrupt_j, corrupt_t = _off_physics(jax_rows), _off_physics(port_rows)
+    assert 0.15 < corrupt_t.mean() < 0.2
+    diff, bound = share(corrupt_j, corrupt_t)
+    assert diff < bound, (diff, bound)
+
+
+def _jax_rows(sample):
+    base = jax.random.key(DIST_SEED)
+    draw = jax.jit(lambda i: sample(jax.random.split(
+        jax.random.fold_in(base, i))[0]))
+    return np.concatenate([np.asarray(draw(i)) for i in range(DIST_STEPS)])
+
+
+def _port_rows(sample):
+    g = torch.Generator()
+    rows = []
+    for i in range(DIST_STEPS):
+        g.manual_seed(derived_seed(DIST_SEED, ONLINE_STEP, i))
+        rows.append(sample(g).numpy())
+    return np.concatenate(rows)
+
+
+def test_online_dgp_draws_the_jax_distribution():
+    want = _jax_rows(lambda k: jonline.sample_factors_device(k, DIST_ROWS))
+    got = _port_rows(lambda g: tonline.sample_factors_device(g, DIST_ROWS))
+    _assert_same_distribution(want, got, binary=[4])
+
+
+def test_online_dr_dgp_draws_the_jax_distribution():
+    mu4_j = jonline.dr_label_norm_stats(seed=1)[0]
+    mu4_t = tonline.dr_label_norm_stats(seed=1)[0]
+    want = _jax_rows(lambda k: jonline.sample_factors_dr_device(
+        k, DIST_ROWS, mu4_j))
+    got = _port_rows(lambda g: tonline.sample_factors_dr_device(
+        g, DIST_ROWS, mu4_t))
+    _assert_same_distribution(want, got, binary=[4, 5])
+
+
+def test_online_steps_of_a_study_seed_draw_distinct_seeds():
+    steps = 100 * (tonline.train_split_size(10000) // 128)
+    assert steps == 5800
+    seeds = {derived_seed(DIST_SEED, ONLINE_STEP, i) for i in range(steps)}
+    assert len(seeds) == steps

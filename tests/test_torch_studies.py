@@ -1,9 +1,9 @@
 """The studies of ``cdgvae_torch/tools/`` against the JAX package's
-scripts: ``se_seeds``, ``online_seeds`` and ``dr_sweep`` take the same
-flags with the same defaults (plus ``--device``, ``--init`` and
-``--first_seed``) and write every key of the JAX script's summary, in a
-CPU run cut to 1 seed, 1 epoch and 256 samples (DR: one configuration, 1
-repeat); ``cdm_seeds --init jax`` trains from the JAX package's initial
+scripts: ``se_seeds``, ``online_seeds``, ``dr_sweep`` and
+``tabular_seeds`` take the same flags with the same defaults (plus
+``--device``, ``--init`` and ``--first_seed``) and write every key of the
+JAX script's summary, in a CPU run cut to 1 seed, 1 epoch and 256 samples
+(DR: one configuration, 1 repeat; tabular: loan, 1 epoch); ``cdm_seeds --init jax`` trains from the JAX package's initial
 parameters with the protected CDM cells exactly 0.0; and
 ``cdm_seeds.merge_summaries`` of two calls equals one call over both
 seeds. The JAX scripts' flags and keys are read from their source."""
@@ -15,7 +15,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from cdgvae_torch.tools import cdm_seeds, dr_sweep, online_seeds, se_seeds
+from cdgvae_torch.tools import (cdm_seeds, dr_sweep, online_seeds, se_seeds,
+                                tabular_seeds)
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 CUT = dict(cdm_seeds.CONFIG, epochs=1, n_samples=256, classifier_epochs=1)
@@ -27,13 +28,15 @@ STUDIES = {
     "se_seeds": (se_seeds, "summary", ["--epochs", "1", "--n", "256"]),
     "online_seeds": (online_seeds, "out", []),
     "dr_sweep": (dr_sweep, "run_config", ["--lams", "40", "--repeats", "1"]),
+    "tabular_seeds": (tabular_seeds, "all_results",
+                      ["--datasets", "loan", "--epochs", "1"]),
 }
 
 
 def _jax_script(name: str, holder: str):
     """({flag: default}, summary keys) of ``scripts/<name>.py``: the keys
-    of the dict assigned to ``holder``, or returned by the function
-    ``holder``; the keys a ``**`` spreads are left out."""
+    of every dict assigned to ``holder`` or to ``holder[...]``, or returned
+    by the function ``holder``; the keys a ``**`` spreads are left out."""
     tree = ast.parse((SCRIPTS / f"{name}.py").read_text())
     flags, keys = {}, set()
     for node in ast.walk(tree):
@@ -43,9 +46,13 @@ def _jax_script(name: str, holder: str):
             default = ast.literal_eval(kw["default"]) if "default" in kw \
                 else False  # store_true
             flags[node.args[0].value.lstrip("-")] = default
-        if (isinstance(node, ast.Assign)
-                and getattr(node.targets[0], "id", "") == holder):
-            keys = {k.value for k in node.value.keys if k is not None}
+        if isinstance(node, ast.Assign):
+            target = node.targets[0]
+            if isinstance(target, ast.Subscript):
+                target = target.value
+            if (getattr(target, "id", "") == holder
+                    and isinstance(node.value, ast.Dict)):
+                keys |= {k.value for k in node.value.keys if k is not None}
         if isinstance(node, ast.FunctionDef) and node.name == holder:
             ret = [n for n in ast.walk(node) if isinstance(n, ast.Return)]
             keys = {k.value for k in ret[-1].value.keys if k is not None}
@@ -66,15 +73,18 @@ def test_study_has_the_jax_flags_and_writes_its_summary(name, tmp_path,
     assert Path(got["out"]).name == f"{name}.json"
     assert Path(got["out"]).parent == Path(cdm_seeds.RESULTS)
 
-    monkeypatch.setattr(tool, "CONFIG", dict(
-        tool.CONFIG, epochs=1, n_samples=256, classifier_epochs=1,
-        robustness_epochs=5))
+    if hasattr(tool, "CONFIG"):  # the pendulum studies' protocol
+        monkeypatch.setattr(tool, "CONFIG", dict(
+            tool.CONFIG, epochs=1, n_samples=256, classifier_epochs=1,
+            robustness_epochs=5))
     out = tmp_path / f"{name}.json"
     tool.main(["--seeds", "1", "--device", "cpu", "--out", str(out),
                *cut_flags])
     summary = json.loads(out.read_text())
     records = summary if name == "dr_sweep" else [summary]
     assert len(records) == 1
+    if name == "tabular_seeds":  # the dataset's keys are nested under it
+        records = [{**summary, **summary["loan"]}]
     for record in records:
         assert keys <= set(record)
         assert record["device"] == "cpu" and record["card"] is None
@@ -86,6 +96,15 @@ def test_study_has_the_jax_flags_and_writes_its_summary(name, tmp_path,
                                  "sample_efficiency"}
         assert all(0.0 <= v <= 1.0 for v in (per_seed["accuracy_100"],
                                              per_seed["accuracy_all"]))
+    elif name == "tabular_seeds":
+        _, row_keys = _jax_script(name, "out")
+        (row,) = summary["loan"]["per_seed"]
+        assert set(row) == row_keys and row["seed"] == 1
+        assert summary["loader_branch"] == "synthetic-fallback"
+        assert summary["loan"]["task"] == "regression"
+        assert summary["loan"]["efficacy_rows"] == ["linear"]
+        assert len(summary["loan"]["loss_curves"][0]) == 1
+        assert row["shd_train"] >= 0 and row["shd_sample"] >= 0
     elif name == "online_seeds":
         upper = np.asarray(summary["upper_per_seed"])
         assert upper.shape == (1, 4, 4) and np.isfinite(upper).all()
@@ -144,3 +163,43 @@ def test_merge_summaries_equals_one_call(tmp_path, monkeypatch):
         assert merged[key] == both[key], key
     with pytest.raises(ValueError, match="repeats"):
         cdm_seeds.merge_summaries([paths[0], paths[0]])
+
+
+def test_tabular_seeds_tvae_on_the_fixture_corpus_from_the_jax_init(tmp_path):
+    out = tmp_path / "tvae.json"
+    summary = tabular_seeds.main([
+        "--tvae", "--datasets", "loan", "--seeds", "1", "--first_seed", "2",
+        "--epochs", "1", "--init", "jax", "--fixture_corpus", "--data_dir",
+        str(tmp_path / "corpus"), "--device", "cpu", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(summary))
+    assert summary["loader_branch"] == "real-csv" and summary["init"] == "jax"
+    assert (tmp_path / "corpus" / "Bank_Personal_Loan_Modelling.csv").exists()
+    (row,) = summary["loan"]["per_seed"]
+    assert set(row) == {"seed", "train_s", "final_loss", "shd_sample",
+                        "efficacy_synthetic"} and row["seed"] == 2
+    assert all(math.isfinite(v) for v in _numbers(summary))
+
+
+def test_tabular_merge_summaries_joins_seeds(tmp_path):
+    def part(seeds, shd):
+        rows = [{"seed": s, "train_s": 1.0, "final_loss": 2.0,
+                 "shd_train": 1, "shd_sample": v, "efficacy_synthetic": v / 10}
+                for s, v in zip(seeds, shd)]
+        summary = {"loader_branch": "synthetic-fallback", "data_dir": "",
+                   "adult": tabular_seeds.dataset_summary(
+                       "classification", 0.8, rows, [[3.0]] * len(rows),
+                       ["logistic"]),
+                   "init": "torch", "device": "cpu", "card": None}
+        path = tmp_path / f"p{seeds[0]}.json"
+        path.write_text(json.dumps(summary))
+        return str(path)
+
+    merged = tabular_seeds.merge_summaries([part([1, 2], [2, 4]),
+                                            part([3], [6])])
+    assert [r["seed"] for r in merged["adult"]["per_seed"]] == [1, 2, 3]
+    assert merged["adult"]["shd_sample_mean"] == 4.0
+    assert merged["adult"]["efficacy_synthetic_mean"] == 0.4
+    assert len(merged["adult"]["loss_curves"]) == 3
+    assert merged["card"] is None and "loan" not in merged
+    with pytest.raises(ValueError, match="repeats"):
+        tabular_seeds.merge_summaries([part([1], [2]), part([1], [3])])

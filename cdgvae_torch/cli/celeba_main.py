@@ -31,8 +31,13 @@ as on the CPU (``--resume`` equals the uninterrupted run).
 the packed layout (``ops/packing.py``): the small trained parameters are
 views of one flat buffer per dtype, which Adam steps, and in bfloat16 each
 buffer is cast once a step; the checkpoint is the same either way, so
-either setting resumes the other. ``--chunk`` (epochs a TPU dispatch; the
-port syncs once an epoch) is accepted and recorded, and selects nothing.
+either setting resumes the other. On a CUDA device, without ``--eager``
+or ``--dp``, each phase's epochs replay one CUDA graph a step
+(``train/scanned.py::make_epoch_runner``), equal to the eager epochs bit
+for bit; the CPU runs them eagerly. ``--chunk`` (the JAX package's epochs
+a device dispatch) is accepted and recorded, and selects nothing: the
+graph is captured once a phase, the host syncs once an epoch, and the
+checkpoint and figure epochs are ``--ckpt_every``'s.
 ``--dp N`` trains on N ranks (``cli/common.py``), ``sn_refresh`` after
 every step on each: the epoch trainer normalises each rank's batch with
 its own BatchNorm statistics, as the JAX package's sharded trainer does,
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from functools import partial
 
 import numpy as np
 import torch
@@ -56,6 +62,7 @@ from ..ops.packing import Packer
 from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.celeba_steps import make_celeba_step
 from ..train.loop import format_epoch, run_epochs, train_epoch
+from ..train.scanned import NoisePlan
 from ..train.steps import make_optimizer
 from ..utils.checkpoint import AsyncCheckpointer, save_checkpoint
 from ..utils.device import resolve_device
@@ -66,7 +73,7 @@ from ..utils.simulation import (EPOCH, VIZ_NOISE, derived_generator,
                                 set_random_seed)
 from ..utils.viz import viz_recon_grid
 from .common import (add_infra_args, add_resume_arg, apply_resume,
-                     arg_as_bool, train_on_mesh)
+                     arg_as_bool, graphed_epochs, train_on_mesh)
 
 
 def get_args(argv=None):
@@ -121,8 +128,9 @@ def get_args(argv=None):
                              "losses and optimizer stay float32)")
     parser.add_argument("--chunk", default=10, type=int,
                         help="accepted and recorded; selects nothing here "
-                             "(epochs a TPU dispatch; the port syncs once "
-                             "an epoch)")
+                             "(epochs a device dispatch in the JAX package; "
+                             "the port replays a CUDA graph a step and "
+                             "syncs once an epoch)")
     parser.add_argument("--ckpt_every", default=10, type=int,
                         help="epochs between mid-run checkpoint and recon "
                              "saves, on epoch e where (e + 1) %% N == 0; "
@@ -186,7 +194,9 @@ def train(config: dict, mesh=None):
             print("imported torchvision trunk from "
                   f"{config['torch_weights']}")
     packer = Packer(model) if config["packed_params"] else None
-    optimizer = make_optimizer(model, config["lr"], packer=packer)
+    graphed = graphed_epochs(config, device, mesh)
+    optimizer = make_optimizer(model, config["lr"], packer=packer,
+                               capturable=graphed)
     stacked = config["stacked_decoder"]
 
     def canonical(ck):
@@ -288,7 +298,9 @@ def train(config: dict, mesh=None):
                 run_epochs(step, x_data, y_data, seed=seed, epochs=e1,
                            batch_size=bs, start_epoch=e0, on_epoch=on_epoch,
                            post_epoch=post_epoch, post_epoch_pred=ckpt_due,
-                           post_update=refresh, mesh=mesh)
+                           post_update=refresh, mesh=mesh,
+                           graph_noise=partial(NoisePlan, model, dtype=dtype)
+                           if graphed else None)
 
     if not main_rank:
         logger.finish()

@@ -236,18 +236,29 @@ def apply_resume(config: dict, state: tuple, prepare=None, mesh=None):
 
 
 def run_scanned_training(config, *, step, data, start_epoch=0, on_epoch=None,
-                         post_epoch=None, post_epoch_pred=None, mesh=None):
+                         post_epoch=None, post_epoch_pred=None, mesh=None,
+                         graph_noise=None):
     """The fixed-dataset training branch: ``train.loop.run_epochs`` over
     ``data = (x, y)`` from ``start_epoch`` to ``config['epochs']``; under a
     ``mesh`` the sharded trainer (``step`` averaging over the same
-    mesh)."""
+    mesh); with ``graph_noise`` each step replays a CUDA graph
+    (``train/scanned.py::make_epoch_runner``)."""
     x, y = data
     return run_epochs(step, x, y, seed=config["seed"],
                       epochs=config["epochs"],
                       batch_size=config["batch_size"],
                       start_epoch=start_epoch, on_epoch=on_epoch,
                       post_epoch=post_epoch, post_epoch_pred=post_epoch_pred,
-                      mesh=mesh)
+                      mesh=mesh, graph_noise=graph_noise)
+
+
+def graphed_epochs(config: dict, device: torch.device, mesh=None) -> bool:
+    """Whether the fixed-dataset epochs run as CUDA-graph replays: on a
+    CUDA device, one device, not ``--eager`` nor ``--online``. The CPU
+    stays eager, so a resumed CPU run equals the uninterrupted run bit
+    for bit. The optimizer is then built ``capturable``."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and not config.get("eager") and not config.get("online"))
 
 
 def run_scanned_training_semi(config, *, step, data, start_epoch=0,

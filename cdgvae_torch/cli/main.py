@@ -15,9 +15,11 @@ epochs and at the end. InfoMax trains the VAE with the MI discriminator
 (its checkpoint carries ``extras={"d_params", "opt_state_d"}``) and, as in
 the reference, skips the mid-run checkpoints. ``--resume`` continues from
 a checkpoint of either package. ``--eager`` runs the per-batch protocol
-that keeps the last partial batch. ``--data_dir`` trains on a
-reference-format PNG tree (``cli/generate_data.py`` writes one) instead
-of the rendered DGP. ``--dp N`` trains on N ranks (``cli/common.py``),
+that keeps the last partial batch. On a CUDA device the VAE and CDG-VAE
+epochs on a fixed dataset replay one CUDA graph a step
+(``cli/common.py::graphed_epochs``), equal to the eager epochs.
+``--data_dir`` trains on a reference-format PNG tree
+(``cli/generate_data.py`` writes one) instead of the rendered DGP. ``--dp N`` trains on N ranks (``cli/common.py``),
 InfoMax then with the ``"roll"`` marginal on each rank's batch.
 ``--wandb`` logs the metrics but publishes no model artifact, which needs
 a network.
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from functools import partial
 
 import numpy as np
 import torch
@@ -36,6 +39,7 @@ from ..factory import build_pendulum_model
 from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, train_epoch
 from ..train.online import dr_batch_fn, pendulum_batch_fn
+from ..train.scanned import NoisePlan
 from ..train.steps import (make_infomax_loss_fn, make_infomax_step,
                            make_optimizer, make_train_step,
                            pair_infomax_optimizer)
@@ -48,7 +52,7 @@ from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
                                 derived_generator, set_random_seed)
 from ..utils.viz import viz_recon_grid
 from .common import (add_infra_args, add_png_data_dir_arg, add_resume_arg,
-                     apply_resume, arg_as_bool, arg_as_list,
+                     apply_resume, arg_as_bool, arg_as_list, graphed_epochs,
                      run_online_training, run_scanned_training,
                      train_on_mesh)
 
@@ -160,7 +164,10 @@ def train(config: dict, mesh=None):
             data_dir=config.get("data_dir") or None)
     model, discriminator = build_pendulum_model(config, spurious=dr,
                                                 device=device, seed=seed)
-    optimizer = make_optimizer(model, config["lr"])
+    # the pendulum supervised epochs replay CUDA graphs on the card; the
+    # InfoMax pair and the DR family stay eager
+    graphed = graphed_epochs(config, device, mesh) and not infomax and not dr
+    optimizer = make_optimizer(model, config["lr"], capturable=graphed)
     beta, lam = config["beta"], config["lambda"]
     if infomax:
         optimizer_d = make_optimizer(discriminator, config["lr_D"])
@@ -255,7 +262,8 @@ def train(config: dict, mesh=None):
             run_scanned_training(
                 config, step=step, data=(dataset.x_data, dataset.y_data),
                 start_epoch=start_epoch, on_epoch=on_epoch,
-                post_epoch=post_epoch, post_epoch_pred=pred, mesh=mesh)
+                post_epoch=post_epoch, post_epoch_pred=pred, mesh=mesh,
+                graph_noise=partial(NoisePlan, model) if graphed else None)
         else:
             for epoch in range(start_epoch, config["epochs"]):
                 metrics = train_epoch(

@@ -122,6 +122,26 @@ class CelebACDGVAE(nn.Module):
     def graph(self) -> CausalGraph:
         return self.causal
 
+    def noise_shapes(self, batch_size: int) -> list[tuple]:
+        """What a sampling forward draws, in its order: eps1, eps2, then
+        every noise site of generator 0, 1, ... as [B, 1, H, W]
+        (``train/scanned.py::NoisePlan``)."""
+        return [(batch_size, self.node), (batch_size, self.latent_dim),
+                *(s for i in range(self.K)
+                  for s in self.decoder[f"gen{i}"].noise_shapes(batch_size))]
+
+    def pack_noise(self, buffers: list) -> CelebANoise:
+        """:meth:`noise_shapes`' buffers as a :class:`CelebANoise` (each
+        site's map viewed as its [B, H, W, 1] draw)."""
+        eps1, eps2, *sites = buffers
+        decoder = []
+        for i in range(self.K):
+            n = len(self.decoder[f"gen{i}"].noise_shapes(1))
+            decoder.append([t.view(t.shape[0], *t.shape[2:], 1)
+                            for t in sites[:n]])
+            sites = sites[n:]
+        return CelebANoise(eps1, eps2, decoder)
+
     def get_posterior(self, x: torch.Tensor):
         """x [B, H, W, >=3]; the encoder sees the RGB channels."""
         rgb = x[..., :3].permute(0, 3, 1, 2).contiguous(

@@ -325,6 +325,17 @@ class Generator(nn.Module):
         self.bn = BatchNorm(final_ch, device=device)
         self.toRGB = SNConv(final_ch, out_channels, 3, **kw)
 
+    def noise_shapes(self, batch_size: int) -> list[tuple]:
+        """Each noise site's [B, 1, H, W] map, in the order the forward
+        draws them."""
+        shapes = [(batch_size, 1, 4, 4)] if self.block0.noise is not None \
+            else []
+        for i in range(len(self.blocks)):
+            if getattr(self, f"block{i + 1}").add_noise:
+                side = 4 << (i + 1)
+                shapes += [(batch_size, 1, side, side)] * 2
+        return shapes
+
     def forward(self, z: torch.Tensor, noise: Noise) -> torch.Tensor:
         x = self.block0(z, noise)
         for i in range(len(self.blocks)):

@@ -51,7 +51,19 @@ def default_block_indices(factor: Sequence[int]) -> list[list[int]]:
     return out
 
 
-class VAE(nn.Module):
+class _EpsilonNoise:
+    """What a pendulum model's training forward draws: epsilon's
+    [batch, node] normal (``train/scanned.py::NoisePlan``)."""
+
+    def noise_shapes(self, batch_size: int) -> list[tuple]:
+        return [(batch_size, self.node)]
+
+    @staticmethod
+    def pack_noise(buffers: list):
+        return buffers[0]
+
+
+class VAE(_EpsilonNoise, nn.Module):
     """Baseline VAE: MLP encoder/decoder + causal latent layer."""
 
     def __init__(self, graph: CausalGraph, image_size: int = 64,
@@ -113,7 +125,7 @@ class VAE(nn.Module):
                          align_latent, None, xhat)
 
 
-class CDGVAE(nn.Module):
+class CDGVAE(_EpsilonNoise, nn.Module):
     """CDG-VAE: shared encoder + K masked per-factor GAM decoders.
 
     ``masks``: [K, H, W, 3] spatial masks. ``block_indices``: which latent

@@ -8,11 +8,13 @@ From the root of a checkout (no card, no JAX):
 reads ``cdgvae_torch/tools/results/`` and ``docs/results/`` and prints one
 JSON object a rule:
 
-- ``lost`` (items 22 and 25): a factor is lost in a seed when its CDM
-  upper diagonal is under 0.5; the lost factor-seeds of the port's runs
-  against the JAX package's, out of 4 × seeds, with the two-sided Fisher
-  exact p (:func:`fisher_exact`) and which factors were lost. The rule
-  closes the item when p >= 0.05;
+- ``lost`` (items 22, 25 and 28): a factor is lost in a seed when its
+  CDM upper diagonal is under 0.5; the lost factor-seeds of the port's
+  runs against the JAX package's, out of 4 × seeds, with the two-sided
+  Fisher exact p (:func:`fisher_exact`) and which factors were lost. The
+  rule closes the item when p >= 0.05. Item 28 (the free-bits variants:
+  the port's 20 seeds, ``cdm_seeds_h100_freebits<A>_s20.json``, against
+  JAX's CPU runs and its TPU file) is also counted for angle alone;
 - ``light`` (item 26): the port's mean online light against the pooled
   JAX online mean ± 3 pooled std;
 - ``variants`` (item 24): each CDM variant's largest protected cell and
@@ -27,14 +29,20 @@ JSON object a rule:
   exceeds 0.65, the port's 20 against the JAX package's 20, by Fisher's
   test;
 - ``jax_init_online``: each seed's diagonal of the port's online runs
-  from the JAX init beside the JAX CPU run of the same seed.
+  from the JAX init beside the JAX CPU run of the same seed;
+- ``item 27`` (the CelebA study, ``celeba_study_<arm>_h100.json``):
+  each entry of the port's mean latent-attribute diagonal against the
+  JAX run's mean ± 3 std, or ± 0.1 where the JAX run has one seed, and
+  the do-leakage exactly 0.0.
 
-``--merge_jax_cdm BASE RUN...`` and ``--merge_jax_online RUN...`` first
-write the JAX CPU summaries from ``jax_reference_runs.py``'s per-seed
-files (``--train_keys`` and ``--online`` runs): the first joins the
+``--merge_jax_cdm BASE RUN...``, ``--merge_jax_online RUN...`` and
+``--merge_jax_freebits A RUN...`` first write the JAX CPU summaries from
+``jax_reference_runs.py``'s per-seed files (``--train_keys``,
+``--online`` and ``--free_bits A`` runs): the first joins the
 ``scripts/cdm_seeds.py`` summary ``BASE`` with the runs into
 ``cdm_seeds_jax_cpu_s15.json``, the second the online runs into
-``online_seeds_jax_cpu.json``.
+``online_seeds_jax_cpu.json``, the third the free-bits runs into
+``cdm_seeds_freebits{025,100}_jax_cpu.json``.
 """
 from __future__ import annotations
 
@@ -52,6 +60,10 @@ DOCS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 FACTORS = ("light", "angle", "length", "position")
 LOST = 0.5
 VARIANTS = ("semi", "vae", "infomax", "freebits025", "freebits100")
+FREE_BITS = {"freebits025": 0.25, "freebits100": 1.0}
+# the CelebA study's arms on the card, and the JAX package's runs of each
+CELEBA_ARMS = {"frozenrand_lam2000": "celeba_study_frozenrand_lam2000.json",
+               "headline": "celeba_study.json"}
 
 
 def fisher_exact(a: int, b: int, c: int, d: int) -> float:
@@ -81,18 +93,22 @@ def diagonals(summary: dict) -> np.ndarray:
     return np.stack([np.diag(u) for u in uppers])
 
 
-def lost_count(diags: np.ndarray) -> dict:
+def lost_count(diags: np.ndarray, factors=FACTORS) -> dict:
     lost = diags < LOST
     return {"lost": int(lost.sum()), "of": int(lost.size),
             "seeds": int(len(diags)),
-            "by_factor": {f: int(n) for f, n in zip(FACTORS, lost.sum(0))}}
+            "by_factor": {f: int(n) for f, n in zip(factors, lost.sum(0))}}
 
 
-def lost_rule(port: list, jax: list) -> dict:
+def lost_rule(port: list, jax: list, factor: str | None = None) -> dict:
     """Fisher's test of the lost factor-seeds of the ``port`` summaries
-    against the ``jax`` ones."""
-    p = lost_count(np.concatenate([diagonals(s) for s in port]))
-    j = lost_count(np.concatenate([diagonals(s) for s in jax]))
+    against the ``jax`` ones; with a ``factor``, of that factor alone."""
+    cols = [FACTORS.index(factor)] if factor else slice(None)
+    names = [factor] if factor else FACTORS
+    p = lost_count(np.concatenate([diagonals(s)[:, cols] for s in port]),
+                   names)
+    j = lost_count(np.concatenate([diagonals(s)[:, cols] for s in jax]),
+                   names)
     pv = fisher_exact(p["lost"], p["of"] - p["lost"], j["lost"],
                       j["of"] - j["lost"])
     return {"port": p, "jax": j, "p": pv, "closes": pv >= 0.05}
@@ -185,11 +201,36 @@ def informative_rule(port: dict, jax: dict, above: float = 0.65) -> dict:
             "closes": pv >= 0.05, "port_f1": own, "jax_f1": ref}
 
 
-def merge_jax_cdm(base: str, runs: list, out: str) -> dict:
-    """``scripts/cdm_seeds.py``'s summary ``base`` joined with
-    ``jax_reference_runs.py --train_keys seed+1000`` runs of more seeds,
-    in :func:`cdm_seeds.summarize`'s layout."""
-    first = load(base)
+def celeba_rule(port: dict, jax: dict) -> dict:
+    """Item 27: each entry of the port's CelebA study's mean diagonal
+    against the JAX run's mean ± 3 std, or ± 0.1 where the JAX run has one
+    seed; each port seed's entries inside the band are counted too."""
+    one = len(jax["per_seed"]) == 1
+    half = np.full(len(jax["diag_mean"]), 0.1) if one \
+        else 3 * np.asarray(jax["diag_std"])
+    lo, hi = np.asarray(jax["diag_mean"]) - half, \
+        np.asarray(jax["diag_mean"]) + half
+    mean = np.asarray(port["diag_mean"])
+    per_seed = np.array([s["latent_attr_corr_diag"]
+                         for s in port["per_seed"]])
+    held = (lo <= mean) & (mean <= hi)
+    return {"port_diag_mean": mean.tolist(), "band_lo": lo.tolist(),
+            "band_hi": hi.tolist(), "jax_seeds": len(jax["per_seed"]),
+            "port_seeds": len(per_seed), "held_by_node": held.tolist(),
+            "seed_entries_inside": int(((lo <= per_seed)
+                                        & (per_seed <= hi)).sum()),
+            "seed_entries": int(per_seed.size),
+            "do_leakage_max": port["do_leakage_max"],
+            "held": bool(held.all()) and port["do_leakage_max"] == 0.0}
+
+
+def merge_jax_cdm(base: str | None, runs: list, out: str,
+                  free_bits: float = 0.0) -> dict:
+    """``scripts/cdm_seeds.py``'s summary ``base`` (or none) joined with
+    ``jax_reference_runs.py --train_keys seed+1000 [--free_bits A]`` runs
+    of more seeds, in :func:`cdm_seeds.summarize`'s layout; each run must
+    have the KL floor ``free_bits``."""
+    first = load(base) if base else {"seeds": [], "lower": [], "upper": []}
     parts = [{"seed": s, "lower": np.asarray(lo), "upper": np.asarray(up),
               "loss_curve": None, "train_seconds": None}
              for s, lo, up in zip(first["seeds"], first["lower"],
@@ -200,6 +241,9 @@ def merge_jax_cdm(base: str, runs: list, out: str) -> dict:
         if run["train_key"] != r["seed"] + 1000:
             raise ValueError(f"{path}: train key {run['train_key']} is not "
                              f"the script's seed + 1000")
+        if r.get("free_bits", 0.0) != free_bits:
+            raise ValueError(f"{path}: free bits {r.get('free_bits', 0.0)}"
+                             f", not {free_bits}")
         parts.append({"seed": r["seed"], "lower": np.asarray(run["lower"]),
                       "upper": np.asarray(run["upper"]),
                       "loss_curve": run["metrics"]["loss"],
@@ -207,12 +251,14 @@ def merge_jax_cdm(base: str, runs: list, out: str) -> dict:
     parts.sort(key=lambda p: p["seed"])
     summary = summarize(parts, seeds=[p["seed"] for p in parts],
                         scm="linear", semi=False, model="CDGVAE",
-                        free_bits=0.0, init="jax",
+                        free_bits=free_bits, init="jax",
                         record={"device": "cpu", "card": None})
+    command = ("JAX_PLATFORMS=cpu python jax_reference_runs.py --seed S "
+               "--train_keys S+1000"
+               + (f" --free_bits {free_bits}" if free_bits else ""))
     summary["run"] = (f"seeds {first['seeds']}: {os.path.basename(base)}; "
-                      "the others: JAX_PLATFORMS=cpu python "
-                      "jax_reference_runs.py --seed S --train_keys S+1000 "
-                      "(no loss curve for the first)")
+                      f"the others: {command} (no loss curve for the "
+                      "first)" if base else command)
     write_json(summary, out)
     return summary
 
@@ -272,6 +318,18 @@ def report(results: str = RESULTS, docs: str = DOCS) -> dict:
         out["jax_init_online"] = [
             {"seed": first + i, "port": dg, "jax_cpu": by_seed.get(first + i)}
             for i, dg in enumerate(diagonals(jaxinit).tolist())]
+    for v in FREE_BITS:
+        port, jax = r(f"cdm_seeds_h100_{v}_s20.json"), \
+            r(f"cdm_seeds_{v}_jax_cpu.json")
+        if port and jax:
+            jax_parts = [jax, d(f"cdm_seeds_{v}.json")]
+            out[f"item 28 {v} lost"] = lost_rule([port], jax_parts)
+            out[f"item 28 {v} angle lost"] = lost_rule([port], jax_parts,
+                                                       factor="angle")
+    for arm, ref in CELEBA_ARMS.items():
+        port = r(f"celeba_study_{arm}_h100.json")
+        if port:
+            out[f"item 27 {arm}"] = celeba_rule(port, d(ref))
     for v in VARIANTS:
         for init in ("", "_jaxinit"):
             port = r(f"cdm_seeds_h100_{v}{init}.json")
@@ -297,11 +355,20 @@ def main(argv=None) -> dict:
                     help="BASE RUN...: write cdm_seeds_jax_cpu_s15.json")
     ap.add_argument("--merge_jax_online", nargs="+", default=[],
                     help="RUN...: write online_seeds_jax_cpu.json")
+    ap.add_argument("--merge_jax_freebits", nargs="+", default=[],
+                    help="A RUN...: write cdm_seeds_freebits<A>_jax_cpu."
+                         "json from --free_bits A runs (A 0.25 or 1.0)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if args.merge_jax_cdm:
         merge_jax_cdm(args.merge_jax_cdm[0], args.merge_jax_cdm[1:],
                       os.path.join(RESULTS, "cdm_seeds_jax_cpu_s15.json"))
+    if args.merge_jax_freebits:
+        a = float(args.merge_jax_freebits[0])
+        (v,) = [k for k, fb in FREE_BITS.items() if fb == a]
+        merge_jax_cdm(None, args.merge_jax_freebits[1:],
+                      os.path.join(RESULTS, f"cdm_seeds_{v}_jax_cpu.json"),
+                      free_bits=a)
     if args.merge_jax_online:
         merge_jax_online(args.merge_jax_online,
                          os.path.join(RESULTS, "online_seeds_jax_cpu.json"))

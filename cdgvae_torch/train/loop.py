@@ -158,7 +158,8 @@ def run_epochs(step: Callable, x, y, *, seed: int, epochs: int,
                post_epoch: Callable | None = None,
                post_epoch_pred: Callable | None = None,
                post_update: Callable | None = None,
-               mesh=None) -> list[dict]:
+               mesh=None, graph_noise: Callable | None = None
+               ) -> list[dict]:
     """Train epochs ``start_epoch .. epochs - 1``. ``on_epoch(epoch,
     metrics)`` gets host floats after each; ``post_epoch(epoch)`` runs
     after it on the epochs where ``post_epoch_pred(epoch)`` is true (every
@@ -170,7 +171,10 @@ def run_epochs(step: Callable, x, y, *, seed: int, epochs: int,
     per-epoch metric dicts. The InfoMax step updates its model and
     discriminator in place, so it runs here as any step does. Under a
     ``mesh`` this rank trains on its shard of ``x, y`` (module docstring)
-    and ``step`` must average its gradients over the same mesh."""
+    and ``step`` must average its gradients over the same mesh.
+    ``graph_noise`` (one device, CUDA tensors) replays each step from a
+    CUDA graph (``train/scanned.py::make_epoch_runner``), captured once
+    for the call."""
     if mesh is not None:
         x, y = shard_rows(mesh, x, y)
         # both are multiples of the world size, so the clamp divides
@@ -178,7 +182,7 @@ def run_epochs(step: Callable, x, y, *, seed: int, epochs: int,
     else:
         local = min(batch_size, len(x))
     run = make_epoch_runner(step, batch_size=local, post_update=post_update,
-                            mesh=mesh)
+                            mesh=mesh, graph_noise=graph_noise)
     return _drive(run, (x, y), seed=seed, epochs=epochs,
                   start_epoch=start_epoch, on_epoch=on_epoch,
                   post_epoch=post_epoch, post_epoch_pred=post_epoch_pred,

@@ -7,7 +7,22 @@ permutation of the flat ``[n, 3·H·W]`` dataset per epoch from the epoch's
 ``torch.Generator`` (``train/loop.py::run_epochs`` derives it from the
 seed and the epoch), the last partial batch dropped, metrics accumulated
 on the device and averaged per epoch with one host sync per epoch. Steps
-run as a plain Python loop.
+run as a Python loop of eager steps, or, in the CUDA-graph mode of
+:func:`make_epoch_runner` (``graph_noise=``), as replays of one captured
+step: the counterpart of the reference's compiled ``lax.scan``.
+
+The graphed runner equals the eager one step for step. Before each
+replay it copies the step's row of the epoch's permutation into a static
+index buffer and fills static noise buffers from the epoch's generator
+(:class:`NoisePlan`), in the order and with the calls the eager step
+draws with; the graph gathers the batch from the device-resident
+dataset, decodes it, runs forward, backward, Adam and ``post_update``.
+The epoch's first step runs eagerly, on the stream the capture uses
+(it makes Adam's state and the autograd buffers), and the capture
+follows it, so no state is rolled back. The graph is kept for the
+runner's later epochs. It needs a CUDA dataset, one device (no mesh)
+and a ``capturable`` Adam (``train/steps.py::make_optimizer``); a
+failed capture raises.
 
 A uint8 dataset is quantized images (:func:`quantize_images`): both
 runners gather its rows as bytes and decode them in the step
@@ -29,22 +44,26 @@ import torch
 
 from ..ops import losses
 from ..parallel.mesh import all_reduce_mean
+from ..utils.profiling import count_replayed_step
 from .steps import _metrics, forward
 
 
 class Averager:
-    """Accumulates dicts of device tensors, each a step's scalar or a run's
-    [steps] stack; ``result()`` is the mean over every step added, in one
-    host sync, its keys sorted as JAX's pytree flattening orders them (and
-    so the JAX trainers' console lines and logs). Under a ``mesh`` the
-    result is the mean over its ranks too, one ``all_reduce``."""
+    """Accumulates copies of dicts of device tensors, each a step's
+    scalar or a run's [steps] stack; ``result()`` is the mean over every
+    step added, in one host sync, its keys sorted as JAX's pytree
+    flattening orders them (and so the JAX trainers' console lines and
+    logs). Under a ``mesh`` the result is the mean over its ranks too,
+    one ``all_reduce``."""
 
     def __init__(self, mesh=None):
         self._acc = []
         self._mesh = mesh
 
     def add(self, metrics: dict):
-        self._acc.append(metrics)
+        """Keep a copy of ``metrics``: a CUDA graph's outputs are the same
+        tensors at every replay, overwritten each time."""
+        self._acc.append({k: v.detach().clone() for k, v in metrics.items()})
 
     def result(self) -> dict:
         if not self._acc:
@@ -117,9 +136,91 @@ def epoch_batches(n: int, batch_size: int,
     return perm[: steps * batch_size].reshape(steps, batch_size)
 
 
+class NoisePlan:
+    """A step's noise as static buffers, for the graphed runner: one
+    buffer a draw the eager step makes, of the shapes
+    ``model.noise_shapes(batch_size)`` in its draw order and in
+    ``dtype`` (the step's compute dtype, float32 by default), on
+    ``device``. :meth:`draw` fills them from a generator with the calls
+    the eager step makes (``torch.randn`` is ``normal_`` on a new
+    tensor), so the same generator gives the same values; :attr:`noise` is
+    the step's ``noise=`` argument over them (``model.pack_noise``)."""
+
+    def __init__(self, model, batch_size: int,
+                 dtype: torch.dtype | None = None, device=None):
+        self.buffers = [torch.empty(shape, dtype=dtype or torch.float32,
+                                    device=device)
+                        for shape in model.noise_shapes(batch_size)]
+        self.noise = model.pack_noise(self.buffers)
+
+    def draw(self, generator: torch.Generator) -> None:
+        for b in self.buffers:
+            b.normal_(generator=generator)
+
+
+class GraphedStep:
+    """One training step captured as a CUDA graph over static inputs: the
+    batch's row indices and the noise buffers of ``plan``. The dataset
+    ``xf`` (flat rows), ``y`` is read where it lies, so the graph holds
+    to those tensors; the metrics are the graph's static outputs.
+    :meth:`stage` and :meth:`body` are the two halves of a step, which
+    run as they are on any device; the graph exists only on CUDA."""
+
+    def __init__(self, step_fn, post_update, plan: NoisePlan, xf, item_shape,
+                 y, batch_size: int):
+        self.idx = torch.zeros(batch_size, dtype=torch.long, device=xf.device)
+        self.plan, self.graph, self.metrics = plan, None, None
+        self._step, self._post = step_fn, post_update
+        self._data, self._item_shape = (xf, y), item_shape
+
+    def holds(self, xf, y) -> bool:
+        return all(a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                   for a, b in zip(self._data, (xf, y)))
+
+    def stage(self, rows: torch.Tensor, generator: torch.Generator) -> None:
+        """The step's inputs: the batch's rows into the index buffer, and
+        its noise from ``generator``, drawn as the eager step draws it."""
+        self.idx.copy_(rows)
+        self.plan.draw(generator)
+
+    def body(self) -> dict:
+        """What the graph holds: the gather and decode of the staged
+        rows, the step on the staged noise, and ``post_update``."""
+        xf, y = self._data
+        xi = unflatten_items(xf[self.idx], self._item_shape)
+        metrics = self._step(xi, y[self.idx], noise=self.plan.noise)
+        if self._post is not None:
+            self._post()
+        return metrics
+
+    def __call__(self, rows: torch.Tensor,
+                 generator: torch.Generator) -> dict:
+        """One step on the batch ``rows``: a replay, or at the first call
+        an eager step and then the capture."""
+        self.stage(rows, generator)
+        if self.graph is not None:
+            self.graph.replay()
+            count_replayed_step()
+            return self.metrics
+        current = torch.cuda.current_stream(self.idx.device)
+        side = torch.cuda.Stream(self.idx.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            metrics = self.body()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a checkpoint thread's copies may run meanwhile
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.metrics = self.body()
+        current.wait_stream(side)
+        self.graph = graph
+        return metrics
+
+
 def make_epoch_runner(step_fn: Callable, batch_size: int,
                       post_update: Callable | None = None,
-                      mesh=None) -> Callable:
+                      mesh=None, graph_noise: Callable | None = None
+                      ) -> Callable:
     """Wrap a ``step(x, y, generator=...) -> metrics`` into an epoch runner,
     the counterpart of ``make_scanned_epochs``.
 
@@ -131,9 +232,19 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
     (the TVAE's sigma clamp, the CelebA ``sn_refresh``). Under a ``mesh``
     each rank runs it on its shard at its local ``batch_size`` (module
     docstring).
+
+    ``graph_noise(batch_size, device) -> NoisePlan`` turns on the
+    CUDA-graph mode (module docstring): ``step`` must also take
+    ``noise=``, the plan's draws, and ``x``, ``y`` must be CUDA tensors,
+    the same ones every epoch, without a mesh; anything else raises.
     """
+    if graph_noise is not None and mesh is not None:
+        raise ValueError("the CUDA-graph epoch runner runs on one device; "
+                         "under a mesh the runner is eager")
+    graphed = None
 
     def run(x, y, generator: torch.Generator) -> dict:
+        nonlocal graphed
         n = x.shape[0]
         steps = n // batch_size
         if steps == 0:
@@ -142,11 +253,26 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
                 "clamp the batch size (train.loop.run_epochs does)")
         xf, item_shape = x.reshape(n, -1), x.shape[1:]
         avg = Averager(mesh)
-        for idx in epoch_batches(n, batch_size, generator):
-            xi = unflatten_items(xf[idx], item_shape)
-            avg.add(step_fn(xi, y[idx], generator=generator))
-            if post_update is not None:
-                post_update()
+        batches = epoch_batches(n, batch_size, generator)
+        if graph_noise is None:
+            for idx in batches:
+                xi = unflatten_items(xf[idx], item_shape)
+                avg.add(step_fn(xi, y[idx], generator=generator))
+                if post_update is not None:
+                    post_update()
+            return avg.result()  # the one host sync
+        if not (x.is_cuda and y.is_cuda):
+            raise ValueError("the CUDA-graph epoch runner needs the dataset "
+                             f"on a CUDA device (got {x.device}, {y.device})")
+        if graphed is None:
+            graphed = GraphedStep(step_fn, post_update,
+                                  graph_noise(batch_size, device=x.device),
+                                  xf, item_shape, y, batch_size)
+        elif not graphed.holds(xf, y):
+            raise ValueError("the CUDA-graph epoch runner was captured on "
+                             "another dataset; make a runner for this one")
+        for rows in batches:
+            avg.add(graphed(rows, generator))
         return avg.result()  # the one host sync
 
     return run

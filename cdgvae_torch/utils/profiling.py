@@ -8,7 +8,9 @@ utils/xplane.py:174-203``).
   plugin and ``chrome://tracing`` read it). It records from the block's
   start to the end of its ``TRACE_STEPS``-th optimizer step, so that a
   long drive keeps a bounded trace. ``--profile DIR`` on every training
-  CLI wraps its training drive in it.
+  CLI wraps its training drive in it. A step replayed from a CUDA graph
+  runs no Python, so the graphed epoch runner counts it
+  (:func:`count_replayed_step`), and the step's capture counts nothing.
 * :class:`StepTimer`: step times and rates; on a CUDA device timed with
   CUDA events (device time between ``start`` and ``stop``), else on the
   host clock.
@@ -28,6 +30,15 @@ import torch
 
 # the optimizer steps a trace records (an InfoMax step takes two)
 TRACE_STEPS = 20
+# the open trace's step counters (one at most), for count_replayed_step
+_COUNTERS: list = []
+
+
+def count_replayed_step() -> None:
+    """Count a step that a CUDA graph replayed toward the open
+    :func:`trace`'s window (its ``optimizer.step()`` ran no hook)."""
+    for count in _COUNTERS:
+        count()
 
 
 @contextlib.contextmanager
@@ -35,7 +46,8 @@ def trace(logdir: str | None, steps: int = TRACE_STEPS):
     """Profile the enclosed block into a Chrome trace under ``logdir``
     (no-op when ``logdir`` is empty or None): from its start to the end
     of its ``steps``-th optimizer step (counted by a global
-    ``Optimizer.step`` post-hook), or to its end if that comes first."""
+    ``Optimizer.step`` post-hook and :func:`count_replayed_step`), or to
+    its end if that comes first."""
     if not logdir:
         yield
         return
@@ -55,14 +67,20 @@ def trace(logdir: str | None, steps: int = TRACE_STEPS):
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities, schedule=window,
                  on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
-        hook = register_optimizer_step_post_hook(
-            lambda *_: prof.step())
+        def count(*_):
+            # a step being captured into a CUDA graph has not run
+            if not (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                prof.step()
+        hook = register_optimizer_step_post_hook(count)
+        _COUNTERS.append(count)
         try:
             yield
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
         finally:
             hook.remove()
+            _COUNTERS.remove(count)
 
 
 class StepTimer:

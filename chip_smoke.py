@@ -96,7 +96,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     ``--train_trunk``,
     ``--align_warmup 1``, ``--stacked_decoder true``, ``--async_ckpt
     true`` and ``--profile`` (1-2 epochs each, the checkpoint's step and
-    Adam count checked); the full-width loss on the card against the CPU
+    Adam count checked; on the card each epoch replays a CUDA graph a
+    step, so the trace holds the eager first step, its capture and the
+    replays); the full-width loss on the card against the CPU
     (TF32 off for matmuls and cuDNN); ``LoadedModel`` encode, reconstruct
     and counterfactual at batch 1 and 16 against the CPU; host ms a step,
     f32 and bf16 interleaved, the device's busy share over 10 profiled
@@ -159,18 +161,34 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     cdgvae_torch.tools.tabular_seeds``'s ``main`` on loan, seed 1: the
     CDG-VAE for 2 epochs and ``--tvae`` for 1, whose summaries (SHDs,
     efficacy, losses) are printed and must be finite; they render
-    nothing: 0 launches each.
+    nothing: 0 launches each; and the CelebA study through
+    ``tools/celeba_study.py``'s ``main`` cut to 32 faces at 32 px,
+    conv_dim 8, 2 epochs: its corpus, training through ``celeba_main`` in
+    a subprocess, the scores and the do-grid, whose do-leakage outside
+    the masks must be exactly 0.0 (0 launches);
+23. the CUDA-graph epoch runner (``make_epoch_runner(graph_noise=)``)
+    against the eager runner, from one init and one seed, both with a
+    capturable Adam: the full-width flagship for 3 epochs on phase 4's
+    dataset, and CelebA at ``cli.celeba_main``'s defaults (packed, f32
+    and bf16) for 3 epochs on its 64 synthetic faces, the graphed run
+    resumed from a checkpoint after epoch 2. Parameters, buffers (the
+    spectral-norm vectors), Adam moments and step counts and the epoch
+    metrics must be equal bit for bit; then host ms a step of the two
+    runners interleaved, device busy a step from the profiler's kernels
+    over an epoch of each, and a replay's device time on CUDA events.
+    The graphed epochs render nothing: 0 launches.
 
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15, 19, 21 and 22, and 17's, 18's and 20's 0) and summed in the ``{"kernels":
-[...]}`` JSON line, which is
-followed by the ``{"ok": true, ...}`` JSON object as the last line.
+10-15, 19, 21 and 22, and 17's, 18's, 20's and 23's 0) and summed in
+the ``{"kernels": [...]}`` JSON line, which is followed by the ``{"ok":
+true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import io
 import json
@@ -1636,11 +1654,20 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
               f"(host clock, model init and checkpoint writes included) "
               f"[{card}]")
     ranked = rank_ops(str(trace_dir), top=8)
+    events = newest_trace(str(trace_dir))["traceEvents"]
     traced = sum(ev.get("cat") == "user_annotation"
                  and ev.get("name", "").startswith("Optimizer.step")
-                 for ev in newest_trace(str(trace_dir))["traceEvents"])
-    check(ranked and traced == 2 * CELEBA_STEPS,
-          f"celeba_main --profile: {traced} optimizer steps traced")
+                 for ev in events)
+    replays = sum(ev.get("name", "").startswith("cudaGraphLaunch")
+                  for ev in events)
+    # the graphed epochs: the first step runs eagerly, its capture runs the
+    # Python of a step once more, and every later step is a graph replay
+    check(ranked and traced == 2 and replays == 2 * CELEBA_STEPS - 1,
+          f"celeba_main --profile: {traced} optimizer steps and {replays} "
+          f"graph replays traced")
+    print(f"celeba_main --profile: {traced} optimizer steps (the eager "
+          f"first step and the capture) and {replays} graph replays "
+          f"traced of {2 * CELEBA_STEPS} steps")
     print("celeba_main --profile: top CUDA kernels of the trace (total "
           "ms): " + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in ranked))
 
@@ -1703,7 +1730,7 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
                   f"[{card}]")
     del served
 
-    # host ms a step (f32 and bf16 in turn, epochs of 4 steps, 5 a round)
+    # host ms a step (f32 and bf16 in turn, epochs of 4 steps, 2 a round)
     # and the device's busy share over a profiled window of 10 steps
     x_all = torch.as_tensor(x_np, device=dev)
     y_all = torch.as_tensor(y_np, device=dev)
@@ -1714,7 +1741,7 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
                                 CELEBA_BETA, CELEBA_LAM, compute_dtype=dtype)
         steppers[name] = (step, lambda m=m: sn_refresh(m))
 
-    def epochs_of(name, k, n=5):
+    def epochs_of(name, k, n=2):
         step, refresh = steppers[name]
         gen = torch.Generator(device=dev).manual_seed(1000 + k)
         for _ in range(n):
@@ -1725,7 +1752,7 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
 
     host = interleaved_ms({f"CelebA {name}": (lambda k, name=name:
                                               epochs_of(name, k))
-                           for name in steppers}, 5 * CELEBA_STEPS, card)
+                           for name in steppers}, 2 * CELEBA_STEPS, card)
     for name in steppers:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2430,8 +2457,8 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
     docstring)."""
     from cdgvae_torch.data.pendulum_dr import PendulumDRDataset
     from cdgvae_torch.ops import renderer_cuda
-    from cdgvae_torch.tools import (cdm_seeds, dr_sweep, online_seeds,
-                                    se_seeds, tabular_seeds)
+    from cdgvae_torch.tools import (cdm_seeds, celeba_study, dr_sweep,
+                                    online_seeds, se_seeds, tabular_seeds)
     from cdgvae_torch.train.online import train_split_size
 
     t0 = time.perf_counter()
@@ -2517,8 +2544,198 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
             row["final_loss"], row["efficacy_synthetic"],
             *loan["loss_curves"][0])) and row["shd_sample"] >= 0,
             f"{path}: non-finite summary {row}")
+    # the CelebA study, cut: its corpus, training through celeba_main in a
+    # subprocess, and the scores; the do-leakage is 0 by construction
+    renderer_cuda.launches = 0
+    t1 = time.perf_counter()
+    out = work / "celeba_study.json"
+    summary = celeba_study.main([
+        "--n_train", "32", "--n_test", "16", "--img_size", "32",
+        "--conv_dim", "8", "--epochs", "2", "--workdir",
+        str(work / "celeba_study"), "--out", str(out)])
+    path_launches["celeba study"] = renderer_cuda.launches
+    (row,) = summary["per_seed"]
+    print(f"celeba study: {time.perf_counter() - t1:.1f} s; diagonal "
+          f"{summary['diag_mean']}, recon L1 {row['test_recon_l1']}, "
+          f"do-leakage {summary['do_leakage_max']}, device "
+          f"{summary['device']}; launches {{'render': "
+          f"{path_launches['celeba study']}}} [{card}]")
+    check(out.is_file() and summary["card"] is not None
+          and (work / "celeba_do.png").is_file(),
+          "celeba study: no summary, card record or do-grid")
+    check(summary["do_leakage_max"] == 0.0, "celeba study: do(z_j) moved "
+          f"pixels outside its masks: {summary['do_leakage_max']}")
+    check(all(math.isfinite(v) for v in (row["test_recon_l1"],
+                                         *summary["diag_mean"])),
+          f"celeba study: non-finite scores {row}")
+    check(path_launches["celeba study"] == 0, "celeba study: the render "
+          f"kernel launched {path_launches['celeba study']} times")
     print(f"phase 22 (the studies): {time.perf_counter() - t0:.1f} s (host "
           f"clock) [{card}]")
+
+
+def graphed_epochs(*, work: Path, card: str, dev, dataset,
+                   path_launches: dict) -> None:
+    """Phase 23: the CUDA-graph epoch runner against the eager one (see
+    the module docstring)."""
+    from functools import partial
+
+    from cdgvae_torch.cli.celeba_main import float32_and_repeatable, get_args
+    from cdgvae_torch.data.celeba import CelebADataset
+    from cdgvae_torch.factory import build_celeba_model, build_pendulum_model
+    from cdgvae_torch.models.sagan import sn_refresh
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.ops.packing import Packer
+    from cdgvae_torch.train.celeba_steps import make_celeba_step
+    from cdgvae_torch.train.loop import run_epochs
+    from cdgvae_torch.train.scanned import (GraphedStep, NoisePlan,
+                                            epoch_batches, make_epoch_runner)
+    from cdgvae_torch.train.steps import make_optimizer, make_train_step
+    from cdgvae_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from cdgvae_torch.utils.interop import (export_opt_state, export_params,
+                                            load_jax_opt_state,
+                                            load_jax_params)
+
+    t0 = time.perf_counter()
+    renderer_cuda.launches = 0
+    float32_and_repeatable()  # celeba_main's switches, as phase 18 runs
+    config = vars(get_args([]))  # celeba_main's defaults
+    faces = CelebADataset(data_dir="", img_size=config["img_size"],
+                          seed=config["seed"])
+    x_c = torch.as_tensor(faces.x_data, device=dev)
+    y_c = torch.as_tensor(faces.y_data, device=dev)
+
+    def flagship():
+        m, _ = build_pendulum_model(FLAGSHIP, device=dev, seed=0)
+        opt = make_optimizer(m, LR, capturable=True)
+        return (m, opt, make_train_step(m, opt, BETA, LAM), None,
+                partial(NoisePlan, m))
+
+    base = build_celeba_model(config, device=dev, seed=0)
+
+    def celeba(dtype):
+        def make():
+            m = copy.deepcopy(base)
+            opt = make_optimizer(m, CELEBA_LR, packer=Packer(m),
+                                 capturable=True)
+            return (m, opt, make_celeba_step(m, opt, CELEBA_BETA, CELEBA_LAM,
+                                             compute_dtype=dtype),
+                    partial(sn_refresh, m), partial(NoisePlan, m, dtype=dtype))
+        return make
+
+    def state(m, opt) -> dict:
+        out = {f"param {n}": p for n, p in m.named_parameters()}
+        out.update({f"buffer {n}": b for n, b in m.named_buffers()})
+        for i, st in enumerate(opt.state.values()):
+            out.update({f"adam {i} {k}": v for k, v in st.items()})
+        return out
+
+    # (name, make, x, y, batch, the epoch a graphed run resumes at)
+    cases = [("flagship f32", flagship, dataset.x_data, dataset.y_data,
+              BATCH, None),
+             ("CelebA f32 packed", celeba(None), x_c, y_c, CELEBA_BATCH, 2),
+             ("CelebA bf16 packed", celeba(torch.bfloat16), x_c, y_c,
+              CELEBA_BATCH, 2)]
+    for name, make, x, y, bs, resume_at in cases:
+        t_case = time.perf_counter()
+        n, steps = len(x), len(x) // bs
+        m_e, o_e, step_e, post_e, _ = make()
+        hist_e = run_epochs(step_e, x, y, seed=1, epochs=EPOCHS,
+                            batch_size=bs, post_update=post_e)
+        m_g, o_g, step_g, post_g, plan = make()
+        t1 = time.perf_counter()
+        hist_g = run_epochs(step_g, x, y, seed=1, epochs=resume_at or EPOCHS,
+                            batch_size=bs, post_update=post_g,
+                            graph_noise=plan)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        if resume_at is not None:  # a checkpoint, read into a new model
+            ck_dir = work / f"graphed_{name.replace(' ', '_')}"
+            save_checkpoint(str(ck_dir), export_params(m_g),
+                            opt_state=export_opt_state(o_g, m_g),
+                            step=resume_at, config=config)
+            ck = load_checkpoint(str(ck_dir))
+            del m_g, o_g, step_g, post_g, plan
+            m_g, o_g, step_g, post_g, plan = make()
+            load_jax_params(m_g, ck["params"])
+            load_jax_opt_state(o_g, m_g, ck["opt_state"])
+            hist_g += run_epochs(step_g, x, y, seed=1, epochs=EPOCHS,
+                                 batch_size=bs, start_epoch=resume_at,
+                                 post_update=post_g, graph_noise=plan)
+            check(int(ck["opt_state"][0].count) == resume_at * steps,
+                  f"{name}: the checkpoint's Adam count "
+                  f"{ck['opt_state'][0].count}")
+        torch.cuda.synchronize()
+        a, b = state(m_g, o_g), state(m_e, o_e)
+        check(a.keys() == b.keys(), f"{name}: the states differ in layout")
+        differ = {k: float((a[k].double() - b[k].double()).abs().max())
+                  for k in a if not torch.equal(a[k], b[k])}
+        kinds = {kind: sum(k.startswith(kind) for k in a)
+                 for kind in ("param", "buffer", "adam")}
+        print(f"{name}: {EPOCHS} epochs of {steps} steps, graphed"
+              f"{f' (resumed at epoch {resume_at})' if resume_at else ''} "
+              f"against eager: {len(a) - len(differ)} of {len(a)} tensors "
+              f"equal bit for bit ({kinds}); epoch losses graphed "
+              f"{[m['loss'] for m in hist_g]}, eager "
+              f"{[m['loss'] for m in hist_e]}; graphed epochs before the "
+              f"checkpoint (capture included) {first_s:.3f} s [{card}]")
+        check(not differ, f"{name}: graphed differs from eager: {differ}")
+        check(hist_g == hist_e, f"{name}: the epoch metrics differ")
+        check(all(math.isfinite(m["loss"]) for m in hist_g),
+              f"{name}: non-finite loss")
+
+        # host ms a step, the two runners interleaved; the device's busy
+        # time from the profiler's kernels over an epoch of each; a
+        # replay's device time from CUDA events
+        per_call = 1  # epochs a timed call
+        runners = {"eager": make_epoch_runner(step_e, bs, post_e),
+                   "graphed": make_epoch_runner(step_g, bs, post_g,
+                                                graph_noise=plan)}
+
+        def epochs_of(which, k):
+            for j in range(per_call):
+                runners[which](x, y, torch.Generator(device=dev).manual_seed(
+                    500 + 10 * k + j))
+            torch.cuda.synchronize()
+
+        host = interleaved_ms({f"{name} {w}": partial(epochs_of, w)
+                               for w in runners}, per_call * steps, card)
+        busy = {}
+        for w in runners:
+            b_s, wall, table, kernels, waits = profile_window(
+                partial(epochs_of, w, 9))
+            busy[w] = b_s / (per_call * steps)
+            launches = sum(e.count for e in kernels) / (per_call * steps)
+            print(f"{name} {w}: profiled {per_call * steps} steps, device "
+                  f"busy {busy[w] * 1e3:.3f} ms a step "
+                  f"({launches:.0f} kernels a step) of "
+                  f"{host[f'{name} {w}'] * 1e3:.3f} ms host = busy share "
+                  f"{busy[w] / host[f'{name} {w}']:.3f}; host waits "
+                  f"{waits} [{card}]")
+        check(busy["graphed"] > 0, f"{name}: the profiler saw no kernel of "
+              "the graphed epochs")
+        gs = GraphedStep(step_g, post_g, plan(bs, device=dev),
+                         x.reshape(n, -1), x.shape[1:], y, bs)
+        gen = torch.Generator(device=dev).manual_seed(900)
+        gs(epoch_batches(n, bs, gen)[0], gen)  # the eager step and capture
+        replay_ms = device_ms(gs.graph.replay, reps=5)
+        print(f"{name}: a graphed step's replay {replay_ms:.3f} ms on CUDA "
+              f"events (staging excluded); host ms a step eager "
+              f"{host[f'{name} eager'] * 1e3:.3f}, graphed "
+              f"{host[f'{name} graphed'] * 1e3:.3f}; device busy eager "
+              f"{busy['eager'] * 1e3:.3f}, graphed "
+              f"{busy['graphed'] * 1e3:.3f} ms a step [{card}]")
+        del m_e, o_e, step_e, m_g, o_g, step_g, runners, gs
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 23, {name}: {time.perf_counter() - t_case:.1f} s "
+              f"(host clock) [{card}]")
+    del base
+    path_launches["graphed epochs"] = renderer_cuda.launches
+    check(path_launches["graphed epochs"] == 0, "the graphed epochs "
+          f"launched the render kernel {renderer_cuda.launches} times")
+    print(f"phase 23 (graphed epochs): {time.perf_counter() - t0:.1f} s "
+          f"(host clock); launches {{'render': 0}} [{card}]")
 
 
 def flat_leaves(tree: dict) -> list:
@@ -3178,8 +3395,12 @@ def main() -> int:
 
     # 22. the studies of tools/, cut
     studies(work=work, card=card, dev=dev, path_launches=path_launches)
+
+    # 23. the CUDA-graph epoch runner against the eager one
+    graphed_epochs(work=work, card=card, dev=dev, dataset=dataset,
+                   path_launches=path_launches)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

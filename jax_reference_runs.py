@@ -8,6 +8,8 @@ Run from the repository root, on a machine with JAX (the CPU is enough):
         --train_keys 1002 1003 --same_draws 12 --out F.json
     JAX_PLATFORMS=cpu python jax_reference_runs.py --seed 2 --online \\
         --out F.json
+    JAX_PLATFORMS=cpu python jax_reference_runs.py --seed 7 \\
+        --train_keys 1007 --free_bits 0.25 --out F.json
     JAX_PLATFORMS=cpu python jax_reference_runs.py --tabular [--tvae] \\
         --out F.json
 
@@ -18,7 +20,9 @@ and ``seed + 3000``, the CDM matrices), with the training key
 ``jax.random.key(K)`` in place of ``seed + 1000``: K = seed + 1000 is
 the script's own run, any other K the same init and data under other
 noise and shuffles. Each run records its per-epoch metrics, the CDM
-upper diagonal and its train seconds.
+upper diagonal and its train seconds. ``--free_bits A`` floors each
+latent's KL at ``A`` in the JAX package's own step, as ``scripts/
+cdm_seeds.py --free_bits A`` does, and is recorded in the output.
 
 ``--online``: ``scripts/online_seeds.py``'s run of ``--seed`` (its
 init, the online trainer's 100 epochs' worth of steps, each on a fresh
@@ -70,13 +74,16 @@ from cdgvae_torch.train.steps import make_optimizer, make_train_step
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def protocol_run(model, x, y, seed: int, train_key: int) -> dict:
+def protocol_run(model, x, y, seed: int, train_key: int,
+                 free_bits: float = 0.0) -> dict:
     """scripts/cdm_seeds.py's supervised CDG-VAE run of ``seed`` under
-    the training key ``jax.random.key(train_key)``."""
+    the training key ``jax.random.key(train_key)``, its KL floored at
+    ``free_bits`` (0: none)."""
     params = model.init(jax.random.key(seed))
     opt = optax.adam(CONFIG["lr"])
     run = make_scanned_epochs(
-        unjitted_step(model, opt, CONFIG["beta"], CONFIG["lambda"]),
+        unjitted_step(model, opt, CONFIG["beta"], CONFIG["lambda"],
+                      free_bits=free_bits),
         batch_size=CONFIG["batch_size"], n_epochs_per_call=CONFIG["epochs"])
     t0 = time.time()
     params, _, m = run(params, opt.init(params), x, y,
@@ -232,6 +239,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--train_keys", type=int, nargs="*", default=[])
     ap.add_argument("--same_draws", type=int, default=0,
                     help="epochs of the same-draws comparison (0: none)")
+    ap.add_argument("--free_bits", type=float, default=0.0,
+                    help="the --train_keys runs' KL floor a latent, as "
+                         "scripts/cdm_seeds.py --free_bits (0: none)")
     ap.add_argument("--online", action="store_true",
                     help="scripts/online_seeds.py's run of --seed")
     ap.add_argument("--tabular", action="store_true",
@@ -255,9 +265,9 @@ def main(argv=None) -> dict:
     x, y = jax.device_put(ds.x_data), jax.device_put(ds.y_data)
     model, _ = build_pendulum_model(dict(CONFIG))
     result = {"seed": args.seed, "jax": jax.__version__,
-              "device": "cpu", "runs": []}
+              "device": "cpu", "free_bits": args.free_bits, "runs": []}
     for k in args.train_keys:
-        r = protocol_run(model, x, y, args.seed, k)
+        r = protocol_run(model, x, y, args.seed, k, args.free_bits)
         print(f"seed {args.seed}, train key {k}: loss tail "
               f"{r['metrics']['loss'][-1]:.2f}, diag "
               f"{np.round(r['upper_diag'], 3).tolist()}", flush=True)

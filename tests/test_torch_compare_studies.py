@@ -79,3 +79,63 @@ def test_merges_of_the_jax_runs(tmp_path, monkeypatch):
     assert online["seeds"] == [3, 4]
     np.testing.assert_array_equal(cs.diagonals(online),
                                   [np.diag(m) for m in mats[2:, 1]])
+
+
+def test_merge_of_the_jax_free_bits_runs(tmp_path, monkeypatch):
+    monkeypatch.setattr(cs, "RESULTS", str(tmp_path))
+    mats = np.random.default_rng(1).uniform(size=(2, 2, 4, 4))
+    runs = []
+    for seed, (lo, up) in zip((7, 6), mats):
+        path = tmp_path / f"fb_{seed}.json"
+        path.write_text(json.dumps({
+            "seed": seed, "jax": "0", "free_bits": 0.25, "runs": [{
+                "train_key": seed + 1000, "lower": lo.tolist(),
+                "upper": up.tolist(), "metrics": {"loss": [3.0]},
+                "train_seconds": 2.0}]}))
+        runs.append(str(path))
+    cs.main(["--merge_jax_freebits", "0.25", *runs])
+    merged = json.loads((tmp_path / "cdm_seeds_freebits025_jax_cpu.json")
+                        .read_text())
+    assert merged["seeds"] == [6, 7] and merged["free_bits"] == 0.25
+    np.testing.assert_array_equal(merged["upper"], mats[::-1, 1])
+    assert "--free_bits 0.25" in merged["run"]
+    with pytest.raises(ValueError, match="free bits 0.25, not 1.0"):
+        cs.main(["--merge_jax_freebits", "1.0", *runs])
+
+
+@pytest.mark.parametrize("variant", sorted(cs.FREE_BITS))
+def test_item_28_reads_the_pooled_free_bits_counts(variant):
+    """Item 28's rule on the committed summaries: the port's 20 seeds on
+    the H100 against the JAX package's 10 CPU seeds and 5 TPU seeds, all
+    factors and angle alone."""
+    out = cs.report()
+    rule, angle = out[f"item 28 {variant} lost"], \
+        out[f"item 28 {variant} angle lost"]
+    assert rule["port"]["seeds"] == angle["port"]["seeds"] == 20
+    assert rule["jax"]["seeds"] == angle["jax"]["seeds"] == 15
+    assert rule["port"]["of"] == 80 and angle["port"]["of"] == 20
+    assert angle["port"]["lost"] == rule["port"]["by_factor"]["angle"]
+    assert rule["p"] == cs.fisher_exact(
+        rule["port"]["lost"], 80 - rule["port"]["lost"],
+        rule["jax"]["lost"], 60 - rule["jax"]["lost"])
+    assert rule["closes"] is (rule["p"] >= 0.05)
+
+
+def test_celeba_rule_bands_the_diagonal():
+    def study(diags, leak=0.0):
+        diags = np.asarray(diags)
+        return {"diag_mean": diags.mean(0).tolist(),
+                "diag_std": diags.std(0).tolist(), "do_leakage_max": leak,
+                "per_seed": [{"latent_attr_corr_diag": d.tolist()}
+                             for d in diags]}
+
+    one = study([[0.3, 0.9]])
+    rule = cs.celeba_rule(study([[0.35, 0.95], [0.1, 0.85]]), one)
+    assert rule["band_lo"] == pytest.approx([0.2, 0.8])
+    assert rule["held_by_node"] == [True, True] and rule["held"]
+    assert rule["seed_entries_inside"] == 3 and rule["seed_entries"] == 4
+    three = study([[0.9, 0.9], [0.8, 0.9], [1.0, 0.9]])
+    rule = cs.celeba_rule(study([[0.5, 0.9]], leak=0.1), three)
+    assert rule["band_lo"] == pytest.approx([0.9 - 3 * np.std([.9, .8, 1.]),
+                                             0.9])
+    assert rule["held_by_node"] == [False, True] and not rule["held"]

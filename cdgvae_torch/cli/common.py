@@ -253,31 +253,34 @@ def run_scanned_training(config, *, step, data, start_epoch=0, on_epoch=None,
 
 
 def graphed_epochs(config: dict, device: torch.device, mesh=None) -> bool:
-    """Whether the fixed-dataset epochs run as CUDA-graph replays: on a
-    CUDA device, one device, not ``--eager`` nor ``--online``. The CPU
-    stays eager, so a resumed CPU run equals the uninterrupted run bit
-    for bit. The optimizer is then built ``capturable``."""
+    """Whether training runs as CUDA-graph replays, a captured step a
+    batch (fixed datasets) or a step (``--online``): on a CUDA device, one
+    device, not ``--eager``. The CPU stays eager, so a resumed CPU run
+    equals the uninterrupted run bit for bit; ``--dp`` (a mesh) stays
+    eager too. The optimizers are then built ``capturable``."""
     return (torch.device(device).type == "cuda" and mesh is None
-            and not config.get("eager") and not config.get("online"))
+            and not config.get("eager"))
 
 
 def run_scanned_training_semi(config, *, step, data, start_epoch=0,
-                              on_epoch=None, mesh=None):
+                              on_epoch=None, mesh=None, graph_noise=None):
     """The semi-supervised fixed-dataset branch: ``train.loop.
     run_epochs_semi`` over ``data = (x_u, x_l, y_l)``, each batch size
-    clamped to its stream; under a ``mesh`` both streams are sharded."""
+    clamped to its stream; under a ``mesh`` both streams are sharded;
+    with ``graph_noise`` each step replays a CUDA graph."""
     x_u, x_l, y_l = data
     return run_epochs_semi(step, x_u, x_l, y_l, seed=config["seed"],
                            epochs=config["epochs"],
                            batch_size=config["batch_size"],
                            batch_size_l=config["batch_sizeL"],
                            start_epoch=start_epoch, on_epoch=on_epoch,
-                           mesh=mesh)
+                           mesh=mesh, graph_noise=graph_noise)
 
 
 def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
                         on_epoch, sample_batch_builder, labeled=None,
-                        post_epoch=None, post_epoch_pred=None, mesh=None):
+                        post_epoch=None, post_epoch_pred=None, mesh=None,
+                        graph_noise=None):
     """The ``--online`` driver: epoch-equivalents of the reference
     protocol's steps per epoch (from the DGP's train-split size), each a
     run of fresh-batch steps; ``on_epoch`` gets the epoch's mean metrics
@@ -286,7 +289,9 @@ def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
     the semi-supervised loss, ``batch_sizeL`` clamped to the labeled
     rows. Under a ``mesh`` each rank draws its share of the batch and
     subsamples its shard of the labeled rows, and the metrics are the
-    cross-rank mean (``cdgvae_tpu/cli/common.py:205-268``)."""
+    cross-rank mean (``cdgvae_tpu/cli/common.py:205-268``). With
+    ``graph_noise`` (one device, CUDA) each step replays a CUDA graph
+    (``train/online.py::make_online_run_from_loss``)."""
     bs = config["batch_size"]
     steps_per_epoch = max(train_split_size(config["n_samples"]) // bs, 1)
     kw, local_bs = {}, bs
@@ -305,7 +310,8 @@ def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
     run = make_online_run_from_loss(loss_fn, optimizer,
                                     sample_batch_builder(local_bs),
                                     steps_per_epoch, seed=config["seed"],
-                                    device=device, **kw)
+                                    device=device, graph_noise=graph_noise,
+                                    **kw)
     history = []
     for epoch in range(start_epoch, config["epochs"]):
         avg = Averager(mesh)

@@ -15,9 +15,10 @@ epochs and at the end. InfoMax trains the VAE with the MI discriminator
 (its checkpoint carries ``extras={"d_params", "opt_state_d"}``) and, as in
 the reference, skips the mid-run checkpoints. ``--resume`` continues from
 a checkpoint of either package. ``--eager`` runs the per-batch protocol
-that keeps the last partial batch. On a CUDA device the VAE and CDG-VAE
-epochs on a fixed dataset replay one CUDA graph a step
-(``cli/common.py::graphed_epochs``), equal to the eager epochs.
+that keeps the last partial batch. On a CUDA device, without
+``--eager`` or ``--dp``, every model trains as replays of one CUDA graph
+a step, on a fixed dataset and ``--online`` (``cli/common.py::
+graphed_epochs``), equal to the eager runners bit for bit.
 ``--data_dir`` trains on a reference-format PNG tree
 (``cli/generate_data.py`` writes one) instead of the rendered DGP. ``--dp N`` trains on N ranks (``cli/common.py``),
 InfoMax then with the ``"roll"`` marginal on each rank's batch.
@@ -164,13 +165,12 @@ def train(config: dict, mesh=None):
             data_dir=config.get("data_dir") or None)
     model, discriminator = build_pendulum_model(config, spurious=dr,
                                                 device=device, seed=seed)
-    # the pendulum supervised epochs replay CUDA graphs on the card; the
-    # InfoMax pair and the DR family stay eager
-    graphed = graphed_epochs(config, device, mesh) and not infomax and not dr
+    graphed = graphed_epochs(config, device, mesh)
     optimizer = make_optimizer(model, config["lr"], capturable=graphed)
     beta, lam = config["beta"], config["lambda"]
     if infomax:
-        optimizer_d = make_optimizer(discriminator, config["lr_D"])
+        optimizer_d = make_optimizer(discriminator, config["lr_D"],
+                                     capturable=graphed)
         state = (model, discriminator, optimizer, optimizer_d)
         step = make_infomax_step(model, discriminator, optimizer,
                                  optimizer_d, beta, lam, config["gamma"],
@@ -241,6 +241,10 @@ def train(config: dict, mesh=None):
             logger.log(metrics, step=epoch)
 
     pred = lambda e: ckpt_due(e) or viz_due(e)  # noqa: E731
+    # each step's draws, staged for its replay: the noise, and InfoMax's
+    # marginal permutation
+    graph_noise = partial(NoisePlan, model, marginal=marginal
+                          if infomax else None) if graphed else None
     with trace(config["profile"] if main_rank else ""):
         if config["online"]:
             if infomax:
@@ -257,13 +261,13 @@ def train(config: dict, mesh=None):
                 config, loss_fn=loss_fn, optimizer=opt, device=device,
                 start_epoch=start_epoch, on_epoch=on_epoch,
                 sample_batch_builder=sample_builder, post_epoch=post_epoch,
-                post_epoch_pred=pred, mesh=mesh)
+                post_epoch_pred=pred, mesh=mesh, graph_noise=graph_noise)
         elif not config["eager"]:
             run_scanned_training(
                 config, step=step, data=(dataset.x_data, dataset.y_data),
                 start_epoch=start_epoch, on_epoch=on_epoch,
                 post_epoch=post_epoch, post_epoch_pred=pred, mesh=mesh,
-                graph_noise=partial(NoisePlan, model) if graphed else None)
+                graph_noise=graph_noise)
         else:
             for epoch in range(start_epoch, config["epochs"]):
                 metrics = train_epoch(

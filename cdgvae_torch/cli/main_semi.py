@@ -13,7 +13,10 @@ metrics to ``<assets_dir>/metrics.jsonl``, and at the end (only then, as
 the reference) writes ``recon.png`` and the checkpoint
 ``<assets_dir>/model_<model>_<scm>``. ``--resume`` continues from a
 checkpoint of either package; ``--eager`` runs the reference's per-batch
-protocol, short batches kept. ``--data_dir`` reads both streams from a
+protocol, short batches kept. On a CUDA device, without ``--eager`` or
+``--dp``, both the fixed and the online trainer replay one CUDA graph a
+step (``cli/common.py::graphed_epochs``), equal to the eager runners bit
+for bit. ``--data_dir`` reads both streams from a
 reference-format PNG tree. ``--dp N`` trains on N ranks
 (``cli/common.py``): both ``--batch_size`` and ``--batch_sizeL`` divide
 over them, and each rank cycles its own labeled shard.
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from functools import partial
 
 import numpy as np
 import torch
@@ -32,6 +36,7 @@ from ..factory import build_pendulum_model
 from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, train_epoch_semi
 from ..train.online import dr_batch_fn, pendulum_batch_fn
+from ..train.scanned import NoisePlan
 from ..train.steps import make_optimizer, make_semi_loss_fn, make_semi_step
 from ..utils.checkpoint import save_checkpoint
 from ..utils.device import resolve_device
@@ -42,7 +47,7 @@ from ..utils.simulation import (EPOCH, VIZ_BATCH, VIZ_NOISE,
                                 derived_generator, set_random_seed)
 from ..utils.viz import viz_recon_grid
 from .common import (add_infra_args, add_png_data_dir_arg, add_resume_arg,
-                     apply_resume, arg_as_bool, arg_as_list,
+                     apply_resume, arg_as_bool, arg_as_list, graphed_epochs,
                      run_online_training, run_scanned_training_semi,
                      train_on_mesh)
 
@@ -125,7 +130,9 @@ def train(config: dict, mesh=None):
 
     model, _ = build_pendulum_model(config, spurious=dr, device=device,
                                     seed=seed)
-    optimizer = make_optimizer(model, config["lr"])
+    graphed = graphed_epochs(config, device, mesh)
+    graph_noise = partial(NoisePlan, model) if graphed else None
+    optimizer = make_optimizer(model, config["lr"], capturable=graphed)
     (model, optimizer), start_epoch = apply_resume(
         config, (model, optimizer), mesh=mesh)
     if mesh is not None:
@@ -148,7 +155,7 @@ def train(config: dict, mesh=None):
                 config, loss_fn=make_semi_loss_fn(model, beta, lam),
                 optimizer=optimizer, device=device, start_epoch=start_epoch,
                 on_epoch=on_epoch, sample_batch_builder=sample_builder,
-                labeled=(x_l, y_l), mesh=mesh)
+                labeled=(x_l, y_l), mesh=mesh, graph_noise=graph_noise)
         elif config["eager"]:
             step = make_semi_step(model, optimizer, beta, lam, mesh)
             shuffle_rng = np.random.default_rng(seed + start_epoch)
@@ -164,7 +171,7 @@ def train(config: dict, mesh=None):
                 config, step=make_semi_step(model, optimizer, beta, lam,
                                             mesh),
                 data=(x_u, x_l, y_l), start_epoch=start_epoch,
-                on_epoch=on_epoch, mesh=mesh)
+                on_epoch=on_epoch, mesh=mesh, graph_noise=graph_noise)
 
     if not main_rank:
         logger.finish()

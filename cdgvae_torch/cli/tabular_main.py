@@ -14,12 +14,16 @@ discriminator and its Adam in ``extras``). ``--resume`` continues from a
 checkpoint of either package. As in the reference, ``--node``,
 ``--factor`` and ``--input_dim`` are taken and then set from the
 dataset's spec. ``--dp N`` trains on N ranks (``cli/common.py``),
-InfoMax then with the ``"roll"`` marginal on each rank's batch.
+InfoMax then with the ``"roll"`` marginal on each rank's batch. On a CUDA
+device, without ``--eager`` or ``--dp``, the epochs replay one CUDA graph
+a step (``cli/common.py::graphed_epochs``), equal to the eager runner bit
+for bit.
 """
 from __future__ import annotations
 
 import argparse
 import os
+from functools import partial
 
 import numpy as np
 import torch
@@ -28,6 +32,7 @@ from ..data.tabular.datasets import DATASET_SPECS, load_tabular
 from ..factory import build_tabular_model
 from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, run_epochs, train_epoch
+from ..train.scanned import NoisePlan
 from ..train.steps import make_optimizer
 from ..train.tabular_steps import (make_recon_fn, make_tabular_infomax_step,
                                    make_tabular_step)
@@ -38,7 +43,7 @@ from ..utils.logging import MetricLogger
 from ..utils.profiling import trace
 from ..utils.simulation import EPOCH, derived_generator, set_random_seed
 from .common import (add_infra_args, add_resume_arg, apply_resume,
-                     arg_as_bool, arg_as_list, train_on_mesh)
+                     arg_as_bool, arg_as_list, graphed_epochs, train_on_mesh)
 
 
 def get_args(argv=None):
@@ -102,12 +107,14 @@ def train(config: dict, mesh=None):
 
     model, discriminator = build_tabular_model(config, device=device,
                                                seed=seed)
-    optimizer = make_optimizer(model, config["lr"])
+    graphed = graphed_epochs(config, device, mesh)
+    optimizer = make_optimizer(model, config["lr"], capturable=graphed)
     recon_fn = make_recon_fn(config["dataset"], data.flatten_topology)
     beta, lam = config["beta"], config["lambda"]
     infomax = config["model"] == "InfoMax"
     if infomax:
-        optimizer_d = make_optimizer(discriminator, config["lr_D"])
+        optimizer_d = make_optimizer(discriminator, config["lr_D"],
+                                     capturable=graphed)
         state = (model, discriminator, optimizer, optimizer_d)
         step = make_tabular_infomax_step(
             model, discriminator, optimizer, optimizer_d, beta, lam,
@@ -141,7 +148,9 @@ def train(config: dict, mesh=None):
                        epochs=config["epochs"],
                        batch_size=config["batch_size"],
                        start_epoch=start_epoch, on_epoch=on_epoch,
-                       mesh=mesh)
+                       mesh=mesh, graph_noise=partial(
+                           NoisePlan, model, marginal="permutation"
+                           if infomax else None) if graphed else None)
     if not main_rank:
         logger.finish()
         return state

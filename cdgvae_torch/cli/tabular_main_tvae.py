@@ -21,12 +21,16 @@ continues from a checkpoint of either package: the transformer is fitted
 again from the data, as deterministically as the first time. As in the
 reference, ``--node`` and ``--factor`` are taken and then set from the
 dataset's spec. ``--dp N`` trains on N ranks (``cli/common.py``), the
-sigma clamp after every step on each.
+sigma clamp after every step on each. On a CUDA device, without
+``--eager`` or ``--dp``, the epochs replay one CUDA graph a step, the
+clamp captured in it (``cli/common.py::graphed_epochs``), equal to the
+eager runner bit for bit.
 """
 from __future__ import annotations
 
 import argparse
 import os
+from functools import partial
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from ..data.tabular.datasets import DATASET_SPECS, load_tabular_tvae
 from ..factory import build_tabular_model, tvae_block_mask
 from ..parallel.mesh import is_main, rank_path, replicate
 from ..train.loop import format_epoch, run_epochs, train_epoch
+from ..train.scanned import NoisePlan
 from ..train.steps import make_optimizer
 from ..train.tabular_steps import make_sigma_clamp, make_tvae_step
 from ..utils.checkpoint import atomic_write, save_checkpoint
@@ -44,7 +49,7 @@ from ..utils.logging import MetricLogger
 from ..utils.profiling import trace
 from ..utils.simulation import EPOCH, derived_generator, set_random_seed
 from .common import (add_infra_args, add_resume_arg, apply_resume,
-                     arg_as_bool, arg_as_list, train_on_mesh)
+                     arg_as_bool, arg_as_list, graphed_epochs, train_on_mesh)
 
 # the transformer's random state per dataset, as the reference sets it
 TRANSFORMER_RANDOM_STATE = {"loan": 8, "adult": 0, "covtype": 0}
@@ -107,7 +112,8 @@ def train(config: dict, mesh=None):
     y_data = torch.as_tensor(data.label, device=device)
 
     model, _ = build_tabular_model(config, device=device, seed=seed)
-    optimizer = make_optimizer(model, config["lr"],
+    graphed = graphed_epochs(config, device, mesh)
+    optimizer = make_optimizer(model, config["lr"], capturable=graphed,
                                weight_decay=config["weight_decay"])
     step = make_tvae_step(model, optimizer, config["lambda"], spans, mesh)
     clamp = make_sigma_clamp(model, tuple(config["sigma_range"]))
@@ -136,7 +142,9 @@ def train(config: dict, mesh=None):
                        epochs=config["epochs"],
                        batch_size=config["batch_size"],
                        start_epoch=start_epoch, on_epoch=on_epoch,
-                       post_update=clamp, mesh=mesh)
+                       post_update=clamp, mesh=mesh,
+                       graph_noise=partial(NoisePlan, model)
+                       if graphed else None)
     if not main_rank:
         logger.finish()
         return model, optimizer

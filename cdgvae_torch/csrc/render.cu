@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
@@ -438,6 +439,36 @@ Geometry make_geometry(int size) {
   return g;
 }
 
+// The grid's size on each device: its SM count and the blocks of
+// render_kernel an SM holds, found at the device's first launch (which
+// also sets the kernel's shared-memory limit) and kept, so that a launch
+// recorded into a CUDA graph makes no call but the launch and
+// cudaGetLastError. 0 = not yet found.
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_sms[kMaxDevices];
+std::atomic<int> g_per_sm[kMaxDevices];
+
+cudaError_t launch_shape(int dev, int* sms, int* per_sm) {
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  *sms = g_sms[dev].load(std::memory_order_acquire);
+  *per_sm = g_per_sm[dev].load(std::memory_order_acquire);
+  if (*sms > 0) return cudaSuccess;
+  cudaError_t err =
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(render_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, render_kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) *per_sm = 1;
+  g_per_sm[dev].store(*per_sm, std::memory_order_release);
+  g_sms[dev].store(*sms, std::memory_order_release);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // factors: [n, 4] float32, background: [n] float32 or null,
@@ -449,20 +480,12 @@ extern "C" int cdgvae_render(const void* factors, const void* background,
   if (n <= 0 || size <= 0 || size > kMaxSize) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(render_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, render_kernel, kThreads, kSmemBytes);
+  if (err == cudaSuccess) err = launch_shape(dev, &sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   const int band_rows = std::min(size, kBandFloats / (size * 3));
   const int bands = (size + band_rows - 1) / band_rows;
   const int64_t blocks_needed = ((int64_t)n * bands + kWarps - 1) / kWarps;
-  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t resident = (int64_t)sms * per_sm;
   const unsigned blocks =
       (unsigned)(blocks_needed < resident ? blocks_needed : resident);
   render_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(

@@ -10,7 +10,9 @@ or ``decoder.block0.layer0.w``, the TVAE's ``sigma``, the discriminator's
 ``net.layer0.w``), so a JAX param tree loads by copy
 (``utils/interop.py``). The reparameterisation
 noise is given (``noise=``) or drawn from ``generator=``, as in
-``models/vae.py``.
+``models/vae.py``; ``noise_shapes``/``pack_noise`` name that draw, epsilon's
+[batch, node] normal, for the graphed epoch runner
+(``train/scanned.py::NoisePlan``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from torch import nn
 
 from ..nn import MLP
 from ..ops.causal import CausalGraph
-from .vae import VAE, VAEOutput
+from .vae import VAE, VAEOutput, _EpsilonNoise
 
 
 def _encoder_sizes(dataset: str, input_dim: int, node: int):
@@ -41,7 +43,7 @@ def _decoder_sizes(dataset: str, node: int, input_dim: int):
     raise ValueError("Not supported dataset!")
 
 
-class TabularVAE(nn.Module):
+class TabularVAE(_EpsilonNoise, nn.Module):
     """Single-decoder tabular VAE."""
 
     def __init__(self, graph: CausalGraph, dataset: str, input_dim: int, *,
@@ -84,7 +86,7 @@ class TabularVAE(nn.Module):
                          align_latent, None, xhat)
 
 
-class TabularCDGVAE(nn.Module):
+class TabularCDGVAE(_EpsilonNoise, nn.Module):
     """Per-factor block decoders ``decoder.block{i}``, block i mapping its
     ``factor[i]`` latents to ``mask[i]`` output columns."""
 
@@ -147,7 +149,7 @@ class TabularCDGVAE(nn.Module):
                          align_latent, xhat_separated, xhat)
 
 
-class TVAE(nn.Module):
+class TVAE(_EpsilonNoise, nn.Module):
     """CDG-TVAE: a tabular VAE over DataTransformer encodings with a
     learnable observation noise ``sigma`` [input_dim] (initialised to 0.1)
     per encoded column. Encoder ``[input_dim, 32, 16, 16, 2·node]`` and

@@ -5,7 +5,13 @@ is built by ``nvcc`` at first launch (``_build.py``) and bound with
 ``ctypes``. The wrapper checks its inputs, allocates the output (or takes
 the caller's), launches on the current stream without synchronising, and
 raises if the launch fails. It never falls back to the plain version.
-``launches`` counts the launches.
+
+``launches`` counts the kernels that ran: each launch on a stream that
+runs it, and each launch a CUDA graph holds, once a replay
+(:func:`count_replay`). A launch recorded into a graph being captured has
+not run: it counts in ``captured`` instead, which the captured step reads
+to know how many launches its replays make
+(``train/scanned.py::CapturedStep``).
 """
 from __future__ import annotations
 
@@ -20,7 +26,24 @@ from . import _build
 MAX_SIZE = 512
 
 launches = 0
+captured = 0
 _lib = None
+
+
+def _count_launch() -> None:
+    """One launch: run now, or recorded into the graph being captured."""
+    global launches, captured
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+
+
+def count_replay(n: int) -> None:
+    """A replayed CUDA graph ran the ``n`` launches its capture
+    recorded."""
+    global launches
+    launches += n
 
 
 def _load():
@@ -43,7 +66,6 @@ def render_cuda(factors: torch.Tensor, size: int = 64,
     [-1, 1], channels-last. ``out``, if given, is a contiguous float32
     [B, size, size, 3] tensor on the same device that receives the images
     and is returned."""
-    global launches
     if factors.device.type != "cuda":
         raise ValueError(f"render_cuda needs a CUDA tensor, got "
                          f"{factors.device}")
@@ -82,7 +104,8 @@ def render_cuda(factors: torch.Tensor, size: int = 64,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cdgvae_render(factors.data_ptr(), bg_ptr, out.data_ptr(),
                                n, size, stream)
-    if rc != 0:
-        raise RuntimeError(f"render kernel launch failed: CUDA error {rc}")
-    launches += 1
+        if rc != 0:
+            raise RuntimeError(f"render kernel launch failed: CUDA error "
+                               f"{rc}")
+        _count_launch()
     return out

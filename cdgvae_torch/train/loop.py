@@ -193,10 +193,13 @@ def run_epochs_semi(step: Callable, x_u, x_l, y_l, *, seed: int,
                     epochs: int, batch_size: int, batch_size_l: int,
                     start_epoch: int = 0,
                     on_epoch: Callable | None = None,
-                    mesh=None) -> list[dict]:
+                    mesh=None, graph_noise: Callable | None = None
+                    ) -> list[dict]:
     """:func:`run_epochs` for the two-stream semi-supervised runner
     (``train/scanned.py::make_scanned_epochs_semi``), each batch size
-    clamped to its stream; under a ``mesh`` both streams are sharded."""
+    clamped to its stream; under a ``mesh`` both streams are sharded.
+    ``graph_noise`` (one device, CUDA tensors) replays each step from a
+    CUDA graph, captured once for the call."""
     if mesh is not None:
         x_u, x_l, y_l = shard_rows(mesh, x_u, x_l, y_l)
         bs = split_batch(min(batch_size, len(x_u) * mesh.size), mesh)
@@ -204,7 +207,7 @@ def run_epochs_semi(step: Callable, x_u, x_l, y_l, *, seed: int,
                            name="batch_sizeL")
     else:
         bs, bs_l = min(batch_size, len(x_u)), min(batch_size_l, len(x_l))
-    run = make_scanned_epochs_semi(step, bs, bs_l, mesh)
+    run = make_scanned_epochs_semi(step, bs, bs_l, mesh, graph_noise)
     return _drive(run, (x_u, x_l, y_l), seed=seed, epochs=epochs,
                   start_epoch=start_epoch, on_epoch=on_epoch,
                   post_epoch=None, post_epoch_pred=None, mesh=mesh)

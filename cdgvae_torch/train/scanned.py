@@ -7,22 +7,26 @@ permutation of the flat ``[n, 3·H·W]`` dataset per epoch from the epoch's
 ``torch.Generator`` (``train/loop.py::run_epochs`` derives it from the
 seed and the epoch), the last partial batch dropped, metrics accumulated
 on the device and averaged per epoch with one host sync per epoch. Steps
-run as a Python loop of eager steps, or, in the CUDA-graph mode of
-:func:`make_epoch_runner` (``graph_noise=``), as replays of one captured
-step: the counterpart of the reference's compiled ``lax.scan``.
+run as a Python loop of eager steps, or, in the CUDA-graph mode of both
+runners (``graph_noise=``), as replays of one captured step: the
+counterpart of the reference's compiled ``lax.scan``.
 
-The graphed runner equals the eager one step for step. Before each
-replay it copies the step's row of the epoch's permutation into a static
-index buffer and fills static noise buffers from the epoch's generator
-(:class:`NoisePlan`), in the order and with the calls the eager step
-draws with; the graph gathers the batch from the device-resident
-dataset, decodes it, runs forward, backward, Adam and ``post_update``.
-The epoch's first step runs eagerly, on the stream the capture uses
-(it makes Adam's state and the autograd buffers), and the capture
-follows it, so no state is rolled back. The graph is kept for the
-runner's later epochs. It needs a CUDA dataset, one device (no mesh)
-and a ``capturable`` Adam (``train/steps.py::make_optimizer``); a
-failed capture raises.
+The graphed runners equal the eager ones step for step. Before each
+replay a step stages its inputs into static buffers, in the order and
+with the calls the eager step draws with: each index stream's row of the
+epoch's permutations (one stream, or the unlabeled and the labeled one
+of the semi-supervised runner), then the step's draws from the epoch's
+generator (:class:`NoisePlan`: the noise and, for the InfoMax pair, the
+marginal's permutation). The graph gathers the batch from the
+device-resident data, decodes it, runs forward, backward, Adam and
+``post_update``. The epoch's first step runs eagerly, on the stream the
+capture uses (it makes Adam's state and the autograd buffers), and the
+capture follows it, so no state is rolled back
+(:class:`CapturedStep`, which the online trainer of ``train/online.py``
+shares). The graph is kept for the runner's later epochs. It needs CUDA
+data, one device (no mesh) and ``capturable`` Adams
+(``train/steps.py::make_optimizer``); a failed capture raises, and
+nothing falls back to the eager loop.
 
 A uint8 dataset is quantized images (:func:`quantize_images`): both
 runners gather its rows as bytes and decode them in the step
@@ -42,7 +46,7 @@ from typing import Callable
 
 import torch
 
-from ..ops import losses
+from ..ops import losses, renderer_cuda
 from ..parallel.mesh import all_reduce_mean
 from ..utils.profiling import count_replayed_step
 from .steps import _metrics, forward
@@ -137,84 +141,159 @@ def epoch_batches(n: int, batch_size: int,
 
 
 class NoisePlan:
-    """A step's noise as static buffers, for the graphed runner: one
+    """A step's draws as static buffers, for the graphed runners: one
     buffer a draw the eager step makes, of the shapes
     ``model.noise_shapes(batch_size)`` in its draw order and in
     ``dtype`` (the step's compute dtype, float32 by default), on
-    ``device``. :meth:`draw` fills them from a generator with the calls
-    the eager step makes (``torch.randn`` is ``normal_`` on a new
-    tensor), so the same generator gives the same values; :attr:`noise` is
-    the step's ``noise=`` argument over them (``model.pack_noise``)."""
+    ``device``; with ``marginal="permutation"`` (the InfoMax pair) one
+    more, the [batch_size] permutation of the marginal, which the eager
+    step draws after the noise (``train/steps.py::marginal_epsilon``).
+    :meth:`draw` fills them from a generator with the calls the eager
+    step makes (``torch.randn`` is ``normal_`` on a new tensor; the
+    permutation is ``torch.randperm``'s, copied in), so the same
+    generator gives the same values; :attr:`kwargs` is the step's
+    keyword arguments over them: ``noise=`` (``model.pack_noise``; also
+    :attr:`noise`) and ``perm=``."""
 
     def __init__(self, model, batch_size: int,
-                 dtype: torch.dtype | None = None, device=None):
+                 dtype: torch.dtype | None = None, device=None,
+                 marginal: str | None = None):
         self.buffers = [torch.empty(shape, dtype=dtype or torch.float32,
                                     device=device)
                         for shape in model.noise_shapes(batch_size)]
         self.noise = model.pack_noise(self.buffers)
+        self.kwargs = {"noise": self.noise}
+        self.perm = None
+        if marginal is not None:
+            if marginal != "permutation":
+                raise ValueError(
+                    f"the graphed runners stage the 'permutation' marginal, "
+                    f"not {marginal!r} (the mesh's, whose runners are "
+                    "eager)")
+            self.perm = torch.empty(batch_size, dtype=torch.long,
+                                    device=device)
+            self.kwargs["perm"] = self.perm
 
     def draw(self, generator: torch.Generator) -> None:
         for b in self.buffers:
             b.normal_(generator=generator)
+        if self.perm is not None:
+            self.perm.copy_(torch.randperm(len(self.perm),
+                                           generator=generator,
+                                           device=self.perm.device))
 
 
-class GraphedStep:
-    """One training step captured as a CUDA graph over static inputs: the
-    batch's row indices and the noise buffers of ``plan``. The dataset
-    ``xf`` (flat rows), ``y`` is read where it lies, so the graph holds
-    to those tensors; the metrics are the graph's static outputs.
-    :meth:`stage` and :meth:`body` are the two halves of a step, which
-    run as they are on any device; the graph exists only on CUDA."""
+class CapturedStep:
+    """``body() -> metrics`` as a CUDA graph on ``device``: :meth:`run`
+    runs it eagerly the first time, on the stream the capture then uses,
+    captures it, and replays the graph at every later call (:meth:`replay`
+    alone replays it, for timing); the metrics are the graph's static
+    outputs, the same tensors at every replay. A replay counts toward an
+    open ``--profile`` trace
+    (``utils/profiling.py::count_replayed_step``) and adds the render
+    launches the graph holds to ``ops/renderer_cuda.py``'s count
+    (:attr:`renders`: those its capture recorded)."""
 
-    def __init__(self, step_fn, post_update, plan: NoisePlan, xf, item_shape,
-                 y, batch_size: int):
-        self.idx = torch.zeros(batch_size, dtype=torch.long, device=xf.device)
-        self.plan, self.graph, self.metrics = plan, None, None
-        self._step, self._post = step_fn, post_update
-        self._data, self._item_shape = (xf, y), item_shape
+    def __init__(self, body: Callable[[], dict], device):
+        self.body, self.device = body, torch.device(device)
+        self.graph, self.metrics, self.renders = None, None, 0
 
-    def holds(self, xf, y) -> bool:
-        return all(a.data_ptr() == b.data_ptr() and a.shape == b.shape
-                   for a, b in zip(self._data, (xf, y)))
+    def replay(self) -> None:
+        """One replay of the captured graph, counted."""
+        self.graph.replay()
+        renderer_cuda.count_replay(self.renders)
+        count_replayed_step()
 
-    def stage(self, rows: torch.Tensor, generator: torch.Generator) -> None:
-        """The step's inputs: the batch's rows into the index buffer, and
-        its noise from ``generator``, drawn as the eager step draws it."""
-        self.idx.copy_(rows)
-        self.plan.draw(generator)
-
-    def body(self) -> dict:
-        """What the graph holds: the gather and decode of the staged
-        rows, the step on the staged noise, and ``post_update``."""
-        xf, y = self._data
-        xi = unflatten_items(xf[self.idx], self._item_shape)
-        metrics = self._step(xi, y[self.idx], noise=self.plan.noise)
-        if self._post is not None:
-            self._post()
-        return metrics
-
-    def __call__(self, rows: torch.Tensor,
-                 generator: torch.Generator) -> dict:
-        """One step on the batch ``rows``: a replay, or at the first call
-        an eager step and then the capture."""
-        self.stage(rows, generator)
+    def run(self) -> dict:
         if self.graph is not None:
-            self.graph.replay()
-            count_replayed_step()
+            self.replay()
             return self.metrics
-        current = torch.cuda.current_stream(self.idx.device)
-        side = torch.cuda.Stream(self.idx.device)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             metrics = self.body()
         graph = torch.cuda.CUDAGraph()
+        recorded = renderer_cuda.captured
         # thread_local: a checkpoint thread's copies may run meanwhile
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
             self.metrics = self.body()
         current.wait_stream(side)
-        self.graph = graph
+        self.graph, self.renders = graph, renderer_cuda.captured - recorded
         return metrics
+
+
+class GraphedStep(CapturedStep):
+    """One training step captured as a CUDA graph over static inputs: the
+    row indices of each index stream and the draws of ``plan``.
+    ``streams`` lists, for each index stream, its batch size and the
+    tensors its rows gather, as ``(tensor, item_shape)`` pairs: flat rows
+    decoded to items of ``item_shape`` (:func:`unflatten_items`), or with
+    ``item_shape`` None taken as they are (the labels). The step gets the
+    gathered tensors in that order: ``[(bs, [(xf, shape), (y, None)])]``
+    for ``step(x, y)``, two streams for the semi-supervised
+    ``step(x_u, x_l, y_l)``. The data are read where they lie, so the
+    graph holds to those tensors. :meth:`stage` and :meth:`body` are the
+    two halves of a step, which run as they are on any device; the graph
+    exists only on CUDA."""
+
+    def __init__(self, step_fn, post_update, plan: NoisePlan, streams):
+        self._step, self._post, self.plan = step_fn, post_update, plan
+        self._streams = [gathers for _, gathers in streams]
+        device = streams[0][1][0][0].device
+        self.rows = [torch.zeros(bs, dtype=torch.long, device=device)
+                     for bs, _ in streams]
+        super().__init__(self.body, device)
+
+    def holds(self, *data) -> bool:
+        """Whether the graph gathers from exactly ``data``, in order."""
+        mine = [t for gathers in self._streams for t, _ in gathers]
+        return len(mine) == len(data) and all(
+            a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            for a, b in zip(mine, data))
+
+    def stage(self, rows, generator: torch.Generator) -> None:
+        """The step's inputs: each stream's rows into its index buffer,
+        and the plan's draws from ``generator``, drawn as the eager step
+        draws them."""
+        for buf, r in zip(self.rows, rows):
+            buf.copy_(r)
+        self.plan.draw(generator)
+
+    def body(self) -> dict:
+        """What the graph holds: the gathers and decodes of the staged
+        rows, the step on the staged draws, and ``post_update``."""
+        batch = [t[idx] if shape is None else unflatten_items(t[idx], shape)
+                 for idx, gathers in zip(self.rows, self._streams)
+                 for t, shape in gathers]
+        metrics = self._step(*batch, **self.plan.kwargs)
+        if self._post is not None:
+            self._post()
+        return metrics
+
+    def __call__(self, rows, generator: torch.Generator) -> dict:
+        """One step on the batches ``rows`` (one index tensor a stream): a
+        replay, or at the first call an eager step and then the
+        capture."""
+        self.stage(rows, generator)
+        return self.run()
+
+
+def _graphed_step(run, step_fn, post_update, plan, streams,
+                  data) -> GraphedStep:
+    """The runner's captured step, made at its first call and kept (as
+    ``run.graphed``, whose graph a caller may replay alone); ``data``,
+    the tensors it gathers, must be CUDA tensors, the same every call."""
+    if not all(t.is_cuda for t in data):
+        raise ValueError("the CUDA-graph epoch runner needs the data on a "
+                         f"CUDA device (got {[str(t.device) for t in data]})")
+    if run.graphed is None:
+        run.graphed = GraphedStep(step_fn, post_update, plan(), streams)
+    elif not run.graphed.holds(*data):
+        raise ValueError("the CUDA-graph epoch runner was captured on "
+                         "another dataset; make a runner for this one")
+    return run.graphed
 
 
 def make_epoch_runner(step_fn: Callable, batch_size: int,
@@ -234,17 +313,17 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
     docstring).
 
     ``graph_noise(batch_size, device) -> NoisePlan`` turns on the
-    CUDA-graph mode (module docstring): ``step`` must also take
-    ``noise=``, the plan's draws, and ``x``, ``y`` must be CUDA tensors,
-    the same ones every epoch, without a mesh; anything else raises.
+    CUDA-graph mode (module docstring): ``step`` must also take the
+    plan's ``kwargs`` (``noise=``, and ``perm=`` for InfoMax), and ``x``,
+    ``y`` must be CUDA tensors, the same ones every epoch, without a
+    mesh; anything else raises. ``run.graphed`` is then the
+    :class:`GraphedStep`, once the first epoch has made it.
     """
     if graph_noise is not None and mesh is not None:
         raise ValueError("the CUDA-graph epoch runner runs on one device; "
                          "under a mesh the runner is eager")
-    graphed = None
 
     def run(x, y, generator: torch.Generator) -> dict:
-        nonlocal graphed
         n = x.shape[0]
         steps = n // batch_size
         if steps == 0:
@@ -261,20 +340,15 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
                 if post_update is not None:
                     post_update()
             return avg.result()  # the one host sync
-        if not (x.is_cuda and y.is_cuda):
-            raise ValueError("the CUDA-graph epoch runner needs the dataset "
-                             f"on a CUDA device (got {x.device}, {y.device})")
-        if graphed is None:
-            graphed = GraphedStep(step_fn, post_update,
-                                  graph_noise(batch_size, device=x.device),
-                                  xf, item_shape, y, batch_size)
-        elif not graphed.holds(xf, y):
-            raise ValueError("the CUDA-graph epoch runner was captured on "
-                             "another dataset; make a runner for this one")
-        for rows in batches:
-            avg.add(graphed(rows, generator))
+        graphed = _graphed_step(
+            run, step_fn, post_update,
+            lambda: graph_noise(batch_size, device=x.device),
+            [(batch_size, [(xf, item_shape), (y, None)])], (xf, y))
+        for idx in batches:
+            avg.add(graphed((idx,), generator))
         return avg.result()  # the one host sync
 
+    run.graphed = None
     return run
 
 
@@ -290,7 +364,9 @@ def labeled_batches(n_l: int, steps: int, batch_size_l: int,
 
 
 def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
-                             batch_size_l: int, mesh=None) -> Callable:
+                             batch_size_l: int, mesh=None,
+                             graph_noise: Callable | None = None
+                             ) -> Callable:
     """Semi-supervised epoch runner, the counterpart of
     ``make_scanned_epochs_semi``: the unlabeled stream drives the epoch and
     drops its remainder; the labeled stream cycles through
@@ -304,7 +380,12 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
     for the reference's protocol with short batches. Under a ``mesh``
     each rank cycles its own labeled shard (module docstring). A uint8
     stream is decoded in the step (:func:`unflatten_items`).
+    ``graph_noise`` is :func:`make_epoch_runner`'s CUDA-graph mode, with
+    two index streams: the unlabeled rows and the labeled ones.
     """
+    if graph_noise is not None and mesh is not None:
+        raise ValueError("the CUDA-graph epoch runner runs on one device; "
+                         "under a mesh the runner is eager")
 
     def run(x_u, x_l, y_l, generator: torch.Generator) -> dict:
         n_u, n_l = x_u.shape[0], x_l.shape[0]
@@ -318,10 +399,21 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
         idx_u = epoch_batches(n_u, batch_size, generator)
         idx_l = labeled_batches(n_l, steps, batch_size_l, generator)
         avg = Averager(mesh)
+        if graph_noise is None:
+            for iu, il in zip(idx_u, idx_l):
+                avg.add(step_fn(unflatten_items(xf_u[iu], x_u.shape[1:]),
+                                unflatten_items(xf_l[il], x_l.shape[1:]),
+                                y_l[il], generator=generator))
+            return avg.result()  # the one host sync
+        graphed = _graphed_step(
+            run, step_fn, None,
+            lambda: graph_noise(batch_size, device=x_u.device),
+            [(batch_size, [(xf_u, x_u.shape[1:])]),
+             (batch_size_l, [(xf_l, x_l.shape[1:]), (y_l, None)])],
+            (xf_u, xf_l, y_l))
         for iu, il in zip(idx_u, idx_l):
-            avg.add(step_fn(unflatten_items(xf_u[iu], x_u.shape[1:]),
-                            unflatten_items(xf_l[il], x_l.shape[1:]),
-                            y_l[il], generator=generator))
+            avg.add(graphed((iu, il), generator))
         return avg.result()  # the one host sync
 
+    run.graphed = None
     return run

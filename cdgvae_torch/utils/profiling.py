@@ -9,8 +9,9 @@ utils/xplane.py:174-203``).
   start to the end of its ``TRACE_STEPS``-th optimizer step, so that a
   long drive keeps a bounded trace. ``--profile DIR`` on every training
   CLI wraps its training drive in it. A step replayed from a CUDA graph
-  runs no Python, so the graphed epoch runner counts it
-  (:func:`count_replayed_step`), and the step's capture counts nothing.
+  runs no Python, so the graphed runners count it
+  (:func:`count_replayed_step`, from ``train/scanned.py::CapturedStep``),
+  and the step's capture counts nothing.
 * :class:`StepTimer`: step times and rates; on a CUDA device timed with
   CUDA events (device time between ``start`` and ``stop``), else on the
   host clock.

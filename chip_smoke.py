@@ -82,7 +82,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     and transform (host ms, output widths); ``cli.tabular_main_tvae`` at
     its defaults but 2 epochs on every dataset, and on loan ``--resume``,
     ``--eager`` and ``--profile`` (2 epochs; the trace ranks CUDA kernels
-    and closes after its window of optimizer steps); the TVAE
+    and closes after its window of optimizer steps: the eager first step,
+    its capture and the replays); the TVAE
     loss and data-space serving on the card against the CPU; host ms and
     device busy a step, with no host wait or copy; ``cli.
     tabular_inference_tvae`` on each checkpoint. The TVAE path renders
@@ -176,10 +177,31 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     metrics must be equal bit for bit; then host ms a step of the two
     runners interleaved, device busy a step from the profiler's kernels
     over an epoch of each, and a replay's device time on CUDA events.
-    The graphed epochs render nothing: 0 launches.
+    The graphed epochs render nothing: 0 launches;
+24. the graphed runners of the other trainers against their eager
+    runners, from one init and one seed, each with capturable Adams: the
+    semi-supervised runner (``main_semi``'s defaults, batch 128, labeled
+    batch 32, on phase 4's dataset), the InfoMax pair (the
+    ``permutation`` marginal), the DR CDG-VAE and DR semi on the DR train
+    split, the tabular CDG-VAE and InfoMax and the TVAE with its sigma
+    clamp on loan at the full synthetic size, each for 3 epochs; and the
+    online trainer (pendulum, DR, semi and InfoMax at full width, 2 calls
+    of 29 steps), whose graph holds the render kernel: its launches must
+    equal the steps, eager and graphed (a capture counts none, a replay
+    the launches its graph holds). Parameters, buffers, Adam moments and
+    step counts and the metrics must be equal bit for bit; then the
+    InfoMax graphed run resumed from a checkpoint after epoch 2 (with the
+    discriminator's state, through ``cli.common.apply_resume``) against
+    the uninterrupted eager run; then, for each path, host ms a step of
+    the two runners interleaved (median of 3 rounds), device busy and
+    kernels a step from the profiler over a call of each, and a replay's
+    device time on CUDA events.
 
+The CLIs of phases 8-17 replay graphs on the card by default
+(``--eager`` and ``--dp`` stay eager): phase 17's ``--profile`` trace
+holds the eager first step, its capture and the replays of its window.
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15, 19, 21 and 22, and 17's, 18's, 20's and 23's 0) and summed in
+10-15, 19, 21, 22 and 24, and 17's, 18's, 20's and 23's 0) and summed in
 the ``{"kernels": [...]}`` JSON line, which is followed by the ``{"ok":
 true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
@@ -347,13 +369,16 @@ def host_waits(kernels_and_events) -> dict:
             if any(w in e.key for w in HOST_WAIT_EVENTS)}
 
 
-def profile_window(fn) -> tuple[float, float, str, list, dict]:
-    """Run ``fn`` once warm and once under torch.profiler. Returns (device
-    kernel time s, wall time s, top-kernel table, the kernels' averages
-    sorted by device time, the window's host waits and copies)."""
+def profile_window(fn, warm: bool = True
+                   ) -> tuple[float, float, str, list, dict]:
+    """Run ``fn`` once warm (unless ``warm`` is false: it has run already)
+    and once under torch.profiler. Returns (device kernel time s, wall
+    time s, top-kernel table, the kernels' averages sorted by device time,
+    the window's host waits and copies)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -406,13 +431,15 @@ def run_cli(args: list[str], cli: str = "main") -> tuple[str, object, float]:
     return tee.kept.getvalue(), result, wall
 
 
-def interleaved_ms(paths: dict, steps: int, card: str) -> dict:
+def interleaved_ms(paths: dict, steps: int, card: str,
+                   warm: bool = True) -> dict:
     """Host time a step of each path, ``paths[name](k)`` running epoch k
     of ``steps`` steps and ending in a host sync: the paths in turn, 3
-    rounds after a warm one. Prints each path's times; returns the
-    medians in seconds a step."""
+    rounds after a warm one (none when ``warm`` is false: the paths have
+    run already). Prints each path's times; returns the medians in
+    seconds a step."""
     per_step = {name: [] for name in paths}
-    for k in range(4):
+    for k in range(0 if warm else 1, 4):
         for name, fn in paths.items():
             t0 = time.perf_counter()
             fn(k)
@@ -1360,15 +1387,23 @@ def tvae(*, work: Path, card: str, dev, rng, profiled_steps) -> None:
                   f"[{sigma.min():.4f}, {sigma.max():.4f}]")
     ranked = rank_ops(str(work / "tvae_trace"), top=8)
     check(len(ranked) > 0, "the --profile trace holds no CUDA kernel")
+    events = newest_trace(str(work / "tvae_trace"))["traceEvents"]
     traced = sum(ev.get("cat") == "user_annotation"
                  and ev.get("name", "").startswith("Optimizer.step")
-                 for ev in newest_trace(str(work / "tvae_trace"))
-                 ["traceEvents"])
-    check(traced == TRACE_STEPS, f"the --profile trace holds {traced} "
-          f"optimizer steps of {2 * TVAE_STEPS['loan']}, not its window of "
-          f"{TRACE_STEPS}")
-    print(f"tabular_main_tvae --profile: {traced} of "
-          f"{2 * TVAE_STEPS['loan']} optimizer steps traced; wall "
+                 for ev in events)
+    replays = sum(ev.get("name", "").startswith("cudaGraphLaunch")
+                  for ev in events)
+    # the graphed epochs: the first step runs eagerly, its capture runs the
+    # Python of a step once more, and every later step of the window is a
+    # graph replay: the window holds its TRACE_STEPS steps
+    check(traced == 2 and replays == TRACE_STEPS - 1,
+          f"the --profile trace holds {traced} optimizer steps and "
+          f"{replays} graph replays of {2 * TVAE_STEPS['loan']} steps, not "
+          f"the eager first step, its capture and {TRACE_STEPS - 1} replays "
+          f"(its window of {TRACE_STEPS})")
+    print(f"tabular_main_tvae --profile: {traced} optimizer steps (the "
+          f"eager first step and the capture) and {replays} graph replays "
+          f"traced of {2 * TVAE_STEPS['loan']} steps; wall "
           f"{walls['loan profile']:.3f} s against {walls['loan fixed']:.3f} s "
           f"unprofiled (host clock, fit included) [{card}]")
     print("tabular_main_tvae --profile: top CUDA kernels of the trace "
@@ -2588,8 +2623,7 @@ def graphed_epochs(*, work: Path, card: str, dev, dataset,
     from cdgvae_torch.ops.packing import Packer
     from cdgvae_torch.train.celeba_steps import make_celeba_step
     from cdgvae_torch.train.loop import run_epochs
-    from cdgvae_torch.train.scanned import (GraphedStep, NoisePlan,
-                                            epoch_batches, make_epoch_runner)
+    from cdgvae_torch.train.scanned import NoisePlan, make_epoch_runner
     from cdgvae_torch.train.steps import make_optimizer, make_train_step
     from cdgvae_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from cdgvae_torch.utils.interop import (export_opt_state, export_params,
@@ -2714,18 +2748,14 @@ def graphed_epochs(*, work: Path, card: str, dev, dataset,
                   f"{waits} [{card}]")
         check(busy["graphed"] > 0, f"{name}: the profiler saw no kernel of "
               "the graphed epochs")
-        gs = GraphedStep(step_g, post_g, plan(bs, device=dev),
-                         x.reshape(n, -1), x.shape[1:], y, bs)
-        gen = torch.Generator(device=dev).manual_seed(900)
-        gs(epoch_batches(n, bs, gen)[0], gen)  # the eager step and capture
-        replay_ms = device_ms(gs.graph.replay, reps=5)
+        replay_ms = device_ms(runners["graphed"].graphed.replay, reps=5)
         print(f"{name}: a graphed step's replay {replay_ms:.3f} ms on CUDA "
               f"events (staging excluded); host ms a step eager "
               f"{host[f'{name} eager'] * 1e3:.3f}, graphed "
               f"{host[f'{name} graphed'] * 1e3:.3f}; device busy eager "
               f"{busy['eager'] * 1e3:.3f}, graphed "
               f"{busy['graphed'] * 1e3:.3f} ms a step [{card}]")
-        del m_e, o_e, step_e, m_g, o_g, step_g, runners, gs
+        del m_e, o_e, step_e, m_g, o_g, step_g, runners
         gc.collect()
         torch.cuda.empty_cache()
         print(f"phase 23, {name}: {time.perf_counter() - t_case:.1f} s "
@@ -2736,6 +2766,311 @@ def graphed_epochs(*, work: Path, card: str, dev, dataset,
           f"launched the render kernel {renderer_cuda.launches} times")
     print(f"phase 23 (graphed epochs): {time.perf_counter() - t0:.1f} s "
           f"(host clock); launches {{'render': 0}} [{card}]")
+
+
+def graphed_paths(*, work: Path, card: str, dev, dataset,
+                  path_launches: dict) -> None:
+    """Phase 24: the graphed runners of every trainer beside the flagship
+    and CelebA against their eager runners (see the module docstring)."""
+    from functools import partial
+
+    from cdgvae_torch.cli.common import apply_resume
+    from cdgvae_torch.cli.tabular_main_tvae import TRANSFORMER_RANDOM_STATE
+    from cdgvae_torch.data.pendulum_dr import PendulumDRDataset
+    from cdgvae_torch.data.tabular.datasets import (load_tabular,
+                                                    load_tabular_tvae)
+    from cdgvae_torch.factory import (build_pendulum_model,
+                                      build_tabular_model, tvae_block_mask)
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.train.online import (dr_batch_fn,
+                                           make_online_run_from_loss,
+                                           pendulum_batch_fn)
+    from cdgvae_torch.train.scanned import (NoisePlan, make_epoch_runner,
+                                            make_scanned_epochs_semi,
+                                            make_supervised_loss_fn)
+    from cdgvae_torch.train.steps import (make_infomax_loss_fn,
+                                          make_infomax_step, make_optimizer,
+                                          make_semi_loss_fn, make_semi_step,
+                                          make_train_step,
+                                          pair_infomax_optimizer)
+    from cdgvae_torch.train.tabular_steps import (make_recon_fn,
+                                                  make_sigma_clamp,
+                                                  make_tabular_infomax_step,
+                                                  make_tabular_step,
+                                                  make_tvae_step)
+    from cdgvae_torch.utils.checkpoint import save_checkpoint
+    from cdgvae_torch.utils.interop import export_opt_state, export_params
+    from cdgvae_torch.utils.simulation import EPOCH, derived_generator
+
+    t0 = time.perf_counter()
+    renderer_cuda.launches = 0
+    dr_ds = PendulumDRDataset(n=N_SAMPLES, device=dev)  # one launch
+    n_l = int(len(dataset) * 0.1)  # main_semi's labeled 10%
+    pend = (dataset.x_data, dataset.y_data)
+    dr = (dr_ds.x_data, dr_ds.y_data)
+    loan = load_tabular("loan")
+    tab = (torch.as_tensor(loan.x_data, device=dev),
+           torch.as_tensor(loan.label, device=dev))
+    recon = make_recon_fn("loan", loan.flatten_topology)
+    tv = load_tabular_tvae("loan",
+                           random_state=TRANSFORMER_RANDOM_STATE["loan"])
+    oil = tv.transformer.output_info_list
+    tvd = (torch.as_tensor(tv.x_data, device=dev),
+           torch.as_tensor(tv.label, device=dev))
+    tv_cfg = {"model": "TVAE", "dataset": "loan", "scm": "linear",
+              "input_dim": tv.transformer.output_dimensions,
+              "tvae_mask": tvae_block_mask("loan", oil)}
+    dr_cfg = dict(FLAGSHIP, node=5)
+    semi_cfg = dict(FLAGSHIP, model="CDGVAEsemi", scm="nonlinear")
+    im_cfg = dict(FLAGSHIP, model="InfoMax")
+
+    def pendulum(cfg, spurious=False):
+        m, d = build_pendulum_model(cfg, spurious=spurious, device=dev,
+                                    seed=0)
+        pairs = [(m, make_optimizer(m, LR, capturable=True))]
+        if d is not None:
+            pairs.append((d, make_optimizer(d, LR_D, capturable=True)))
+        return pairs
+
+    def tabular(name):
+        m, d = build_tabular_model({"model": name, "dataset": "loan",
+                                    "scm": "linear"}, device=dev, seed=0)
+        pairs = [(m, make_optimizer(m, TAB_LR, capturable=True))]
+        if d is not None:  # tabular_main's --lr_D
+            pairs.append((d, make_optimizer(d, 1e-3, capturable=True)))
+        return pairs
+
+    def tvae_pairs():
+        m, _ = build_tabular_model(dict(tv_cfg), device=dev, seed=0)
+        return [(m, make_optimizer(m, TVAE_LR, capturable=True,
+                                   weight_decay=TVAE_WD))]
+
+    def plan(pairs, marginal=None):
+        return partial(NoisePlan, pairs[0][0], marginal=marginal)
+
+    def pair_opt(pairs):
+        return (pair_infomax_optimizer(pairs[0][1], pairs[1][1])
+                if len(pairs) == 2 else pairs[0][1])
+
+    # name: (kind, data, make() -> (pairs, step or loss_fn, plan, post,
+    # batch function or None)); every model at full width
+    def epoch_case(data, build, step_of, marginal=None, post_of=None):
+        def make():
+            pairs = build()
+            return (pairs, step_of(pairs), plan(pairs, marginal),
+                    post_of(pairs) if post_of else None, None)
+        return "epoch", data, make
+
+    def semi_case(data, cfg, spurious=False):
+        def make():
+            pairs = pendulum(cfg, spurious)
+            m, o = pairs[0]
+            return pairs, make_semi_step(m, o, BETA, LAM), plan(pairs), \
+                None, None
+        return "semi", (data[0], data[0][:n_l], data[1][:n_l]), make
+
+    def online_case(cfg, loss_of, spurious=False, marginal=None,
+                    labeled=False):
+        def make():
+            pairs = pendulum(cfg, spurious)
+            batch = (dr_batch_fn if spurious else pendulum_batch_fn)(
+                BATCH, 64, device=dev)
+            return (pairs, loss_of(pairs), plan(pairs, marginal), None,
+                    batch)
+        data = (pend[0][:n_l], pend[1][:n_l]) if labeled else None
+        return "online", data, make
+
+    cases = {
+        "semi": semi_case(pend, semi_cfg),
+        "InfoMax": epoch_case(pend, partial(pendulum, im_cfg), lambda p:
+                              make_infomax_step(p[0][0], p[1][0], p[0][1],
+                                                p[1][1], BETA, LAM, GAMMA),
+                              marginal="permutation"),
+        "DR CDG-VAE": epoch_case(dr, partial(pendulum, dr_cfg, True),
+                                 lambda p: make_train_step(
+                                     p[0][0], p[0][1], BETA, DR_LAM)),
+        "DR semi": semi_case(dr, dict(dr_cfg, model="CDGVAEsemi",
+                                      scm="nonlinear"), spurious=True),
+        "tabular CDG-VAE loan": epoch_case(
+            tab, partial(tabular, "CDGVAE"), lambda p: make_tabular_step(
+                p[0][0], p[0][1], TAB_BETA, TAB_LAM, recon)),
+        "tabular InfoMax loan": epoch_case(
+            tab, partial(tabular, "InfoMax"),
+            lambda p: make_tabular_infomax_step(
+                p[0][0], p[1][0], p[0][1], p[1][1], TAB_BETA, TAB_LAM, GAMMA,
+                recon), marginal="permutation"),
+        "TVAE loan": epoch_case(
+            tvd, tvae_pairs, lambda p: make_tvae_step(p[0][0], p[0][1],
+                                                      TVAE_LAM, oil),
+            post_of=lambda p: make_sigma_clamp(p[0][0], TVAE_SIGMA)),
+        "online": online_case(FLAGSHIP, lambda p: make_supervised_loss_fn(
+            p[0][0], BETA, LAM)),
+        "online DR": online_case(dr_cfg, lambda p: make_supervised_loss_fn(
+            p[0][0], BETA, DR_LAM), spurious=True),
+        "online semi": online_case(semi_cfg, lambda p: make_semi_loss_fn(
+            p[0][0], BETA, LAM), labeled=True),
+        "online InfoMax": online_case(im_cfg, lambda p: make_infomax_loss_fn(
+            p[0][0], p[1][0], BETA, LAM, GAMMA), marginal="permutation"),
+    }
+    online_call = len(dataset) // BATCH  # 29 steps a call, 2 calls
+    bs_of = {"tabular CDG-VAE loan": TAB_BATCH,
+             "tabular InfoMax loan": TAB_BATCH, "TVAE loan": TAB_BATCH}
+
+    def runner(name, built, graphed):
+        kind, data, _ = cases[name]
+        pairs, fn, noise, post, batch = built
+        noise = noise if graphed else None
+        if kind == "semi":
+            return make_scanned_epochs_semi(fn, BATCH, BATCH_L,
+                                            graph_noise=noise)
+        if kind == "epoch":
+            return make_epoch_runner(fn, bs_of.get(name, BATCH), post,
+                                     graph_noise=noise)
+        return make_online_run_from_loss(
+            fn, pair_opt(pairs), batch, online_call, seed=1, device=dev,
+            labeled=data, batch_size_l=BATCH_L if data else 0,
+            graph_noise=noise)
+
+    def call(name, run, k):
+        """Epoch (online: call) k of the runner, ending in a host sync."""
+        kind, data, _ = cases[name]
+        if kind == "online":
+            out = run(k * online_call)
+            torch.cuda.synchronize()
+            return out
+        return run(*data, derived_generator(1, EPOCH, k, device=dev))
+
+    def state(pairs) -> dict:
+        out = {}
+        for j, (m, opt) in enumerate(pairs):
+            out.update({f"{j} param {n}": p for n, p in m.named_parameters()})
+            out.update({f"{j} buffer {n}": b for n, b in m.named_buffers()})
+            for i, st in enumerate(opt.state.values()):
+                out.update({f"{j} adam {i} {k}": v for k, v in st.items()})
+        return out
+
+    def same(name, a, b, what) -> int:
+        check(a.keys() == b.keys(), f"{name}: the states differ in layout")
+        differ = {k: float((a[k].double() - b[k].double()).abs().max())
+                  for k in a if not torch.equal(a[k], b[k])}
+        check(not differ, f"{name}: {what} differs from eager: {differ}")
+        return len(a)
+
+    def same_history(name, h_g, h_e):
+        if cases[name][0] != "online":
+            check(h_g == h_e, f"{name}: the epoch metrics differ")
+            return [m["loss"] for m in h_g]
+        for g, e in zip(h_g, h_e):
+            check(g.keys() == e.keys() and all(torch.equal(g[k], e[k])
+                                               for k in g),
+                  f"{name}: the per-step metrics differ")
+        return [float(m["loss"].mean()) for m in h_g]
+
+    rows = []
+    eager_im = None
+    for name, (kind, data, make) in cases.items():
+        t_case = time.perf_counter()
+        calls = 2 if kind == "online" else EPOCHS
+        runs = {}
+        for w in ("eager", "graphed"):
+            built = make()
+            run = runner(name, built, w == "graphed")
+            before = renderer_cuda.launches
+            hist = [call(name, run, k) for k in range(calls)]
+            torch.cuda.synchronize()
+            renders = renderer_cuda.launches - before
+            runs[w] = (built, run, hist)
+            if kind == "online":  # one render a step, none for a capture
+                check(renders == calls * online_call, f"{name} {w}: "
+                      f"{renders} render launches for "
+                      f"{calls * online_call} steps")
+        n_t = same(name, state(runs["graphed"][0][0]),
+                   state(runs["eager"][0][0]), "graphed")
+        losses = same_history(name, runs["graphed"][2], runs["eager"][2])
+        check(all(math.isfinite(v) for v in losses),
+              f"{name}: non-finite loss {losses}")
+        steps = online_call if kind == "online" else (
+            len(data[0]) // bs_of.get(name, BATCH))
+        print(f"{name}: {calls} {'calls' if kind == 'online' else 'epochs'}"
+              f" of {steps} steps, graphed against eager: {n_t} tensors "
+              f"equal bit for bit, metrics equal; losses {losses} [{card}]")
+        if name == "InfoMax":  # the resume below is held to this state
+            eager_im = {k: v.clone()
+                        for k, v in state(runs["eager"][0][0]).items()}
+
+        # host ms a step, the two runners interleaved; the device's busy
+        # time and kernels a step from the profiler over a call of each; a
+        # replay's device time from CUDA events
+        timed = {w: runs[w][1] for w in runs}
+        # (each runner has run its calls: no warm-up round)
+        host = interleaved_ms({f"{name} {w}": partial(
+            lambda w, k: call(name, timed[w], calls + k), w)
+            for w in timed}, steps, card, warm=False)
+        busy, kernels = {}, {}
+        for w in timed:
+            b_s, _, _, kern, _ = profile_window(
+                partial(call, name, timed[w], calls + 5), warm=False)
+            busy[w] = b_s / steps
+            kernels[w] = sum(e.count for e in kern) / steps
+        check(busy["graphed"] > 0, f"{name}: the profiler saw no kernel of "
+              "the graphed runner")
+        replay_ms = device_ms(timed["graphed"].graphed.replay, reps=5)
+        rows.append((name, host[f"{name} eager"], host[f"{name} graphed"],
+                     busy["eager"], busy["graphed"], replay_ms,
+                     kernels["eager"], kernels["graphed"]))
+        print(f"phase 24, {name}: host ms a step eager "
+              f"{host[f'{name} eager'] * 1e3:.3f} -> graphed "
+              f"{host[f'{name} graphed'] * 1e3:.3f} (median of 3 "
+              f"interleaved rounds); device busy eager "
+              f"{busy['eager'] * 1e3:.3f}, graphed "
+              f"{busy['graphed'] * 1e3:.3f} ms a step; a replay "
+              f"{replay_ms:.3f} ms on CUDA events; kernels a step eager "
+              f"{kernels['eager']:.0f}, graphed {kernels['graphed']:.0f}; "
+              f"{time.perf_counter() - t_case:.1f} s (host clock) [{card}]")
+        del runs, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the graphed InfoMax run resumed from a checkpoint after epoch 2 (the
+    # discriminator and its Adam in the extras, read as --resume reads
+    # them) against the uninterrupted eager run above
+    kind, data, make = cases["InfoMax"]
+    built = make()
+    run = runner("InfoMax", built, True)
+    for k in range(EPOCHS - 1):
+        call("InfoMax", run, k)
+    (m, o), (d, od) = built[0]
+    ck_dir = work / "graphed_infomax_resume"
+    save_checkpoint(str(ck_dir), export_params(m),
+                    opt_state=export_opt_state(o, m), step=EPOCHS - 1,
+                    config={}, extras={"d_params": export_params(d),
+                                       "opt_state_d": export_opt_state(od, d)})
+    built = make()
+    (m, o), (d, od) = built[0]
+    _, start = apply_resume({"resume": str(ck_dir), "epochs": EPOCHS},
+                            (m, d, o, od))
+    check(start == EPOCHS - 1, f"InfoMax resumed at epoch {start}")
+    run = runner("InfoMax", built, True)
+    call("InfoMax", run, EPOCHS - 1)
+    torch.cuda.synchronize()
+    n_t = same("InfoMax resumed", state(built[0]), eager_im,
+               "the graphed resume")
+    print(f"InfoMax resumed: {EPOCHS - 1} graphed epochs, a checkpoint with "
+          f"the discriminator's state, then a graphed epoch from it, "
+          f"against {EPOCHS} eager epochs: {n_t} tensors equal bit for bit "
+          f"[{card}]")
+
+    print(f"phase 24 summary [{card}]: path | host ms a step eager -> "
+          "graphed | busy ms a step eager / graphed | a replay, ms | "
+          "kernels a step eager / graphed")
+    for name, he, hg, be, bg, rp, ke, kg in rows:
+        print(f"  {name} | {he * 1e3:.3f} -> {hg * 1e3:.3f} | "
+              f"{be * 1e3:.3f} / {bg * 1e3:.3f} | {rp:.3f} | {ke:.0f} / "
+              f"{kg:.0f}")
+    path_launches["graphed paths"] = renderer_cuda.launches
+    print(f"phase 24 (graphed paths): {time.perf_counter() - t0:.1f} s "
+          f"(host clock); launches {{'render': "
+          f"{path_launches['graphed paths']}}} [{card}]")
 
 
 def flat_leaves(tree: dict) -> list:
@@ -3399,8 +3734,13 @@ def main() -> int:
     # 23. the CUDA-graph epoch runner against the eager one
     graphed_epochs(work=work, card=card, dev=dev, dataset=dataset,
                    path_launches=path_launches)
+
+    # 24. the graphed runners of the other trainers against their eager
+    # ones, the online trainers with the render kernel in the graph
+    graphed_paths(work=work, card=card, dev=dev, dataset=dataset,
+                  path_launches=path_launches)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

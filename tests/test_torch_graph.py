@@ -105,13 +105,13 @@ def test_planned_steps_equal_the_eager_runner(case):
     model, opt, step, post = make()
     n = len(x)
     staged = GraphedStep(step, post, NoisePlan(model, bs, dtype=dtype),
-                         x.reshape(n, -1), x.shape[1:], y, bs)
+                         [(bs, [(x.reshape(n, -1), x.shape[1:]), (y, None)])])
     planned = []
     for e in range(EPOCHS):
         g = derived_generator(SEED, EPOCH, e)
         avg = Averager()
         for rows in epoch_batches(n, bs, g):
-            staged.stage(rows, g)
+            staged.stage((rows,), g)
             avg.add(staged.body())
         planned.append(avg.result())
     assert planned == eager

@@ -19,12 +19,15 @@ eagerly.
 """
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
 from ..data.pendulum import _BETA
 from ..models.classifier import DownstreamClassifier
 from ..ops.losses import clipped_bce_probs
+from ..train.scanned import capture_stream
 from ..train.steps import make_optimizer
 from ..utils.simulation import DOWNSTREAM, derived_generator, derived_seed
 
@@ -102,11 +105,14 @@ def train_downstream(reps: torch.Tensor, targets: torch.Tensor, seed: int,
 
 def _capture(run_epoch, step, clf: DownstreamClassifier,
              opt: torch.optim.Adam) -> torch.cuda.CUDAGraph:
-    """A CUDA graph of ``run_epoch``. One warm-up step on a side stream
-    makes Adam's state and the autograd buffers; the params and the state
-    are then put back as they were, and the capture itself runs nothing."""
+    """A CUDA graph of ``run_epoch``. One warm-up step on the port's
+    capture stream (``train/scanned.py::capture_stream``) makes Adam's
+    state and the autograd buffers; the params and the state are then put
+    back as they were, and the capture itself runs nothing. Garbage is
+    collected first, as ``CapturedStep`` does: a dead graph collected
+    inside the capture would invalidate it."""
     saved = [p.detach().clone() for p in clf.parameters()]
-    side = torch.cuda.Stream()
+    side = capture_stream(torch.cuda.current_device())
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         step(0)
@@ -117,8 +123,9 @@ def _capture(run_epoch, step, clf: DownstreamClassifier,
         for state in opt.state.values():
             for t in state.values():
                 t.zero_()
+    gc.collect()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         run_epoch()
     return graph
 

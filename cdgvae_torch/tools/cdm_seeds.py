@@ -8,6 +8,7 @@ On a machine with a CUDA card, from the root of a checkout:
     python -m cdgvae_torch.tools.cdm_seeds [--seeds 5] [--scm linear]
         [--semi] [--model CDGVAE|VAE|InfoMax] [--gamma 1] [--free_bits 0]
         [--out FILE] [--device cuda] [--init torch|jax] [--first_seed 1]
+        [--eager]
 
 Per seed: render the pendulum_real train split (``PendulumDataset``, one
 render launch), train the model from scratch through the fixed-dataset
@@ -16,8 +17,17 @@ epoch runner, train the CDM factor classifier (50 epochs, the masks of
 (``eval/metric.py::cdm_matrices``). Writes the JAX script's summary keys
 to ``--out`` (default ``cdgvae_torch/tools/results/cdm_seeds<suffix>.json``,
 the suffix as the JAX script names it), plus ``loss_curves`` (each seed's
-per-epoch mean loss), ``train_seconds``, ``init``, ``device`` and
-``card`` (``nvidia-smi``'s name and power limit; null on the CPU).
+per-epoch mean loss), ``train_seconds``, ``init``, ``device``, ``card``
+(``nvidia-smi``'s name and power limit; null on the CPU) and
+``dispatch``.
+
+On a CUDA device the model and the classifier train as the CLIs train
+there, as the JAX script's scanned runners do: one CUDA graph a step,
+with ``capturable`` Adams (:func:`graphed_dispatch`, the CLIs' rule; the
+plans of ``cli/main.py`` and ``cli/main_semi.py``, the InfoMax
+marginal's among them); ``dispatch`` reads ``"graphed"``. ``--eager``
+keeps the eager runners and the plain Adam (``"eager"``), as does the
+CPU. A failed capture raises.
 
 ``--init torch`` draws the initial parameters from torch generators (the
 JAX package's distributions, not its values); ``--init jax`` loads the
@@ -33,14 +43,18 @@ go in several calls; :func:`merge_summaries` joins their summaries.
 from __future__ import annotations
 
 import argparse
+import gc
+import hashlib
 import json
 import os
 import subprocess
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
+from ..cli.common import graphed_epochs
 from ..cli.main_classifier import classifier_masks
 from ..data.pendulum import PendulumDataset
 from ..eval.metric import cdm_matrices
@@ -48,6 +62,7 @@ from ..factory import build_pendulum_model
 from ..models.classifier import FactorClassifier
 from ..ops.losses import alignment_bce
 from ..train.loop import run_epochs, run_epochs_semi
+from ..train.scanned import NoisePlan
 from ..train.steps import (make_infomax_step, make_optimizer,
                            make_semi_step, make_train_step, step_from_loss)
 from ..utils.device import resolve_device
@@ -89,6 +104,45 @@ def card_record(device: torch.device) -> dict:
     return {"device": torch.cuda.get_device_name(device), "card": card}
 
 
+def graphed_dispatch(device, eager: bool | None = None,
+                     capturable: bool | None = None) -> tuple[bool, bool]:
+    """``(graphed, capturable)``: whether a study's trainers replay CUDA
+    graphs, with ``eager`` None as the CLIs decide (``cli/common.py::
+    graphed_epochs``: on a CUDA device, the CPU eager), never with
+    ``eager=True`` (``--eager``) and always with ``eager=False``, where
+    the runners raise on CPU tensors; and whether its Adams are built
+    ``capturable``: as ``capturable`` says, by default when graphed."""
+    graphed = graphed_epochs({}, device) if eager is None else not eager
+    return graphed, graphed if capturable is None else capturable
+
+
+def dispatch_record(device, eager: bool | None = None) -> dict:
+    """A summary's ``{"dispatch": "graphed" or "eager"}``."""
+    graphed, _ = graphed_dispatch(device, eager)
+    return {"dispatch": "graphed" if graphed else "eager"}
+
+
+def release_graphs() -> None:
+    """Free a finished seed's runners now: each keeps itself, and its
+    captured graph, in a reference cycle, whose graph memory pool would
+    otherwise stay held while the next seed allocates."""
+    gc.collect()
+
+
+def param_digest(*modules) -> str:
+    """The sha256 of ``modules``' parameters and buffers, byte for byte in
+    order (None modules skipped): two runs that trained the same values
+    have the same digest."""
+    h = hashlib.sha256()
+    for module in modules:
+        if module is None:
+            continue
+        for t in (*module.parameters(), *module.buffers()):
+            h.update(t.detach().reshape(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
 def build_model(config: dict, seed: int, *, init: str = "torch",
                 spurious: bool = False, device="cuda"):
     """``factory.build_pendulum_model`` of ``seed``: its own torch draws
@@ -108,11 +162,17 @@ def build_model(config: dict, seed: int, *, init: str = "torch",
 
 
 def score_cdm(model, x, y, seed: int, config: dict = CONFIG, *,
-              init: str = "torch"):
+              init: str = "torch", eager: bool | None = None,
+              capturable: bool | None = None):
     """Train the CDM factor classifier on the dataset ``x, y`` (init from
     ``seed + 2000``, shuffles from ``seed + 3000``, as the JAX studies)
     and return the 4x4 CDM matrices ``(lower, upper)`` of ``model`` on
-    ``x`` and the seconds they took."""
+    ``x`` and the seconds they took. ``eager`` is
+    :func:`graphed_dispatch`'s: graphed, the classifier's step, which
+    draws nothing, replays a CUDA graph staged by a plan without draws;
+    ``capturable`` (by default: when graphed) builds its Adam
+    ``capturable``."""
+    graphed, cap = graphed_dispatch(x.device, eager, capturable)
     node, size = config["node"], config["image_size"]
     clf = FactorClassifier(classifier_masks(size, node), node, size,
                            generator=torch.Generator().manual_seed(
@@ -124,9 +184,11 @@ def score_cdm(model, x, y, seed: int, config: dict = CONFIG, *,
         loss = alignment_bce(clf(x), y[:, :node])
         return loss, {"loss": loss}
 
-    run_epochs(step_from_loss(clf_loss, make_optimizer(clf, 1e-3)),
-               x, y, seed=seed + 3000, epochs=config["classifier_epochs"],
-               batch_size=config["batch_size"])
+    opt = make_optimizer(clf, 1e-3, capturable=cap)
+    run_epochs(step_from_loss(clf_loss, opt), x, y, seed=seed + 3000,
+               epochs=config["classifier_epochs"],
+               batch_size=config["batch_size"],
+               graph_noise=partial(NoisePlan, None) if graphed else None)
     t0 = time.perf_counter()
     with torch.no_grad():
         lower, upper = cdm_matrices(model, clf, x, batch_size=1024)
@@ -135,24 +197,35 @@ def score_cdm(model, x, y, seed: int, config: dict = CONFIG, *,
 
 def run_seed(seed: int, config: dict = CONFIG, *, semi: bool = False,
              gamma: float = 1.0, free_bits: float = 0.0,
-             device="cuda", init: str = "torch") -> dict:
+             device="cuda", init: str = "torch", eager: bool | None = None,
+             capturable: bool | None = None) -> dict:
     """One seed of the study under ``config`` (:data:`CONFIG`'s keys;
     ``config["model"]`` and ``config["scm"]`` pick the model) from the
-    ``init`` of :func:`build_model`. Returns ``{"lower", "upper"}``
+    ``init`` of :func:`build_model`, dispatched as :func:`graphed_dispatch`
+    decides from ``eager``; ``capturable`` (by default: when graphed)
+    builds the Adams ``capturable``. Returns ``{"lower", "upper"}``
     (float64 [node, node]), ``"loss_curve"`` (each epoch's mean loss),
-    ``"train_seconds"`` and ``"cdm_seconds"``."""
+    ``"train_seconds"``, ``"cdm_seconds"`` and the trained model's
+    :func:`param_digest` (and its discriminator's)."""
     device = resolve_device(device)
+    graphed, cap = graphed_dispatch(device, eager, capturable)
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
     ds = PendulumDataset(image_size=config["image_size"], train=True,
                          seed=seed, n=config["n_samples"], device=device)
     model, disc = build_model(config, seed, init=init, device=device)
-    opt = make_optimizer(model, config["lr"])
+    opt = make_optimizer(model, config["lr"], capturable=cap)
     beta, lam, bs = config["beta"], config["lambda"], config["batch_size"]
+    # each step's draws, staged for its replay (cli/main.py): the noise
+    # and the InfoMax marginal's permutation
+    infomax = config["model"] == "InfoMax"
+    plan = partial(NoisePlan, model, marginal="permutation" if infomax
+                   else None) if graphed else None
     t0 = time.perf_counter()
-    if config["model"] == "InfoMax":
-        step = make_infomax_step(model, disc, opt,
-                                 make_optimizer(disc, config["lr_D"]), beta,
-                                 lam, gamma)
+    if infomax:
+        step = make_infomax_step(
+            model, disc, opt, make_optimizer(disc, config["lr_D"],
+                                             capturable=cap),
+            beta, lam, gamma)
     elif semi:
         lab = PendulumDataset(image_size=config["image_size"], train=True,
                               seed=seed, n=config["n_samples"],
@@ -161,29 +234,35 @@ def run_seed(seed: int, config: dict = CONFIG, *, semi: bool = False,
         history = run_epochs_semi(
             make_semi_step(model, opt, beta, lam), ds.x_data, lab.x_data,
             lab.y_data, seed=seed + 1000, epochs=config["epochs"],
-            batch_size=bs, batch_size_l=config["batch_size_l"])
+            batch_size=bs, batch_size_l=config["batch_size_l"],
+            graph_noise=plan)
     else:
         step = make_train_step(model, opt, beta, lam, free_bits=free_bits)
     if not semi:
         history = run_epochs(step, ds.x_data, ds.y_data, seed=seed + 1000,
-                             epochs=config["epochs"], batch_size=bs)
+                             epochs=config["epochs"], batch_size=bs,
+                             graph_noise=plan)
     train_seconds = time.perf_counter() - t0
     curve = [h["loss"] for h in history]
     lower, upper, cdm_seconds = score_cdm(model, ds.x_data, ds.y_data, seed,
-                                          config, init=init)
+                                          config, init=init, eager=eager,
+                                          capturable=capturable)
     log(f"seed {seed}: train {train_seconds:.1f}s (loss tail "
         f"{curve[-1]:.1f}), CDM {cdm_seconds:.1f}s, diag "
         f"{np.round(np.diag(upper), 3).tolist()}, protected max "
         f"{max(upper[i][j] for i, j in PROTECTED):.6f}")
+    release_graphs()
     return {"lower": lower, "upper": upper, "loss_curve": curve,
-            "train_seconds": train_seconds, "cdm_seconds": cdm_seconds}
+            "train_seconds": train_seconds, "cdm_seconds": cdm_seconds,
+            "param_digest": param_digest(model, disc)}
 
 
 def summarize(runs: list, *, seeds: list, scm: str, semi: bool,
               model: str, free_bits: float, init: str, record: dict) -> dict:
     """The JAX script's summary of ``runs`` (:func:`run_seed`'s results),
-    with each seed's loss curve and train seconds, the ``init`` and the
-    device's :func:`card_record`."""
+    with each seed's loss curve and train seconds, the ``init``, and the
+    ``record`` of the device (:func:`card_record`) and the dispatch
+    (:func:`dispatch_record`)."""
     lowers = np.stack([r["lower"] for r in runs])
     uppers = np.stack([r["upper"] for r in runs])
     prot = np.array([[u[i][j] for i, j in PROTECTED] for u in uppers])
@@ -212,7 +291,8 @@ def summarize(runs: list, *, seeds: list, scm: str, semi: bool,
 
 
 # what must agree between summaries that merge_summaries joins
-_SAME = ("scm", "semi", "model", "free_bits", "init", "device", "card")
+_SAME = ("scm", "semi", "model", "free_bits", "init", "device", "card",
+         "dispatch")
 
 
 def merge_summaries(paths: list, out: str | None = None) -> dict:
@@ -240,8 +320,8 @@ def merge_summaries(paths: list, out: str | None = None) -> dict:
     summary = summarize(runs, seeds=seeds, scm=first["scm"],
                         semi=first["semi"], model=first["model"],
                         free_bits=first["free_bits"], init=first["init"],
-                        record={"device": first["device"],
-                                "card": first["card"]})
+                        record={k: first[k] for k in _SAME[-3:]
+                                if k in first})
     if out:
         write_json(summary, out)
     return summary
@@ -263,6 +343,10 @@ def add_port_flags(ap: argparse.ArgumentParser) -> None:
                          "(tools/jax_init.py, linear SCM only)")
     ap.add_argument("--first_seed", type=int, default=1,
                     help="run seeds first_seed .. first_seed + seeds - 1")
+    ap.add_argument("--eager", action="store_true",
+                    help="train through the eager runners with the plain "
+                         "Adam; by default a CUDA device replays one CUDA "
+                         "graph a step, as the CLIs do")
 
 
 def get_args(argv=None):
@@ -304,13 +388,16 @@ def main(argv=None) -> dict:
     config = dict(CONFIG, scm=args.scm, model=args.model)
     device = resolve_device(args.device)
     seeds = list(range(args.first_seed, args.first_seed + args.seeds))
+    eager = args.eager or None
     runs = [run_seed(seed, config, semi=args.semi, gamma=args.gamma,
                      free_bits=args.free_bits, device=device,
-                     init=args.init)
+                     init=args.init, eager=eager)
             for seed in seeds]
     summary = summarize(runs, seeds=seeds, scm=args.scm, semi=args.semi,
                         model=args.model, free_bits=args.free_bits,
-                        init=args.init, record=card_record(device))
+                        init=args.init, record={
+                            **card_record(device),
+                            **dispatch_record(device, eager)})
     write_json(summary, args.out)
     log(f"upper diag mean {summary['diag_upper_mean']} "
         f"std {summary['diag_upper_std']}")

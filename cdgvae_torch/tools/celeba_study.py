@@ -73,6 +73,25 @@ def write_corpus(base: str, n_train: int, n_test: int, img_size: int,
             np.save(os.path.join(lab_dir, f"{i}.npy"), y[i])
 
 
+def write_corpus_once(corpus: str, n_train: int, n_test: int,
+                      img_size: int, seed: int) -> None:
+    """:func:`write_corpus` into ``corpus``, kept while its settings
+    (``meta.json``) are these."""
+    meta_path = os.path.join(corpus, "meta.json")
+    meta = {"n_train": n_train, "n_test": n_test, "img_size": img_size,
+            "seed": seed}
+    existing = None
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            existing = json.load(f)
+    if existing != meta:
+        if os.path.isdir(corpus):
+            shutil.rmtree(corpus)
+        write_corpus(corpus, n_train, n_test, img_size, seed)
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+
+
 def train_argv(args, corpus: str, seed: int) -> list:
     """The ``celeba_main`` command line of one seed."""
     argv = [sys.executable, "-m", "cdgvae_torch.cli.celeba_main",
@@ -321,21 +340,8 @@ def get_args(argv=None):
 def main(argv=None) -> dict:
     args = get_args(argv)
     corpus = os.path.join(args.workdir, "corpus")
-    # the corpus is reused only under the same settings
-    meta_path = os.path.join(corpus, "meta.json")
-    meta = {"n_train": args.n_train, "n_test": args.n_test,
-            "img_size": args.img_size, "seed": args.data_seed}
-    existing = None
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            existing = json.load(f)
-    if existing != meta:
-        if os.path.isdir(corpus):
-            shutil.rmtree(corpus)
-        write_corpus(corpus, args.n_train, args.n_test, args.img_size,
-                     args.data_seed)
-        with open(meta_path, "w") as f:
-            json.dump(meta, f)
+    write_corpus_once(corpus, args.n_train, args.n_test, args.img_size,
+                      args.data_seed)
 
     trained = [(seed,) + run_seed(args, corpus, seed)
                for seed in args.seeds]

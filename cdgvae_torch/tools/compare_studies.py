@@ -33,7 +33,12 @@ JSON object a rule:
 - ``item 27`` (the CelebA study, ``celeba_study_<arm>_h100.json``):
   each entry of the port's mean latent-attribute diagonal against the
   JAX run's mean ± 3 std, or ± 0.1 where the JAX run has one seed, and
-  the do-leakage exactly 0.0.
+  the do-leakage exactly 0.0;
+- ``item 32`` (the studies rerun graphed on the card,
+  ``cdm_seeds_h100_graphed_s20.json`` and
+  ``tabular_seeds_h100_adult_graphed.json``): the CDM study's protected
+  cells exactly 0.0 and its lost factors against the JAX package's by
+  the ``lost`` rule, and the adult CDG-VAE's ``tabular`` bounds.
 
 ``--merge_jax_cdm BASE RUN...``, ``--merge_jax_online RUN...`` and
 ``--merge_jax_freebits A RUN...`` first write the JAX CPU summaries from
@@ -337,6 +342,17 @@ def report(results: str = RESULTS, docs: str = DOCS) -> dict:
                 out[f"item 24 {v}{init}"] = variant_rule(
                     port, d(f"cdm_seeds_{v}.json"),
                     cdgvae=v not in ("vae", "infomax"))
+    graphed = r("cdm_seeds_h100_graphed_s20.json")
+    if graphed and jax_cpu:
+        out["item 32 cdm graphed lost"] = lost_rule(
+            [graphed], [jax_cpu, d("cdm_seeds.json")])
+        out["item 32 cdm graphed protected"] = {
+            "protected_max_abs": graphed["protected_max_abs"],
+            "held": graphed["protected_max_abs"] == 0.0}
+    port = r("tabular_seeds_h100_adult_graphed.json")
+    jax = r("tabular_seeds_jax_cpu.json")
+    if port and jax:
+        out["item 32 tabular graphed"] = tabular_rule(port, jax)
     port = r("tabular_seeds_h100_adult_s20.json")
     jax = r("tabular_seeds_adult_s20_jax_cpu.json")
     if port and jax:

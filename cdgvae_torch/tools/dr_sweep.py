@@ -11,7 +11,7 @@ On a machine with a CUDA card, from the root of a checkout:
 
     python -m cdgvae_torch.tools.dr_sweep [--seeds 1] [--lams L ...]
         [--scm linear] [--repeats 10] [--detail] [--online] [--out FILE]
-        [--device cuda] [--init torch|jax] [--first_seed 1]
+        [--device cuda] [--init torch|jax] [--first_seed 1] [--eager]
 
 Per seed: render the DR train split with normalised labels (training)
 and the raw-label train and test splits (the downstream evals), each
@@ -23,8 +23,11 @@ step (``train/online.py::dr_batch_fn``) at the same step count; then
 the background-leak probe, each latent's |corr| with the background bit
 on the test split. Writes the JAX script's list of records to ``--out``
 (default ``cdgvae_torch/tools/results/dr_sweep<suffix>.json``), each
-record with ``init`` and the ``device`` and ``card`` of
-``tools/cdm_seeds.py``.
+record with ``init`` and the ``device``, ``card`` and ``dispatch`` of
+``tools/cdm_seeds.py``. On a CUDA device both branches train one CUDA
+graph a step with a ``capturable`` Adam, as ``cli.dr_main`` does there
+(the online graph holds the render kernel); ``--eager`` keeps the eager
+runners and the plain Adam.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import argparse
 import json
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -40,10 +44,12 @@ from ..data.pendulum_dr import PendulumDRDataset
 from ..eval.downstream import extract_representations, robustness
 from ..train.loop import run_epochs
 from ..train.online import dr_batch_fn, make_online_scanned_steps
+from ..train.scanned import NoisePlan
 from ..train.steps import make_optimizer, make_train_step
 from ..utils.device import resolve_device
 from .cdm_seeds import (RESULTS, add_port_flags, build_model, card_record,
-                        write_json)
+                        dispatch_record, graphed_dispatch, param_digest,
+                        release_graphs, write_json)
 
 # the JAX script's fixed choices: the DR model, the protocol, the DGP's
 # sample count and the robustness fit's epochs
@@ -57,14 +63,18 @@ GRID = [(0.1, 20.0), (0.1, 40.0), (0.1, 80.0), (0.01, 20.0), (0.01, 80.0),
 
 def run_config(beta, lam, x, y, ds_tr, ds_te, config: dict = CONFIG, *,
                seed=1, online=False, repeats=10, detail=False,
-               init: str = "torch") -> dict:
+               init: str = "torch", eager: bool | None = None,
+               capturable: bool | None = None) -> dict:
     """Train one (beta, lambda) configuration on ``x, y`` (or online) and
     score it; the JAX script's record. Its ``final_loss`` is, as there,
-    the last epoch's mean loss, or online the last step's."""
+    the last epoch's mean loss, or online the last step's; the port adds
+    the trained model's ``param_digest``. ``eager`` and ``capturable``
+    are ``tools/cdm_seeds.py::run_seed``'s."""
     device = x.device
+    graphed, cap = graphed_dispatch(device, eager, capturable)
     model, _ = build_model(config, seed, init=init, spurious=True,
                            device=device)
-    opt = make_optimizer(model, config["lr"])
+    opt = make_optimizer(model, config["lr"], capturable=cap)
     bs, epochs = config["batch_size"], config["epochs"]
     t0 = time.perf_counter()
     if online:
@@ -77,13 +87,15 @@ def run_config(beta, lam, x, y, ds_tr, ds_te, config: dict = CONFIG, *,
                                      norm_seed=seed,
                                      norm_n=config["n_samples"],
                                      device=device),
-            seed=seed + 1000, device=device)
+            seed=seed + 1000, device=device, graphed=graphed)
         for epoch in range(epochs):
             final_loss = run(epoch * steps)["loss"][-1].item()
     else:
         final_loss = run_epochs(make_train_step(model, opt, beta, lam), x,
                                 y, seed=seed + 1000, epochs=epochs,
-                                batch_size=bs)[-1]["loss"]
+                                batch_size=bs,
+                                graph_noise=partial(NoisePlan, model)
+                                if graphed else None)[-1]["loss"]
     dt = time.perf_counter() - t0
     y_tr, y_te = ds_tr.y_data.cpu().numpy(), ds_te.y_data.cpu().numpy()
     res = robustness(model, ds_tr.x_data, y_tr, ds_te.x_data, y_te, seed=0,
@@ -94,6 +106,7 @@ def run_config(beta, lam, x, y, ds_tr, ds_te, config: dict = CONFIG, *,
     bg = y_te[:, -2]
     leaks = [round(abs(float(np.corrcoef(reps[:, j], bg)[0, 1])), 2)
              for j in range(reps.shape[1])]
+    release_graphs()
     return {"beta": beta, "lambda": lam, "epochs": epochs, "seed": seed,
             "scm": config["scm"], "online": online,
             "train_s": round(dt, 1),
@@ -101,6 +114,7 @@ def run_config(beta, lam, x, y, ds_tr, ds_te, config: dict = CONFIG, *,
             "avg_accuracy": round(res["avg_accuracy"], 4),
             "worst_group_accuracy": round(res["worst_group_accuracy"], 4),
             "bg_corr_per_latent": leaks,
+            "param_digest": param_digest(model),
             **({"per_repeat_avg": res["per_repeat_avg"],
                 "per_repeat_worst": res["per_repeat_worst"]}
                if detail else {})}
@@ -144,7 +158,9 @@ def main(argv=None) -> list:
     config = dict(CONFIG, scm=args.scm)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 SEM solve
-    record = {"init": args.init, **card_record(device)}
+    eager = args.eager or None
+    record = {"init": args.init, **card_record(device),
+              **dispatch_record(device, eager)}
     grid = [(0.1, lam) for lam in args.lams] if args.lams else GRID
     size, n = config["image_size"], config["n_samples"]
     results = []
@@ -160,7 +176,7 @@ def main(argv=None) -> list:
             r = run_config(beta, lam, ds_align.x_data, ds_align.y_data,
                            ds_tr, ds_te, config, seed=seed,
                            online=args.online, repeats=args.repeats,
-                           detail=args.detail, init=args.init)
+                           detail=args.detail, init=args.init, eager=eager)
             r.update(record)
             print(json.dumps(r), flush=True)
             results.append(r)

@@ -7,7 +7,7 @@ On a machine with a CUDA card, from the root of a checkout:
     python -m cdgvae_torch.tools.tabular_seeds [--seeds 5]
         [--datasets loan adult] [--epochs N] [--tvae] [--data_dir DIR]
         [--fixture_corpus] [--out FILE] [--device cuda]
-        [--init torch|jax] [--first_seed 1]
+        [--init torch|jax] [--first_seed 1] [--eager]
 
 Per seed and dataset, the CDG-VAE at the reference tabular protocol (200
 epochs, batch 256, Adam 0.01, beta 0.01, lambda 10; train noise and
@@ -28,8 +28,12 @@ averages scikit-learn's forest rows; ``efficacy_rows`` names the rows.
 temporary directory). Writes the JAX script's keys to ``--out`` (default
 ``cdgvae_torch/tools/results/tabular_seeds{,_tvae}.json``), plus each
 dataset's ``loss_curves`` (every seed's per-epoch mean loss) and
-``efficacy_rows``, and the ``init``, ``device`` and ``card`` of
-``tools/cdm_seeds.py``. ``--init jax`` loads the JAX package's initial
+``efficacy_rows``, and the ``init``, ``device``, ``card`` and
+``dispatch`` of ``tools/cdm_seeds.py``. On a CUDA device both protocols
+train one CUDA graph a step with a ``capturable`` Adam, as
+``cli.tabular_main`` and ``cli.tabular_main_tvae`` do there (the TVAE's
+weight decay and sigma clamp in the graph); ``--eager`` keeps the eager
+runner and the plain Adam. ``--init jax`` loads the JAX package's initial
 parameters of ``jax.random.key(seed)`` (``tools/jax_init.py``).
 ``--first_seed K`` runs seeds K .. K + seeds - 1, and
 :func:`merge_summaries` joins the summaries of several calls.
@@ -41,6 +45,7 @@ import json
 import os
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -55,6 +60,7 @@ from ..eval.tabular_inference import (efficacy, real_cpdag,
                                       zscore_synthetic)
 from ..factory import build_tabular_model, tvae_block_mask
 from ..train.loop import run_epochs
+from ..train.scanned import NoisePlan
 from ..train.steps import make_optimizer
 from ..train.tabular_steps import (make_recon_fn, make_sigma_clamp,
                                    make_tabular_step, make_tvae_step)
@@ -63,7 +69,9 @@ from ..utils.interop import load_jax_params
 from ..utils.pc import cpdag_shd, pc
 from ..utils.simulation import set_random_seed
 from . import jax_init
-from .cdm_seeds import RESULTS, add_port_flags, card_record, log, write_json
+from .cdm_seeds import (RESULTS, add_port_flags, card_record, dispatch_record,
+                        graphed_dispatch, log, param_digest, release_graphs,
+                        write_json)
 
 
 def _config(dataset: str, model: str, seed: int, **extra) -> dict:
@@ -82,26 +90,34 @@ def _build(config: dict, seed: int, device, init: str):
     return model
 
 
-def _train(step, model, x, y, seed: int, epochs: int, post_update=None):
+def _train(step, model, x, y, seed: int, epochs: int, graphed: bool,
+           post_update=None):
     t0 = time.perf_counter()
     history = run_epochs(step, x, y, seed=seed + 100, epochs=epochs,
-                         batch_size=256, post_update=post_update)
+                         batch_size=256, post_update=post_update,
+                         graph_noise=partial(NoisePlan, model)
+                         if graphed else None)
     train_s = time.perf_counter() - t0
     return [h["loss"] for h in history], train_s
 
 
 def run_seed(dataset: str, seed: int, epochs: int, train, test, G_real, *,
-             device="cuda", init: str = "torch") -> dict:
-    """One CDG-VAE seed: the JAX script's row and the ``loss_curve``."""
+             device="cuda", init: str = "torch", eager: bool | None = None,
+             capturable: bool | None = None) -> dict:
+    """One CDG-VAE seed: the JAX script's row, the ``loss_curve`` and the
+    trained model's ``param_digest``. ``eager`` and ``capturable`` are
+    ``tools/cdm_seeds.py::run_seed``'s."""
     device = resolve_device(device)
+    graphed, cap = graphed_dispatch(device, eager, capturable)
     spec = DATASET_SPECS[dataset]
     model = _build(_config(dataset, "CDGVAE", seed,
                            input_dim=spec["input_dim"]), seed, device, init)
-    step = make_tabular_step(model, make_optimizer(model, 0.01), 0.01, 10.0,
+    opt = make_optimizer(model, 0.01, capturable=cap)
+    step = make_tabular_step(model, opt, 0.01, 10.0,
                              make_recon_fn(dataset, train.flatten_topology))
     x = torch.as_tensor(train.x_data, device=device)
     y = torch.as_tensor(train.label, device=device)
-    curve, train_s = _train(step, model, x, y, seed, epochs)
+    curve, train_s = _train(step, model, x, y, seed, epochs, graphed)
 
     model.eval()
     recon = reconstruct_dataset(model, x, dataset, seed=seed)
@@ -118,14 +134,20 @@ def run_seed(dataset: str, seed: int, epochs: int, train, test, G_real, *,
            "shd_sample": int(cpdag_shd(G_real, G_sample)),
            "efficacy_synthetic": round(score, 4)}
     log(f"{dataset} seed {seed}: {out}")
-    return {"row": out, "loss_curve": curve, "efficacy_rows": rows}
+    release_graphs()
+    return {"row": out, "loss_curve": curve, "efficacy_rows": rows,
+            "param_digest": param_digest(model)}
 
 
 def run_seed_tvae(dataset: str, seed: int, epochs: int, test, G_real, train,
-                  data_dir=None, *, device="cuda",
-                  init: str = "torch") -> dict:
-    """One CDG-TVAE seed: the JAX script's row and the ``loss_curve``."""
+                  data_dir=None, *, device="cuda", init: str = "torch",
+                  eager: bool | None = None,
+                  capturable: bool | None = None) -> dict:
+    """One CDG-TVAE seed: the JAX script's row, the ``loss_curve`` and the
+    trained model's ``param_digest``. ``eager`` and ``capturable`` are
+    ``tools/cdm_seeds.py::run_seed``'s."""
     device = resolve_device(device)
+    graphed, cap = graphed_dispatch(device, eager, capturable)
     spec = DATASET_SPECS[dataset]
     data = load_tabular_tvae(dataset, data_dir=data_dir, random_state=seed)
     spans = data.transformer.output_info_list
@@ -133,12 +155,11 @@ def run_seed_tvae(dataset: str, seed: int, epochs: int, test, G_real, train,
                      input_dim=data.transformer.output_dimensions,
                      tvae_mask=tvae_block_mask(dataset, spans))
     model = _build(config, seed, device, init)
-    step = make_tvae_step(model, make_optimizer(model, 1e-3,
-                                                weight_decay=1e-5),
-                          5.0, spans)
+    opt = make_optimizer(model, 1e-3, weight_decay=1e-5, capturable=cap)
+    step = make_tvae_step(model, opt, 5.0, spans)
     x = torch.as_tensor(data.x_data, device=device)
     y = torch.as_tensor(data.label, device=device)
-    curve, train_s = _train(step, model, x, y, seed, epochs,
+    curve, train_s = _train(step, model, x, y, seed, epochs, graphed,
                             post_update=make_sigma_clamp(model, (0.01, 0.1)))
 
     # the inverse's sigma noise reads numpy's global generator
@@ -153,7 +174,9 @@ def run_seed_tvae(dataset: str, seed: int, epochs: int, test, G_real, train,
            "shd_sample": int(cpdag_shd(G_real, G_sample)),
            "efficacy_synthetic": round(score, 4)}
     log(f"{dataset} TVAE seed {seed}: {out}")
-    return {"row": out, "loss_curve": curve, "efficacy_rows": rows}
+    release_graphs()
+    return {"row": out, "loss_curve": curve, "efficacy_rows": rows,
+            "param_digest": param_digest(model)}
 
 
 def dataset_summary(task: str, baseline: float, rows: list, curves: list,
@@ -173,7 +196,7 @@ def dataset_summary(task: str, baseline: float, rows: list, curves: list,
             "loss_curves": curves}
 
 
-_SAME = ("loader_branch", "data_dir", "init", "device", "card")
+_SAME = ("loader_branch", "data_dir", "init", "device", "card", "dispatch")
 
 
 def merge_summaries(paths: list, out: str | None = None) -> dict:
@@ -203,7 +226,7 @@ def merge_summaries(paths: list, out: str | None = None) -> dict:
             entries[0]["task"], entries[0]["efficacy_baseline"], rows,
             [c for e in entries for c in e["loss_curves"]],
             entries[0]["efficacy_rows"])
-    summary.update({k: parts[0][k] for k in _SAME[2:]})
+    summary.update({k: parts[0][k] for k in _SAME[2:] if k in parts[0]})
     if out:
         write_json(summary, out)
     return summary
@@ -254,6 +277,7 @@ def main(argv=None) -> dict:
                     f"--data_dir given but {path} is missing; write a "
                     f"real-format corpus with --fixture_corpus")
     seeds = list(range(args.first_seed, args.first_seed + args.seeds))
+    eager = args.eager or None
     summary = {"loader_branch": ("real-csv" if data_dir
                                  else "synthetic-fallback"),
                "data_dir": args.data_dir}
@@ -267,10 +291,12 @@ def main(argv=None) -> dict:
         if args.tvae:
             runs = [run_seed_tvae(ds, s, args.epochs or 300, test, G_real,
                                   train, data_dir, device=device,
-                                  init=args.init) for s in seeds]
+                                  init=args.init, eager=eager)
+                    for s in seeds]
         else:
             runs = [run_seed(ds, s, args.epochs or 200, train, test, G_real,
-                             device=device, init=args.init) for s in seeds]
+                             device=device, init=args.init, eager=eager)
+                    for s in seeds]
         summary[ds] = dataset_summary(
             spec["task"], baseline, [r["row"] for r in runs],
             [r["loss_curve"] for r in runs], runs[0]["efficacy_rows"])
@@ -279,7 +305,8 @@ def main(argv=None) -> dict:
             f"{summary[ds]['efficacy_synthetic_mean']} +/- "
             f"{summary[ds]['efficacy_synthetic_std']} (baseline "
             f"{baseline:.4f})")
-    summary.update(init=args.init, **card_record(device))
+    summary.update(init=args.init, **card_record(device),
+                   **dispatch_record(device, eager))
     write_json(summary, args.out)
     log(f"wrote {args.out}")
     return summary

@@ -42,6 +42,7 @@ the reference's per-step ``pmean`` of the metrics).
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -153,16 +154,18 @@ class NoisePlan:
     permutation is ``torch.randperm``'s, copied in), so the same
     generator gives the same values; :attr:`kwargs` is the step's
     keyword arguments over them: ``noise=`` (``model.pack_noise``; also
-    :attr:`noise`) and ``perm=``."""
+    :attr:`noise`) and ``perm=``. With ``model`` None it plans a step that
+    draws nothing (the CDM factor classifier's): no buffers, no keyword
+    arguments."""
 
     def __init__(self, model, batch_size: int,
                  dtype: torch.dtype | None = None, device=None,
                  marginal: str | None = None):
+        shapes = [] if model is None else model.noise_shapes(batch_size)
         self.buffers = [torch.empty(shape, dtype=dtype or torch.float32,
-                                    device=device)
-                        for shape in model.noise_shapes(batch_size)]
-        self.noise = model.pack_noise(self.buffers)
-        self.kwargs = {"noise": self.noise}
+                                    device=device) for shape in shapes]
+        self.noise = None if model is None else model.pack_noise(self.buffers)
+        self.kwargs = {} if model is None else {"noise": self.noise}
         self.perm = None
         if marginal is not None:
             if marginal != "permutation":
@@ -183,6 +186,25 @@ class NoisePlan:
                                            device=self.perm.device))
 
 
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """The side stream that every capture of the port (and its eager
+    first step) runs on, one a device. torch caches cuBLAS workspaces for
+    each stream cuBLAS has run on until the process ends: with a new
+    stream a capture, a process that trained cut study seeds of two
+    captures each held 128 MiB more after every seed on the H100. torch's
+    own graph context keeps one default capture stream for the same
+    reason."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
 class CapturedStep:
     """``body() -> metrics`` as a CUDA graph on ``device``: :meth:`run`
     runs it eagerly the first time, on the stream the capture then uses,
@@ -192,7 +214,13 @@ class CapturedStep:
     open ``--profile`` trace
     (``utils/profiling.py::count_replayed_step``) and adds the render
     launches the graph holds to ``ops/renderer_cuda.py``'s count
-    (:attr:`renders`: those its capture recorded)."""
+    (:attr:`renders`: those its capture recorded).
+
+    The garbage collector runs before each capture: a dead reference cycle
+    that holds an earlier runner's graph (a seed's or an arm's, in a
+    process that trains several), collected while the stream captures,
+    would reset that graph inside the capture and invalidate it, and
+    torch's graph context no longer collects first."""
 
     def __init__(self, body: Callable[[], dict], device):
         self.body, self.device = body, torch.device(device)
@@ -209,10 +237,11 @@ class CapturedStep:
             self.replay()
             return self.metrics
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = capture_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             metrics = self.body()
+        gc.collect()
         graph = torch.cuda.CUDAGraph()
         recorded = renderer_cuda.captured
         # thread_local: a checkpoint thread's copies may run meanwhile

@@ -69,23 +69,90 @@ def forward(model, x: torch.Tensor, noise=None, generator=None,
     return functional_call(model, params, (x,), draws)
 
 
+class CapturableAdam(torch.optim.Adam):
+    """``torch.optim.Adam(capturable=True)`` with the plain Adam's update.
+
+    torch's capturable update keeps the step counts on the device, as this
+    one does, but raises the float32 betas to the float32 step there, so
+    its bias corrections carry float32's rounding of 0.999: 1 - 0.999^t is
+    off by about 1.3e-5 of itself at every step (the plain Adam computes
+    it in Python doubles). Fed the same gradients, its parameters drifted
+    from a float64 copy of optax's update 4.2-6.0 times as far as the
+    plain Adam's over 200 steps on the H100 (``tools/adam_check.py``).
+    This update computes the bias corrections in float64 on the device,
+    from the step counts, rounds them to float32 as the plain update's
+    scalars are rounded, and then runs the plain update's foreach ops in
+    its order: ``lerp`` and ``addcmul`` into the moments, the square root
+    divided by sqrt(1 - b2^t), ``eps`` added, and ``param += -lr / (1 -
+    b1^t) * exp_avg / denom``. No host value is read, so a CUDA graph can
+    hold it; it also runs on the CPU. The state (``step``, ``exp_avg``,
+    ``exp_avg_sq``) is torch Adam's, so checkpoints and
+    ``utils/interop.py`` read it as they read any Adam's."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0):
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         capturable=True, weight_decay=weight_decay)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("CapturableAdam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32,
+                                             device=p.device)
+                    st["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            b1, b2 = group["betas"]
+            steps = [st["step"] for st in states]
+            m = [st["exp_avg"] for st in states]
+            v = [st["exp_avg_sq"] for st in states]
+            grads = [p.grad for p in params]
+            torch._foreach_add_(steps, 1)
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            torch._foreach_lerp_(m, grads, 1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, 1 - b2)
+            t = torch.stack(steps).double()
+            step_size = (-group["lr"] / (1 - torch.pow(b1, t))).float()
+            bc2_sqrt = (1 - torch.pow(b2, t)).sqrt().float()
+            denom = torch._foreach_sqrt(v)
+            torch._foreach_div_(denom, list(bc2_sqrt.unbind()))
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(m, denom)
+            torch._foreach_mul_(update, list(step_size.unbind()))
+            torch._foreach_add_(params, update)
+
+
 def make_optimizer(model: torch.nn.Module, lr: float,
                    capturable: bool = False, weight_decay: float = 0.0,
                    packer=None) -> torch.optim.Adam:
     """Adam with optax.adam's defaults, whose update is algebraically the
     same: b1 0.9, b2 0.999, eps 1e-8 added outside the square root.
-    ``capturable=True`` keeps its step counts on the device, so that a CUDA
-    graph can hold the update. ``weight_decay`` adds ``wd * param`` to the
-    gradient before the moments, as ``optax.chain(add_decayed_weights(wd),
-    scale_by_adam(), scale(-lr))`` does. With a ``packer``
-    (``ops.packing.Packer`` of ``model``) it steps the packer's flat
-    buffers and big parameters instead of ``model.parameters()``, and
-    keeps the packer as its ``packer`` attribute, which the train steps
-    and ``utils/interop.py`` read."""
+    ``capturable=True`` gives :class:`CapturableAdam`, which keeps its step
+    counts on the device, so that a CUDA graph can hold the update.
+    ``weight_decay`` adds ``wd * param`` to the gradient before the
+    moments, as ``optax.chain(add_decayed_weights(wd), scale_by_adam(),
+    scale(-lr))`` does. With a ``packer`` (``ops.packing.Packer`` of
+    ``model``) it steps the packer's flat buffers and big parameters
+    instead of ``model.parameters()``, and keeps the packer as its
+    ``packer`` attribute, which the train steps and ``utils/interop.py``
+    read."""
     params = model.parameters() if packer is None else packer.params()
-    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8, capturable=capturable,
-                                 weight_decay=weight_decay)
+    if capturable:
+        optimizer = CapturableAdam(params, lr, weight_decay)
+    else:
+        optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=weight_decay)
     optimizer.packer = packer
     return optimizer
 

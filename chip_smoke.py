@@ -152,21 +152,31 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     classifier on the cut DGP, whose protected cells must be exactly 0.0
     (one render launch);
 22. the studies of ``tools/``, each cut to seed 1, 2 epochs and 512
-    samples: ``cdm_seeds.run_seed`` from the JAX package's initial
-    parameters (``tools/jax_init.py``), ``se_seeds.run_seed``,
-    ``online_seeds.run_seed`` (a render launch a step) and
-    ``dr_sweep.run_config`` at lambda 40 with 1 robustness repeat, on
-    the JAX init too; the results must be finite and the protected CDM
-    cells exactly 0.0, and each study's render launches are counted;
-    then the tabular study through ``python -m
-    cdgvae_torch.tools.tabular_seeds``'s ``main`` on loan, seed 1: the
-    CDG-VAE for 2 epochs and ``--tvae`` for 1, whose summaries (SHDs,
-    efficacy, losses) are printed and must be finite; they render
-    nothing: 0 launches each; and the CelebA study through
-    ``tools/celeba_study.py``'s ``main`` cut to 32 faces at 32 px,
-    conv_dim 8, 2 epochs: its corpus, training through ``celeba_main`` in
-    a subprocess, the scores and the do-grid, whose do-leakage outside
-    the masks must be exactly 0.0 (0 launches);
+    samples, each run twice: graphed (the tools' default on the card) and
+    ``eager=True``, both with capturable Adams, whose results (the trained
+    parameters' digest, the loss curve, the CDM or the record) must be
+    equal bit for bit; their train seconds are printed.
+    ``cdm_seeds.run_seed`` from the JAX package's initial parameters
+    (``tools/jax_init.py``), semi and InfoMax (the classifier graphed
+    too), ``se_seeds.run_seed``, ``online_seeds.run_seed`` and its semi
+    protocol (a render launch a step: the eager first step's and one a
+    replay), ``dr_sweep.run_config`` fixed and online at lambda 40 with 1
+    robustness repeat, and ``tabular_seeds``' CDG-VAE (2 epochs) and TVAE
+    (1 epoch) on loan; the results must be finite and the protected CDM
+    cells exactly 0.0, and each run's render launches are counted. Then
+    three graphed cut seeds of ``cdm_seeds`` in one process, whose peak
+    device memory after the third may exceed the peak after the first by
+    at most 64 MiB; ``tabular_seeds``' ``main`` on loan (both protocols),
+    whose summaries must say ``"dispatch": "graphed"`` (0 launches); the
+    CelebA study through ``tools/celeba_study.py``'s ``main`` cut to 32
+    faces at 32 px, conv_dim 8, 2 epochs: its corpus, training through
+    ``celeba_main`` in a subprocess, the scores and the do-grid, whose
+    do-leakage outside the masks must be exactly 0.0 (0 launches); and
+    the same seed as two arms of ``tools/celeba_arms.py``, trained one
+    after the other in one worker process: each arm's scores must equal
+    the study's (but the wall time), and the device memory allocated
+    after each arm (cuBLAS's cached workspaces released) may not exceed
+    what it was before (0 launches);
 23. the CUDA-graph epoch runner (``make_epoch_runner(graph_noise=)``)
     against the eager runner, from one init and one seed, both with a
     capturable Adam: the full-width flagship for 3 epochs on phase 4's
@@ -195,15 +205,22 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     the uninterrupted eager run; then, for each path, host ms a step of
     the two runners interleaved (median of 3 rounds), device busy and
     kernels a step from the profiler over a call of each, and a replay's
-    device time on CUDA events.
+    device time on CUDA events;
+25. the capturable Adam of the graphed trainers
+    (``train/steps.py::CapturableAdam``) against a float64 copy of
+    optax's update, fed the same float32 gradients
+    (``tools/adam_check.py``): the 16 px CDG-VAE and the packed CelebA
+    buffers, the Adam eager and inside a captured CUDA graph, beside the
+    plain Adam; after 1 step within 1e-7, after 200 steps (the graph: 200
+    replays) within 1e-6 and within 3 x the plain Adam's distance.
 
 The CLIs of phases 8-17 replay graphs on the card by default
 (``--eager`` and ``--dp`` stay eager): phase 17's ``--profile`` trace
 holds the eager first step, its capture and the replays of its window.
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15, 19, 21, 22 and 24, and 17's, 18's, 20's and 23's 0) and summed in
-the ``{"kernels": [...]}`` JSON line, which is followed by the ``{"ok":
-true, ...}`` JSON object as the last line.
+10-15, 19, 21, 22 and 24, and 17's, 18's, 20's, 23's and 25's 0) and
+summed in the ``{"kernels": [...]}`` JSON line, which is followed by the
+``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
 """
@@ -2487,37 +2504,117 @@ def library_options(*, card: str, dev, dataset, path_launches: dict,
           f"{time.perf_counter() - t0:.1f} s (host clock) [{card}]")
 
 
+MIB = 1 << 20
+STUDY_MEMORY_TOL = 64 * MIB  # the peak's growth over three cut seeds
+
+
+def same_record(a: dict, b: dict) -> bool:
+    """Two results of a study, bit for bit but for the wall times: their
+    JSON text, whose floats print exactly."""
+    walls = {"train_seconds", "cdm_seconds", "train_s", "train_wall_s"}
+
+    def strip(r):
+        if isinstance(r, dict):
+            return {k: strip(v) for k, v in r.items() if k not in walls}
+        return r
+
+    def text(r):
+        return json.dumps(strip(r), sort_keys=True,
+                          default=lambda o: np.asarray(o).tolist())
+    return text(a) == text(b)
+
+
 def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
     """Phase 22: the studies of ``tools/`` cut (see the module
     docstring)."""
     from cdgvae_torch.data.pendulum_dr import PendulumDRDataset
+    from cdgvae_torch.data.tabular.datasets import load_tabular
+    from cdgvae_torch.eval.tabular_inference import real_cpdag
     from cdgvae_torch.ops import renderer_cuda
-    from cdgvae_torch.tools import (cdm_seeds, celeba_study, dr_sweep,
-                                    online_seeds, se_seeds, tabular_seeds)
+    from cdgvae_torch.tools import (cdm_seeds, celeba_arms, celeba_study,
+                                    dr_sweep, online_seeds, se_seeds,
+                                    tabular_seeds)
     from cdgvae_torch.train.online import train_split_size
 
     t0 = time.perf_counter()
     cut = dict(cdm_seeds.CONFIG, epochs=2, classifier_epochs=2,
                n_samples=STUDY_N)
+    steps = train_split_size(STUDY_N) // BATCH
+    # a graphed online run launches the kernel at its eager first step and
+    # at each replay, none at the capture: as many launches as steps
+    online = 1 + (steps * 2 - 1)
+    dr_cut = dict(dr_sweep.CONFIG, epochs=2, n_samples=STUDY_N)
+    renderer_cuda.launches = 0
+    ds_tr, ds_te, ds_align = (
+        PendulumDRDataset(train=train, seed=1, n=STUDY_N,
+                          downstream=downstream, device=dev)
+        for train, downstream in ((True, True), (False, True),
+                                  (True, False)))
+    path_launches["dr study data"] = renderer_cuda.launches
+    train = load_tabular("loan", train=True)
+    test = load_tabular("loan", train=False)
+    g_real = real_cpdag(train.frame, "loan")
+    # path -> (the cut seed's run given the dispatch keywords, render
+    # launches graphed, eager); each run renders its own datasets
     runs = {
-        "study jax init": (lambda: cdm_seeds.run_seed(
-            1, cut, device=dev, init="jax"), 1),
-        "se study": (lambda: se_seeds.run_seed(1, cut, device=dev), 3),
-        "online study": (lambda: online_seeds.run_seed(1, cut, device=dev),
-                         1 + 2 * (train_split_size(STUDY_N) // BATCH)),
+        "study jax init": (lambda **kw: cdm_seeds.run_seed(
+            1, cut, device=dev, init="jax", **kw), 1, 1),
+        "study semi": (lambda **kw: cdm_seeds.run_seed(
+            1, cut, semi=True, device=dev, **kw), 2, 2),
+        "study infomax": (lambda **kw: cdm_seeds.run_seed(
+            1, dict(cut, model="InfoMax"), device=dev, **kw), 1, 1),
+        "se study": (lambda **kw: se_seeds.run_seed(1, cut, device=dev,
+                                                    **kw), 3, 3),
+        "online study": (lambda **kw: online_seeds.run_seed(
+            1, cut, device=dev, **kw), 1 + online, 1 + 2 * steps),
+        "online semi study": (lambda **kw: online_seeds.run_seed(
+            1, cut, semi=True, device=dev, **kw), 2 + online,
+            2 + 2 * steps),
+        "dr study": (lambda **kw: dr_sweep.run_config(
+            0.1, 40.0, ds_align.x_data, ds_align.y_data, ds_tr, ds_te,
+            dr_cut, seed=1, repeats=1, init="jax", **kw), 0, 0),
+        "dr online study": (lambda **kw: dr_sweep.run_config(
+            0.1, 40.0, ds_align.x_data, ds_align.y_data, ds_tr, ds_te,
+            dr_cut, seed=1, online=True, repeats=1, **kw), online,
+            2 * steps),
+        "tabular study": (lambda **kw: tabular_seeds.run_seed(
+            "loan", 1, 2, train, test, g_real, device=dev, **kw), 0, 0),
+        "tabular tvae study": (lambda **kw: tabular_seeds.run_seed_tvae(
+            "loan", 1, 1, test, g_real, train, device=dev, **kw), 0, 0),
     }
-    results = {}
-    for path, (run, expected) in runs.items():
-        renderer_cuda.launches = 0
-        t1 = time.perf_counter()
-        results[path] = run()
-        torch.cuda.synchronize()
-        path_launches[path] = renderer_cuda.launches
-        print(f"{path}: {time.perf_counter() - t1:.1f} s; launches "
-              f"{{'render': {path_launches[path]}}} [{card}]")
-        check(path_launches[path] == expected, f"{path}: "
-              f"{path_launches[path]} render launches, not {expected}")
-    for path in ("study jax init", "online study"):
+    # each cut seed graphed (the tools' default on the card) and --eager,
+    # both with capturable Adams: equal bit for bit
+    results, seconds = {}, []
+    for path, (run, expected, expected_eager) in runs.items():
+        got = {}
+        for name, kw, want in (
+                (path, {}, expected),
+                (f"{path} eager", dict(eager=True, capturable=True),
+                 expected_eager)):
+            renderer_cuda.launches = 0
+            t1 = time.perf_counter()
+            got[name] = run(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            path_launches[name] = renderer_cuda.launches
+            train_s = got[name].get("train_seconds",
+                                    got[name].get("train_s"))
+            if train_s is None:
+                train_s = got[name]["row"]["train_s"]
+            seconds.append((name, train_s))
+            print(f"{name}: {wall:.1f} s, train {train_s:.3f} s; launches "
+                  f"{{'render': {path_launches[name]}}} [{card}]")
+            check(path_launches[name] == want, f"{name}: "
+                  f"{path_launches[name]} render launches, not {want}")
+        graphed, eager = got[path], got[f"{path} eager"]
+        check(same_record(graphed, eager), f"{path}: the graphed seed is "
+              f"not the eager one bit for bit: {graphed} against {eager}")
+        results[path] = graphed
+    print(f"phase 22, train seconds a cut seed, graphed and eager (both "
+          f"capturable) [{card}]: " + ", ".join(
+              f"{name} {s:.3f}" for name, s in seconds))
+    for path in ("study jax init", "study semi", "online study",
+                 "online semi study"):
         upper, lower = results[path]["upper"], results[path]["lower"]
         zeros = [float(m[i][j]) for m in (upper, lower)
                  for i, j in cdm_seeds.PROTECTED]
@@ -2529,35 +2626,40 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
               f"{path}: non-finite CDM or loss")
         check(all(v == 0.0 for v in zeros),
               f"{path}: the protected CDM cells are not exactly 0.0")
+    upper = results["study infomax"]["upper"]
+    check(np.isfinite(upper).all(), "study infomax: non-finite CDM")
     se = results["se study"]["record"]
     print(f"se study: {se}")
     check(all(math.isfinite(v) for v in se.values()),
           f"se study: non-finite record {se}")
+    for path in ("dr study", "dr online study"):
+        record = results[path]
+        print(f"{path}: {record}")
+        check(all(math.isfinite(v) for v in (
+            record["final_loss"], record["avg_accuracy"],
+            record["worst_group_accuracy"], *record["bg_corr_per_latent"])),
+            f"{path}: non-finite record {record}")
 
+    # three graphed cut seeds in one process: each seed's runners and
+    # their graph pools are freed when it returns, so the peak stays
     renderer_cuda.launches = 0
-    t1 = time.perf_counter()
-    dr_cut = dict(dr_sweep.CONFIG, epochs=2, n_samples=STUDY_N)
-    ds_tr, ds_te, ds_align = (
-        PendulumDRDataset(train=train, seed=1, n=STUDY_N,
-                          downstream=downstream, device=dev)
-        for train, downstream in ((True, True), (False, True),
-                                  (True, False)))
-    record = dr_sweep.run_config(0.1, 40.0, ds_align.x_data,
-                                 ds_align.y_data, ds_tr, ds_te, dr_cut,
-                                 seed=1, repeats=1, init="jax")
-    torch.cuda.synchronize()
-    path_launches["dr study"] = renderer_cuda.launches
-    print(f"dr study: {record}; {time.perf_counter() - t1:.1f} s; launches "
-          f"{{'render': {path_launches['dr study']}}} [{card}]")
-    check(path_launches["dr study"] == 3, f"dr study: "
-          f"{path_launches['dr study']} render launches, not 3")
-    check(all(math.isfinite(v) for v in (
-        record["final_loss"], record["avg_accuracy"],
-        record["worst_group_accuracy"], *record["bg_corr_per_latent"])),
-        f"dr study: non-finite record {record}")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = []
+    for seed in (1, 2, 3):
+        cdm_seeds.run_seed(seed, cut, device=dev)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+    path_launches["study three seeds"] = renderer_cuda.launches
+    print(f"study, three graphed cut seeds: peak allocated after each "
+          f"{[round(p / MIB, 2) for p in peaks]} MiB, now "
+          f"{torch.cuda.memory_allocated() / MIB:.2f} MiB [{card}]")
+    check(peaks[2] - peaks[0] <= STUDY_MEMORY_TOL, "study: the peak grew "
+          f"by {(peaks[2] - peaks[0]) / MIB:.2f} MiB over three seeds")
 
-    for path, flags in (("tabular study", ["--epochs", "2"]),
-                        ("tabular tvae study", ["--tvae", "--epochs", "1"])):
+    for path, flags in (("tabular study main", ["--epochs", "2"]),
+                        ("tabular tvae study main",
+                         ["--tvae", "--epochs", "1"])):
         renderer_cuda.launches = 0
         t1 = time.perf_counter()
         out = work / f"{path.replace(' ', '_')}.json"
@@ -2568,10 +2670,11 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
         print(f"{path}: {time.perf_counter() - t1:.1f} s; summary "
               f"{json.dumps({k: loan[k] for k in ('per_seed', 'efficacy_baseline', 'efficacy_rows')})}"
               f", loss curve {np.round(loan['loss_curves'][0], 3).tolist()}, "
-              f"device {summary['device']}; launches {{'render': "
-              f"{path_launches[path]}}} [{card}]")
-        check(summary["card"] is not None and out.is_file(),
-              f"{path}: no card record or no summary file")
+              f"device {summary['device']}, dispatch {summary['dispatch']}; "
+              f"launches {{'render': {path_launches[path]}}} [{card}]")
+        check(summary["card"] is not None and out.is_file()
+              and summary["dispatch"] == "graphed",
+              f"{path}: no card record, no summary file or not graphed")
         check(path_launches[path] == 0, f"{path}: the tabular study "
               f"launched the render kernel {path_launches[path]} times")
         (row,) = loan["per_seed"]
@@ -2580,31 +2683,63 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
             *loan["loss_curves"][0])) and row["shd_sample"] >= 0,
             f"{path}: non-finite summary {row}")
     # the CelebA study, cut: its corpus, training through celeba_main in a
-    # subprocess, and the scores; the do-leakage is 0 by construction
+    # subprocess a seed, and the scores; the do-leakage is 0 by construction
     renderer_cuda.launches = 0
     t1 = time.perf_counter()
     out = work / "celeba_study.json"
+    cut_flags = ["--n_train", "32", "--n_test", "16", "--img_size", "32"]
     summary = celeba_study.main([
-        "--n_train", "32", "--n_test", "16", "--img_size", "32",
-        "--conv_dim", "8", "--epochs", "2", "--workdir",
+        *cut_flags, "--conv_dim", "8", "--epochs", "2", "--workdir",
         str(work / "celeba_study"), "--out", str(out)])
     path_launches["celeba study"] = renderer_cuda.launches
-    (row,) = summary["per_seed"]
     print(f"celeba study: {time.perf_counter() - t1:.1f} s; diagonal "
-          f"{summary['diag_mean']}, recon L1 {row['test_recon_l1']}, "
-          f"do-leakage {summary['do_leakage_max']}, device "
-          f"{summary['device']}; launches {{'render': "
-          f"{path_launches['celeba study']}}} [{card}]")
+          f"{summary['diag_mean']}, recon L1 "
+          f"{[r['test_recon_l1'] for r in summary['per_seed']]}, do-leakage "
+          f"{summary['do_leakage_max']}, device {summary['device']}; "
+          f"launches {{'render': {path_launches['celeba study']}}} [{card}]")
     check(out.is_file() and summary["card"] is not None
           and (work / "celeba_do.png").is_file(),
           "celeba study: no summary, card record or do-grid")
     check(summary["do_leakage_max"] == 0.0, "celeba study: do(z_j) moved "
           f"pixels outside its masks: {summary['do_leakage_max']}")
-    check(all(math.isfinite(v) for v in (row["test_recon_l1"],
-                                         *summary["diag_mean"])),
-          f"celeba study: non-finite scores {row}")
+    check(all(math.isfinite(v) for r in summary["per_seed"]
+              for v in (r["test_recon_l1"], *summary["diag_mean"])),
+          f"celeba study: non-finite scores {summary['per_seed']}")
     check(path_launches["celeba study"] == 0, "celeba study: the render "
           f"kernel launched {path_launches['celeba study']} times")
+    (study_row,) = summary["per_seed"]
+    # the same seed as two arms of one worker: the second starts from the
+    # state the first left, and must score as the study's own process;
+    # each arm's memory is freed before the next
+    renderer_cuda.launches = 0
+    t1 = time.perf_counter()
+    arms = [{"tag": tag, "seed": 1, "epochs": 2, "conv_dim": 8}
+            for tag in ("_a", "_b")]
+    out = work / "arms" / "celeba_arms.json"
+    summary = celeba_arms.main([
+        *cut_flags, "--arms", json.dumps(arms), "--workdir",
+        str(work / "celeba_arms"), "--out", str(out)])
+    path_launches["celeba arms"] = renderer_cuda.launches
+    marks = summary["per_arm"]
+    print(f"celeba arms: {time.perf_counter() - t1:.1f} s; markers {marks}; "
+          f"device {summary['device']}; launches {{'render': "
+          f"{path_launches['celeba arms']}}} [{card}]")
+    check(len(marks) == 2 and not any(m["resumed"] for m in marks),
+          f"celeba arms: not two fresh arms: {marks}")
+    for m in marks:
+        print(f"celeba arm {m['tag']}: allocated before "
+              f"{m['allocated_before'] / MIB:.2f} MiB, after "
+              f"{m['allocated_after'] / MIB:.2f} MiB, wall {m['wall_s']} s, "
+              f"startup {m['startup_s']} s [{card}]")
+        check(m["allocated_after"] <= m["allocated_before"],
+              f"celeba arm {m['tag']}: more allocated after the arm")
+    for arm in arms:
+        (row,) = json.loads((out.parent / f"celeba_study{arm['tag']}.json")
+                            .read_text())["per_seed"]
+        check(same_record(row, study_row), f"celeba arm {arm['tag']}: its "
+              f"scores {row} are not the study's {study_row}")
+    check(path_launches["celeba arms"] == 0, "celeba arms: the render "
+          f"kernel launched {path_launches['celeba arms']} times")
     print(f"phase 22 (the studies): {time.perf_counter() - t0:.1f} s (host "
           f"clock) [{card}]")
 
@@ -3071,6 +3206,29 @@ def graphed_paths(*, work: Path, card: str, dev, dataset,
     print(f"phase 24 (graphed paths): {time.perf_counter() - t0:.1f} s "
           f"(host clock); launches {{'render': "
           f"{path_launches['graphed paths']}}} [{card}]")
+
+
+def capturable_adam(*, card: str, dev) -> None:
+    """Phase 25: the capturable Adam of every graphed trainer against a
+    float64 copy of optax's update (``tools/adam_check.py``)."""
+    from cdgvae_torch.tools import adam_check
+
+    t0 = time.perf_counter()
+    for case in ("cdgvae 16px", "packed celeba"):
+        make_build, wd = adam_check.CASES[case]
+        t1 = time.perf_counter()
+        result = adam_check.compare(make_build(), dev, weight_decay=wd)
+        print(f"{adam_check.format_result(case, result)}; bounds: "
+              f"{adam_check.ATOL_ONE:g} after 1 step, "
+              f"{adam_check.ATOL_MANY:g} and {adam_check.RATIO:g} x the "
+              f"plain Adam's after {adam_check.STEPS} "
+              f"({time.perf_counter() - t1:.1f} s) [{card}]")
+        missed = adam_check.violations(result)
+        check(not missed, f"adam {case}: {missed}")
+        check(result["graphed"] == result["capturable"], f"adam {case}: "
+              "the graphed update is not the eager one")
+    print(f"phase 25 (the capturable Adam): {time.perf_counter() - t0:.1f} "
+          f"s (host clock) [{card}]")
 
 
 def flat_leaves(tree: dict) -> list:
@@ -3739,8 +3897,11 @@ def main() -> int:
     # ones, the online trainers with the render kernel in the graph
     graphed_paths(work=work, card=card, dev=dev, dataset=dataset,
                   path_launches=path_launches)
+
+    # 25. the capturable Adam against optax's update, which renders nothing
+    capturable_adam(card=card, dev=dev)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

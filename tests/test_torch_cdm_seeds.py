@@ -1,5 +1,6 @@
 """``cdgvae_torch/tools/cdm_seeds.py`` against the JAX package's
-``scripts/cdm_seeds.py``: the same flags and defaults (plus ``--device``),
+``scripts/cdm_seeds.py``: the same flags and defaults (plus ``--device``,
+``--init``, ``--first_seed`` and ``--eager``),
 and a run cut to 1 epoch on 256 samples on the CPU that writes every key
 of the JAX script's summary, with the protected CDM cells exactly 0.0 for
 the CDG-VAE (supervised and semi) and finite matrices for InfoMax. The
@@ -40,7 +41,9 @@ def test_cli_has_the_jax_scripts_flags_and_defaults():
     assert set(flags) == {"seeds", "scm", "semi", "model", "gamma",
                           "free_bits", "out"}
     got = vars(cdm_seeds.get_args([]))
-    assert set(got) == set(flags) | {"device", "init", "first_seed"}
+    assert set(got) == set(flags) | {"device", "init", "first_seed",
+                                     "eager"}
+    assert got["eager"] is False
     assert got["device"] == "cuda"
     assert got["init"] == "torch" and got["first_seed"] == 1
     for name, default in flags.items():

@@ -14,7 +14,9 @@ model at 32 px, conv_dim 8, batch 4 (cuDNN's deterministic algorithms, as
 packed and ``align_only``. Resumed: a graphed epoch, its checkpoint
 written, read back into a new model and optimizer, and a graphed second
 epoch, against the eager 2 epochs. A step that cannot be captured (a host
-read inside it) raises.
+read inside it) raises. An earlier runner's graph in a dead reference
+cycle does not break the next capture, and captures share one side
+stream, so runners made one after another leave no device memory behind.
 
 The trainers graphed beside those, each against its eager runner the same
 way: the semi-supervised runner (two index streams), the InfoMax pair
@@ -25,6 +27,7 @@ trainer (pendulum, DR, and ``make_online_scanned_steps``' bf16 forward),
 whose captured step holds the render kernel: the kernel's launch count
 equals the steps that ran.
 """
+import gc
 from functools import partial
 
 import pytest
@@ -45,7 +48,9 @@ from cdgvae_torch.train.loop import run_epochs, run_epochs_semi
 from cdgvae_torch.train.online import (dr_batch_fn, make_online_run_from_loss,
                                        make_online_scanned_steps,
                                        pendulum_batch_fn)
-from cdgvae_torch.train.scanned import NoisePlan, make_supervised_loss_fn
+from cdgvae_torch.train.scanned import (CapturedStep, NoisePlan,
+                                        capture_stream,
+                                        make_supervised_loss_fn)
 from cdgvae_torch.train.steps import (make_infomax_step, make_optimizer,
                                       make_semi_step, make_train_step)
 from cdgvae_torch.train.tabular_steps import make_sigma_clamp, make_tvae_step
@@ -177,6 +182,58 @@ def test_a_step_that_cannot_be_captured_raises(cuda_device):
         run_epochs(host_read, x, y, seed=SEED, epochs=1, batch_size=bs,
                    graph_noise=plan)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_a_dead_graph_does_not_break_the_next_capture(cuda_device):
+    """An earlier runner's graph, held by a dead reference cycle, is
+    collected before the next capture: collected during it (here forced by
+    a collection inside the captured body), it would invalidate it."""
+    x = torch.ones(4, device=cuda_device)
+
+    class Holder:  # a reference cycle around a captured graph
+        def __init__(self):
+            self.me = self
+            self.step = CapturedStep(lambda: {"y": x * 2}, cuda_device)
+
+    old = Holder()
+    old.step.run()
+    old.step.run()  # captured and replayed
+    del old
+
+    def body():
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()  # as an allocation inside the capture may do
+        return {"y": x + 1}
+
+    step = CapturedStep(body, cuda_device)
+    assert torch.equal(step.run()["y"], x + 1)  # eager, then the capture
+    assert torch.equal(step.run()["y"], x + 1)  # a replay
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captures_share_one_stream_and_free_their_memory(cuda_device):
+    """Every capture runs on one side stream a device: cuBLAS keeps a
+    workspace for each stream it has run on, so a stream a capture would
+    leave one behind with every runner."""
+    a = torch.randn(64, 64, device=cuda_device)
+
+    def one_runner():
+        step = CapturedStep(lambda: {"y": a @ a}, cuda_device)
+        step.run()
+        step.run()
+        torch.cuda.synchronize()
+
+    one_runner()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        one_runner()
+    gc.collect()
+    assert torch.cuda.memory_allocated() <= before
+    assert capture_stream(cuda_device) is capture_stream(
+        torch.device("cuda", torch.cuda.current_device()))
 
 
 # the trainers graphed beside the flagship's: semi, InfoMax (resumed

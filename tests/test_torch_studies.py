@@ -1,7 +1,7 @@
 """The studies of ``cdgvae_torch/tools/`` against the JAX package's
 scripts: ``se_seeds``, ``online_seeds``, ``dr_sweep`` and
 ``tabular_seeds`` take the same flags with the same defaults (plus
-``--device``, ``--init`` and ``--first_seed``) and write every key of the
+``--device``, ``--init``, ``--first_seed`` and ``--eager``) and write every key of the
 JAX script's summary, in a CPU run cut to 1 seed, 1 epoch and 256 samples
 (DR: one configuration, 1 repeat; tabular: loan, 1 epoch); ``cdm_seeds --init jax`` trains from the JAX package's initial
 parameters with the protected CDM cells exactly 0.0; and
@@ -20,7 +20,8 @@ from cdgvae_torch.tools import (cdm_seeds, dr_sweep, online_seeds, se_seeds,
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 CUT = dict(cdm_seeds.CONFIG, epochs=1, n_samples=256, classifier_epochs=1)
-PORT_FLAGS = {"device": "cuda", "init": "torch", "first_seed": 1}
+PORT_FLAGS = {"device": "cuda", "init": "torch", "first_seed": 1,
+              "eager": False}
 
 # (tool, the JAX script, the name the script gives its summary dict, or
 # the function whose returned dict is the record, the cut run's flags)

@@ -5,9 +5,10 @@ celeba.py``).
 * :func:`preprocess` converts CelebAMask-HQ (JPEG images, part-mask PNGs,
   the attribute table) into the npy files below, byte for byte as the JAX
   package's ``preprocess`` writes them with OpenCV and pandas: the port's
-  own JPEG and PNG decoders on the host (``data/jpeg.py``, ``data/
-  png_io.py``), the IDCT, upsampling, colour conversion and OpenCV's
-  bilinear resize (``data/cv_resize.py``) on the device.
+  own JPEG and PNG decoders on host threads (``data/jpeg.py``, whose
+  entropy decoder on the card is native code, ``data/jpeg_native.py``;
+  ``data/png_io.py``), the IDCT, upsampling, colour conversion and
+  OpenCV's bilinear resize (``data/cv_resize.py``) on the device.
 * :class:`CelebADataset` loads the reference CelebALoader's layout,
   ``<data_dir>/{train,test}/{smile,attractive}/<i>.npy`` ([H, W, 3+5]
   float: RGB in [0, 1] and five part masks) and ``<data_dir>/{train,test}/
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,7 +31,7 @@ import torch
 from ..models.celeba import ATTRACTIVE_NODES, SMILE_NODES
 from ..utils.device import resolve_device
 from .cv_resize import resize_linear
-from .jpeg import jpeg_pixels, read_jpeg_file
+from .jpeg import entropy_for, jpeg_pixels, read_jpeg_file
 from .png_io import read_png_bgr
 
 SMILE_SEG_MAP = [
@@ -103,18 +105,61 @@ def _resized(images: list, size: int) -> torch.Tensor:
     return out
 
 
+def _timed(fn, *args):
+    """``fn(*args)`` and the seconds it took."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def _read_masks(base_dir: str, idxs: list, seg_map: list) -> tuple:
+    """Each image's groups of existing part files as indices into the
+    masks read (each part read once), and those masks (BGR uint8)."""
+    groups, paths = [], {}
+    for idx in idxs:
+        d = f"{base_dir}/CelebAMask-HQ-mask-anno/{idx // 2000}/"
+        per = []
+        for seg in seg_map:
+            files = [d + f"{idx:05d}_{a}.png" for a in seg]
+            per.append([paths.setdefault(f, len(paths)) for f in files
+                        if os.path.exists(f)])
+        groups.append(per)
+    return groups, (read_png_bgr(list(paths)) if paths else [])
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
                img_size: int = 128, train: bool = True,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               entropy: str | None = None) -> dict:
     """CelebAMask-HQ under ``base_dir`` -> ``{out_dir}/{train|test}/
     {causal_structure}/{idx}.npy`` (float64 [S, S, 8]: RGB / 255 and the
     structure's five part-mask groups, 1 where any part is nonzero) and
     ``{out_dir}/{train|test}/label/{idx}.npy`` (float32 [6]), the files
     the JAX package writes, :data:`_CHUNK` files at a time.
-    Returns the seconds spent: ``host`` (reading and entropy-decoding the
-    files), ``device`` (pixels and resizes, until their copy to the host
-    returns) and ``write``, with ``files``."""
+
+    A chunk's JPEGs are read and entropy-decoded on a pool of host
+    threads, one task a file, and its masks in one more task (their PNG
+    unfilter runs in Python under the interpreter lock, where one batch
+    of a chunk's masks beat a task a file); the next
+    chunk's tasks are submitted before this chunk's device work, so the
+    host decodes while the device reconstructs. ``entropy`` picks the
+    entropy decoder (``data/jpeg.py``): by default
+    :func:`~cdgvae_torch.data.jpeg.entropy_for` the device, the native one
+    on a CUDA device (a failed build raises) and the plain one on the CPU.
+
+    Returns ``files``, ``entropy``, the pool's ``threads`` and seconds:
+    ``wall``; the host threads' summed seconds in ``jpeg`` (reading and
+    entropy-decoding the JPEGs) and ``png`` (the masks); ``wait``, the
+    seconds the device work waited for them; then, on the host's clock up
+    to a synchronisation, ``reconstruct`` (IDCT, upsampling, colour),
+    ``resize`` (images and masks) and ``copy`` (to the host); and
+    ``write``."""
     device = resolve_device(device)
+    entropy = entropy or entropy_for(device)
     nodes = list(SMILE_NODES if causal_structure == "smile"
                  else ATTRACTIVE_NODES)
     seg_map = (SMILE_SEG_MAP if causal_structure == "smile"
@@ -126,45 +171,70 @@ def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
     lab_out = os.path.join(out_dir, tag, "label")
     os.makedirs(img_out, exist_ok=True)
     os.makedirs(lab_out, exist_ok=True)
-    seconds = {"files": len(img_list), "host": 0.0, "device": 0.0,
+    threads = min(_CHUNK, os.cpu_count() or 1)
+    seconds = {"files": len(img_list), "entropy": entropy,
+               "threads": threads, "wall": 0.0, "jpeg": 0.0, "png": 0.0,
+               "wait": 0.0, "reconstruct": 0.0, "resize": 0.0, "copy": 0.0,
                "write": 0.0}
-    for at in range(0, len(img_list), _CHUNK):
-        names = img_list[at:at + _CHUNK]
-        t0 = time.perf_counter()
+    chunks = [img_list[at:at + _CHUNK]
+              for at in range(0, len(img_list), _CHUNK)]
+    t_start = time.perf_counter()
+    pool = ThreadPoolExecutor(threads)
+
+    def submit(names):
         idxs = [int(x.split(".")[0]) for x in names]
-        jpegs = [read_jpeg_file(base_dir + "/CelebA-HQ-img/" + x)
-                 for x in names]
-        # each image's groups of existing part files, each part read once
-        groups, paths = [], {}
-        for idx in idxs:
-            d = f"{base_dir}/CelebAMask-HQ-mask-anno/{idx // 2000}/"
-            per = []
-            for seg in seg_map:
-                files = [d + f"{idx:05d}_{a}.png" for a in seg]
-                per.append([paths.setdefault(f, len(paths)) for f in files
-                            if os.path.exists(f)])
-            groups.append(per)
-        masks = read_png_bgr(list(paths)) if paths else []
-        t1 = time.perf_counter()
-        imgs = _resized(jpeg_pixels(jpegs, device), img_size).cpu().numpy()
-        if masks:
-            parts = _resized([torch.as_tensor(m, device=device)
-                              for m in masks], img_size)
-            # a group is 1 where the channel sum of its parts is nonzero
-            nonzero = (parts != 0).any(dim=-1).cpu().numpy()
-        t2 = time.perf_counter()
-        for k, (name, idx) in enumerate(zip(names, idxs)):
-            seg_imgs = [nonzero[g].any(axis=0)[..., None].astype(np.float64)
-                        if g else np.zeros((img_size, img_size, 1))
-                        for g in groups[k]]
-            img = _LEVELS[imgs[k]][:, :, ::-1]
-            concat = np.concatenate([img] + seg_imgs, axis=-1)
-            np.save(os.path.join(img_out, str(idx)), concat)
-            np.save(os.path.join(lab_out, str(idx)), labels[name])
-        t3 = time.perf_counter()
-        seconds["host"] += t1 - t0
-        seconds["device"] += t2 - t1
-        seconds["write"] += t3 - t2
+        return idxs, [pool.submit(
+            _timed, read_jpeg_file, base_dir + "/CelebA-HQ-img/" + x,
+            entropy) for x in names], pool.submit(
+            _timed, _read_masks, base_dir, idxs, seg_map)
+
+    try:
+        pending = submit(chunks[0]) if chunks else None
+        for k, names in enumerate(chunks):
+            t0 = time.perf_counter()
+            idxs, jpeg_futures, mask_future = pending
+            jpegs = []
+            for f in jpeg_futures:
+                coef, s = f.result()
+                jpegs.append(coef)
+                seconds["jpeg"] += s
+            (groups, masks), s = mask_future.result()
+            seconds["png"] += s
+            t1 = time.perf_counter()
+            if k + 1 < len(chunks):
+                pending = submit(chunks[k + 1])
+            pixels = jpeg_pixels(jpegs, device)
+            _sync(device)
+            t2 = time.perf_counter()
+            imgs = _resized(pixels, img_size)
+            if masks:
+                parts = _resized([torch.as_tensor(m, device=device)
+                                  for m in masks], img_size)
+                # a group is 1 where the channel sum of its parts is nonzero
+                nonzero = (parts != 0).any(dim=-1)
+            _sync(device)
+            t3 = time.perf_counter()
+            imgs = imgs.cpu().numpy()
+            if masks:
+                nonzero = nonzero.cpu().numpy()
+            t4 = time.perf_counter()
+            for i, (name, idx) in enumerate(zip(names, idxs)):
+                seg_imgs = [nonzero[g].any(axis=0)[..., None].astype(
+                    np.float64) if g else np.zeros((img_size, img_size, 1))
+                    for g in groups[i]]
+                img = _LEVELS[imgs[i]][:, :, ::-1]
+                concat = np.concatenate([img] + seg_imgs, axis=-1)
+                np.save(os.path.join(img_out, str(idx)), concat)
+                np.save(os.path.join(lab_out, str(idx)), labels[name])
+            t5 = time.perf_counter()
+            seconds["wait"] += t1 - t0
+            seconds["reconstruct"] += t2 - t1
+            seconds["resize"] += t3 - t2
+            seconds["copy"] += t4 - t3
+            seconds["write"] += t5 - t4
+    finally:
+        pool.shutdown(cancel_futures=True)
+    seconds["wall"] = time.perf_counter() - t_start
     return seconds
 
 

@@ -6,7 +6,12 @@ conversion) and with the file's EXIF orientation applied.
 On the host, :func:`read_jpeg` parses the markers (SOI, APPn, DQT, SOF0
 and SOF1, DHT, DRI, SOS, RSTn, EOI), removes the stuffed bytes, splits the
 entropy-coded data at its restart markers and Huffman-decodes it to int16
-coefficient blocks, in natural order, one array a component. On the
+coefficient blocks, in natural order, one array a component. Its
+``entropy`` picks the decoder of each scan: ``"plain"``, the Python
+below (one 16-bit table lookup a Huffman code), or ``"native"``,
+``csrc/jpeg_huffman.cpp`` through ``data/jpeg_native.py``, which decodes
+the same coefficients and raises the same errors; :func:`entropy_for`
+picks by device, native for a CUDA device and plain on the CPU. On the
 tensor's device, :func:`reconstruct` turns the blocks of files of one
 geometry into pixels in integer torch arithmetic:
 
@@ -34,8 +39,7 @@ geometry into pixels in integer torch arithmetic:
 Refused with a ``ValueError`` that names the kind: progressive (SOF2),
 lossless (SOF3), hierarchical (SOF5-7), arithmetic-coded (SOF9-11,
 SOF13-15, DAC), 12-bit samples, CMYK/YCCK (four components), and
-sampling ratios that are not integers. The entropy decoder is plain
-Python: one 16-bit table lookup a Huffman code.
+sampling ratios that are not integers.
 """
 from __future__ import annotations
 
@@ -47,8 +51,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import jpeg_native
+
 __all__ = ["JpegCoefficients", "read_jpeg", "read_jpeg_file", "reconstruct",
-           "jpeg_pixels", "decode_jpegs"]
+           "jpeg_pixels", "decode_jpegs", "entropy_for"]
+
+# the entropy decoders :func:`read_jpeg` can run
+ENTROPY = ("plain", "native")
 
 # zigzag position k -> natural (row-major) index; 16 extra entries of 63,
 # as libjpeg's jpeg_natural_order has, catch a run past the block's end
@@ -101,8 +110,15 @@ class JpegCoefficients:
 
 @lru_cache(maxsize=64)
 def _huffman_lookup(counts: bytes, symbols: bytes) -> list:
+    """:func:`_huffman_table` as a list, for the plain decoder."""
+    return _huffman_table(counts, symbols).tolist()
+
+
+@lru_cache(maxsize=64)
+def _huffman_table(counts: bytes, symbols: bytes) -> np.ndarray:
     """The canonical code of a DHT table as a 65,536-entry lookup on the
-    next 16 bits: ``length << 8 | symbol``, 0 where no code starts."""
+    next 16 bits: ``length << 8 | symbol``, 0 where no code starts
+    (int32, read-only: every caller shares it)."""
     table = np.zeros(1 << 16, np.int32)
     code, k = 0, 0
     for length in range(1, 17):
@@ -114,7 +130,8 @@ def _huffman_lookup(counts: bytes, symbols: bytes) -> list:
             code += 1
             k += 1
         code <<= 1
-    return table.tolist()
+    table.flags.writeable = False
+    return table
 
 
 def _exif_orientation(tiff: bytes) -> int:
@@ -193,9 +210,14 @@ def _decode_scan(data: bytes, units: list, tables: list, out_idx: list,
                 k += 16
 
 
-def read_jpeg(data: bytes, name: str = "") -> JpegCoefficients:
+def read_jpeg(data: bytes, name: str = "",
+              entropy: str = "plain") -> JpegCoefficients:
     """Parse the JPEG file ``data`` (``name`` for errors) and decode its
-    coefficients on the host."""
+    coefficients on the host with the ``entropy`` decoder (one of
+    :data:`ENTROPY`)."""
+    if entropy not in ENTROPY:
+        raise ValueError(f"entropy must be one of {ENTROPY}, got "
+                         f"{entropy!r}")
     where = f"{name}: " if name else ""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{where}not a JPEG file (no SOI marker)")
@@ -266,7 +288,7 @@ def read_jpeg(data: bytes, name: str = "") -> JpegCoefficients:
             end = _SCAN_END.search(data, pos)
             stop = end.start() if end else len(data)
             _scan(seg, data[pos:stop], frame, quant, huff, restart, latched,
-                  coefs, where)
+                  coefs, where, entropy)
             pos = stop
     if frame is None:
         raise ValueError(f"{where}no frame header (SOF) before EOI")
@@ -319,18 +341,21 @@ def _frame(seg: bytes, where: str) -> dict:
             "blocks": [(mcuy * v, mcux * h) for _, h, v, _ in comps]}
 
 
-def _scan(seg, ecs, frame, quant, huff, restart, latched, coefs, where):
-    """Decode one scan's entropy-coded segment ``ecs`` into ``coefs``."""
+def _scan(seg, ecs, frame, quant, huff, restart, latched, coefs, where,
+          entropy="plain"):
+    """Decode one scan's entropy-coded segment ``ecs`` into ``coefs`` with
+    the ``entropy`` decoder."""
     n = seg[0]
     ids = [c[0] for c in frame["comps"]]
+    lookup = _huffman_table if entropy == "native" else _huffman_lookup
     members, tables = [], []
     for k in range(n):
         cid, td = seg[1 + 2 * k], seg[2 + 2 * k]
         ci = ids.index(cid)
         members.append(ci)
         try:
-            tables.append((_huffman_lookup(*huff[0, td >> 4]),
-                           _huffman_lookup(*huff[1, td & 15])))
+            tables.append((lookup(*huff[0, td >> 4]),
+                           lookup(*huff[1, td & 15])))
         except KeyError as e:
             raise ValueError(f"{where}a scan names a Huffman table that "
                              "was not defined") from e
@@ -344,6 +369,19 @@ def _scan(seg, ecs, frame, quant, huff, restart, latched, coefs, where):
     if (ss, se, a) != (0, 63, 0):
         raise ValueError(f"{where}a progressive scan (Ss {ss}, Se {se}) in "
                          f"a sequential frame is not supported")
+    if entropy == "native":
+        if n == 1:
+            _, h, v, _ = frame["comps"][members[0]]
+            units = (-(-(-(-frame["width"] * h // frame["hmax"])) // 8),
+                     -(-(-(-frame["height"] * v // frame["vmax"])) // 8))
+            layout = [(1, 1)]
+        else:
+            units = frame["mcus"][::-1]
+            layout = [frame["comps"][ci][1:3] for ci in members]
+        jpeg_native.decode_scan(
+            ecs, [(h, v, coefs[ci], dc, ac) for (h, v), ci, (dc, ac)
+                  in zip(layout, members, tables)], units, restart, where)
+        return
     # flat offsets into one array of all components' blocks
     offsets = np.cumsum([0] + [c.size for c in coefs])
     if n == 1:
@@ -535,10 +573,21 @@ def reconstruct(files: list, device) -> torch.Tensor:
         0, 255).to(torch.uint8)
 
 
-def read_jpeg_file(path) -> JpegCoefficients:
+def read_jpeg_file(path, entropy: str = "plain") -> JpegCoefficients:
     """:func:`read_jpeg` of the file at ``path``."""
     with open(path, "rb") as fh:
-        return read_jpeg(fh.read(), str(path))
+        return read_jpeg(fh.read(), str(path), entropy)
+
+
+def entropy_for(device) -> str:
+    """The entropy decoder for files whose pixels go to ``device``: native
+    for a CUDA device, its library built and loaded now, so that a failed
+    build raises here and nothing falls back to the plain decoder; plain
+    on the CPU."""
+    if torch.device(device).type == "cuda":
+        jpeg_native.load()
+        return "native"
+    return "plain"
 
 
 def jpeg_pixels(files: list, device) -> list:
@@ -556,7 +605,10 @@ def jpeg_pixels(files: list, device) -> list:
     return out
 
 
-def decode_jpegs(paths: list, device="cuda") -> list:
+def decode_jpegs(paths: list, device="cuda", entropy: str | None = None
+                 ) -> list:
     """``cv2.imread(path, IMREAD_COLOR)`` of each JPEG file: BGR uint8
-    [H, W, 3] tensors on ``device``, in ``paths`` order."""
-    return jpeg_pixels([read_jpeg_file(p) for p in paths], device)
+    [H, W, 3] tensors on ``device``, in ``paths`` order, entropy-decoded
+    by ``entropy`` (by default :func:`entropy_for` the device)."""
+    entropy = entropy or entropy_for(device)
+    return jpeg_pixels([read_jpeg_file(p, entropy) for p in paths], device)

@@ -134,10 +134,15 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     cdgvae_torch.cli.celeba_preprocess`` (once in its own process, then
     in this one) at 128 and 64 px, both structures and both splits, every
     ``.npy`` file's hash against ``expected.json`` (the JAX package's
-    output), and files a second at 1024 px over copies of the 1024 px
-    face, enough for 15 s of decoding (host decode and device ms a
-    file). Neither path renders: 0
-    launches each;
+    output), every scan through the native JPEG entropy decoder
+    (``csrc/jpeg_huffman.cpp``, host C++: built, held against the plain
+    decoder's coefficients on every fixture JPEG, the 1024 px face's
+    decode timed both ways), and files a second at 1024 -> 128 px over
+    copies of the 1024 px face, enough for 12 s of work at the pace of a
+    first run of 80 (host threads' ms a file of JPEG and PNG decoding,
+    the device's wait, reconstruction, resize and copy ms, the 30,000-file
+    estimate). Neither path renders: 0 launches each; the decoder's
+    numbers go on a ``{"host_decoder": ...}`` line before the card's;
 21. the library options that no CLI sets, at full width: 10 bf16 steps
     (``compute_dtype``) against 10 float32 steps from one init (losses
     finite and falling, params and Adam state float32); one bf16 step on
@@ -2091,17 +2096,14 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
 
 
 def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
-                           path_launches: dict) -> None:
+                           path_launches: dict) -> dict:
     """Phase 20: the packed parameter layout at cli.celeba_main's defaults
     and CelebAMask-HQ preprocessing on the card (see the module
-    docstring)."""
-    import hashlib
-
+    docstring). Returns the native entropy decoder's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     from cdgvae_torch.cli.celeba_main import get_args
     from cdgvae_torch.data.celeba import synthetic_celeba
-    from cdgvae_torch.data.jpeg import read_jpeg_file
     from cdgvae_torch.factory import build_celeba_model
     from cdgvae_torch.models.sagan import sn_refresh
     from cdgvae_torch.ops import renderer_cuda
@@ -2235,11 +2237,63 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
     check(path_launches["packing"] == 0, "the packed CelebA path launched "
           f"the render kernel {path_launches['packing']} times")
 
-    # preprocessing of the fixture corpus: the module entry point in its
-    # own process once, then in this one; every file's hash against the
-    # JAX package's (expected.json)
+    decoder = preprocessing(root=root, work=work, card=card, dev=dev,
+                            path_launches=path_launches)
+    print(f"phase 20 (packing, preprocessing): {time.perf_counter() - t0:.1f}"
+          f" s (host clock); launches {{'render': 0}} on both [{card}]")
+    return decoder
+
+
+def preprocessing(*, root: Path, work: Path, card: str, dev,
+                  path_launches: dict) -> dict:
+    """Phase 20's CelebAMask-HQ preprocessing on the card and its native
+    JPEG entropy decoder (see the module docstring). Returns the
+    decoder's numbers."""
+    import hashlib
+
+    from cdgvae_torch.data import jpeg_native
+    from cdgvae_torch.data.jpeg import entropy_for, read_jpeg
+    from cdgvae_torch.ops import renderer_cuda
+
+    # the JPEG entropy decoders on this host: the native one built, then
+    # held against the plain one on every fixture JPEG (the 1024 px face
+    # among them), coefficients equal; the face's decode timed both ways
     fixtures = root / "tests" / "torch_fixtures" / "celeba_hq"
     corpus = fixtures / "corpus"
+    face = corpus / "CelebA-HQ-img" / "0.jpg"
+    t_lib = time.perf_counter()
+    check(entropy_for(dev) == "native", "the card path does not pick the "
+          "native entropy decoder")
+    lib_s = time.perf_counter() - t_lib
+    jpegs = sorted((corpus / "CelebA-HQ-img").glob("*.jpg"))
+    for path in jpegs:
+        data = path.read_bytes()
+        want = read_jpeg(data, path.name, "plain").coef
+        got = read_jpeg(data, path.name, "native").coef
+        check(all(a.dtype == b.dtype and np.array_equal(a, b)
+                  for a, b in zip(got, want)) and len(got) == len(want),
+              f"{path.name}: the native entropy decoder's coefficients "
+              "differ from the plain one's")
+    data = face.read_bytes()
+    native_ms = min(host_s(lambda: read_jpeg(data, "", "native"), 1)
+                    for _ in range(20)) * 1e3
+    plain_ms = min(host_s(lambda: read_jpeg(data, "", "plain"), 1)
+                   for _ in range(2)) * 1e3
+    coef = read_jpeg(data, "", "native").coef
+    nonzero = sum(int(np.count_nonzero(c)) for c in coef)
+    blocks = sum(c.shape[0] * c.shape[1] for c in coef)
+    print(f"build jpeg_huffman.cpp (host C++) and load: {lib_s:.2f} s; "
+          f"native entropy decoding equal to plain on {len(jpegs)} fixture "
+          f"JPEGs (coefficients, int16)")
+    print(f"JPEG entropy decoding of the 1024 px face ({len(data):,} bytes, "
+          f"{nonzero:,} nonzero coefficients in {blocks:,} blocks; "
+          f"read_jpeg: markers and Huffman codes): native, one thread, "
+          f"{native_ms:.3f} ms (min of 20), plain {plain_ms:.1f} ms (min of "
+          f"2): {plain_ms / native_ms:.1f}x [{card}]")
+
+    # preprocessing of the fixture corpus: the module entry point in its
+    # own process once, then in this one; every file's hash against the
+    # JAX package's (expected.json), every scan through the native decoder
     want = json.loads((fixtures / "expected.json").read_text())
     pre = work / "preprocess"
     renderer_cuda.launches = 0
@@ -2249,31 +2303,45 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
         [sys.executable, "-m", "cdgvae_torch.cli.celeba_preprocess", *args,
          "--out_dir", str(pre / "128" / "smile")], cwd=root,
         capture_output=True, text=True, timeout=300)
-    check(proc.returncode == 0 and "preprocessed" in proc.stdout,
+    check(proc.returncode == 0 and "preprocessed" in proc.stdout
+          and "JPEG entropy decoding: native" in proc.stdout,
           f"python -m cdgvae_torch.cli.celeba_preprocess: {proc.returncode} "
           f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
     print(f"python -m cdgvae_torch.cli.celeba_preprocess (its own "
           f"process, on the card): {proc.stdout.strip()} "
           f"({time.perf_counter() - t_pre:.1f} s with the start) [{card}]")
+    jpeg_native.scans = 0
+    files = 0
     for size in (128, 64):
         for structure in ("smile", "attractive"):
             for split in ([], ["--test"]):
                 if size == 128 and structure == "smile" and not split:
                     continue  # the run above
-                run_cli(["--base_dir", str(corpus), "--img_size", str(size),
-                         "--causal_structure", structure, "--out_dir",
-                         str(pre / str(size) / structure), *split],
-                        "celeba_preprocess")
+                _, s, _ = run_cli(
+                    ["--base_dir", str(corpus), "--img_size", str(size),
+                     "--causal_structure", structure, "--out_dir",
+                     str(pre / str(size) / structure), *split],
+                    "celeba_preprocess")
+                check(s["entropy"] == "native", "preprocess on the card "
+                      f"decoded with the {s['entropy']} entropy decoder")
+                files += s["files"]
+    # each fixture JPEG has one scan
+    check(jpeg_native.scans == files, f"{files} files preprocessed, "
+          f"{jpeg_native.scans} scans through the native decoder")
     got = {f"{p.relative_to(pre)}": hashlib.sha256(p.read_bytes()
                                                    ).hexdigest()
            for p in sorted(pre.rglob("*.npy"))}
     same = sum(got.get(k) == v for k, v in want.items())
     print(f"preprocess on the card: {len(got)} .npy files, {same} of "
-          f"{len(want)} equal to expected.json (the JAX package's)")
+          f"{len(want)} equal to expected.json (the JAX package's); "
+          f"{jpeg_native.scans} scans entropy-decoded natively in this "
+          f"process, one a file")
     check(got == want, "preprocess on the card differs from expected.json: "
           f"{sorted(k for k in want if got.get(k) != want[k])[:6]}")
 
-    # files a second at 1024 px: copies of the 1024 px face and its masks
+    # files a second at 1024 -> 128 px: copies of the 1024 px face and its
+    # masks; a run over 80 copies (64 in the train split, index mod 5 != 4)
+    # warms and sets the pace, then enough copies for 12 s of work
     big = work / "preprocess_1024"
     (big / "CelebA-HQ-img").mkdir(parents=True)
     masks = big / "CelebAMask-HQ-mask-anno" / "0"
@@ -2281,44 +2349,64 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
     lines = (corpus / "CelebAMask-HQ-attribute-anno.txt").read_text(
         ).splitlines()
     row0 = next(line for line in lines[2:] if line.startswith("0.jpg"))
-    # enough copies for 15 s of decoding: 4 in 5 go to the train split
-    # (index mod 5 != 4)
-    read_jpeg_file(corpus / "CelebA-HQ-img" / "0.jpg")  # warm
-    t_one = time.perf_counter()
-    read_jpeg_file(corpus / "CelebA-HQ-img" / "0.jpg")
-    n_train = math.ceil(15.0 / (time.perf_counter() - t_one))
-    n_copies = n_train + -(-n_train // 4)
+    parts = sorted((corpus / "CelebAMask-HQ-mask-anno" / "0").glob(
+        "00000_*.png"))
     rows = []
-    for i in range(n_copies):
-        shutil.copy(corpus / "CelebA-HQ-img" / "0.jpg",
-                    big / "CelebA-HQ-img" / f"{i}.jpg")
-        for part in (corpus / "CelebAMask-HQ-mask-anno" / "0").glob(
-                "00000_*.png"):
-            shutil.copy(part, masks / part.name.replace("00000",
-                                                        f"{i:05d}"))
-        rows.append(row0.replace("0.jpg", f"{i}.jpg", 1))
-    (big / "CelebAMask-HQ-attribute-anno.txt").write_text(
-        "\n".join([str(n_copies), lines[1], *rows]) + "\n")
-    said, s, wall = run_cli(["--base_dir", str(big), "--out_dir",
-                             str(work / "preprocess_1024_out")],
-                            "celeba_preprocess")
+
+    def copies(n):
+        for i in range(len(rows), n):
+            shutil.copy(face, big / "CelebA-HQ-img" / f"{i}.jpg")
+            for part in parts:
+                shutil.copy(part, masks / part.name.replace("00000",
+                                                            f"{i:05d}"))
+            rows.append(row0.replace("0.jpg", f"{i}.jpg", 1))
+        (big / "CelebAMask-HQ-attribute-anno.txt").write_text(
+            "\n".join([str(n), lines[1], *rows]) + "\n")
+
+    def run_1024():
+        jpeg_native.scans = 0
+        _, s, wall = run_cli(["--base_dir", str(big), "--out_dir",
+                              str(work / "preprocess_1024_out")],
+                             "celeba_preprocess")
+        check(s["entropy"] == "native" and jpeg_native.scans == s["files"],
+              f"the 1024 px run: {s['entropy']} entropy decoding, "
+              f"{jpeg_native.scans} native scans for {s['files']} files")
+        return s, wall
+
+    copies(80)
+    s, _ = run_1024()
+    n_train = math.ceil(12.0 / (s["wall"] / s["files"]))
+    copies(n_train + -(-n_train // 4))
+    s, wall = run_1024()
     n = s["files"]
+    rate = n / s["wall"]
     print(f"preprocess at 1024 -> 128 px, {n} files (one 4:2:0 q95 face, "
-          f"{(corpus / 'CelebA-HQ-img' / '0.jpg').stat().st_size:,} bytes, "
-          f"and its masks): {n / wall:.3f} files/s over {wall:.3f} s; host "
-          f"decode (JPEG entropy decoding, PNG inflate) "
-          f"{s['host'] / n * 1e3:.1f} ms a file, device (IDCT, upsampling, "
-          f"colour, resizes, to the host) {s['device'] / n * 1e3:.1f} ms, "
-          f"writes {s['write'] / n * 1e3:.1f} ms; 30,000 files would take "
-          f"{30000 / (n / wall) / 3600:.2f} h [{card}]")
-    check(s["host"] + s["device"] >= 10.0, f"the 1024 px run did only "
-          f"{s['host'] + s['device']:.1f} s of work")
+          f"{len(data):,} bytes, and its {len(parts)} masks; reads warm: "
+          f"the copies were just written): {rate:.3f} files/s over "
+          f"{s['wall']:.3f} s ({wall:.3f} s with the CLI's set-up); host "
+          f"threads ({s['threads']}): JPEG reading and entropy decoding "
+          f"{s['jpeg'] / n * 1e3:.2f} ms a file, PNG masks "
+          f"{s['png'] / n * 1e3:.2f} ms a file (thread time), the device "
+          f"waited for them {s['wait'] / n * 1e3:.2f} ms a file; device: "
+          f"reconstruction (IDCT, upsampling, colour) "
+          f"{s['reconstruct'] / n * 1e3:.2f} ms, resizes "
+          f"{s['resize'] / n * 1e3:.2f} ms, copy to the host "
+          f"{s['copy'] / n * 1e3:.2f} ms a file; writes "
+          f"{s['write'] / n * 1e3:.2f} ms a file; 30,000 files would take "
+          f"{30000 / rate / 60:.1f} min [{card}]")
+    check(s["wall"] >= 10.0, f"the 1024 px run did only {s['wall']:.1f} s "
+          "of work")
     torch.cuda.synchronize()
     path_launches["preprocess"] = renderer_cuda.launches
     check(path_launches["preprocess"] == 0, "preprocessing launched the "
           f"render kernel {path_launches['preprocess']} times")
-    print(f"phase 20 (packing, preprocessing): {time.perf_counter() - t0:.1f}"
-          f" s (host clock); launches {{'render': 0}} on both [{card}]")
+    return {"name": "jpeg_huffman", "route": "host C++",
+            "source": "cdgvae_torch/csrc/jpeg_huffman.cpp",
+            "replaces": "cv2.imread's entropy decoding in the JAX "
+                        "package's CelebA preprocessing (no TPU kernel)",
+            "scans": jpeg_native.scans, "ms": native_ms,
+            "plain_ms": plain_ms, "files_per_s": rate,
+            "minutes_for_30000": 30000 / rate / 60}
 
 
 def library_options(*, card: str, dev, dataset, path_launches: dict,
@@ -3877,8 +3965,8 @@ def main() -> int:
 
     # 20. the packed layout and CelebAMask-HQ preprocessing, which render
     # nothing
-    packing_and_preprocess(root=root, work=work, card=card, dev=dev,
-                           path_launches=path_launches)
+    decoder = packing_and_preprocess(root=root, work=work, card=card,
+                                     dev=dev, path_launches=path_launches)
 
     # 21. the library options (bf16 steps, uint8 storage) and the CDM study
     # cut
@@ -3906,6 +3994,7 @@ def main() -> int:
 
     launches = sum(path_launches.values())
     print(f"render launches by path: {path_launches}, total {launches}")
+    print(json.dumps({"host_decoder": decoder}))
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda",

@@ -38,7 +38,18 @@ JSON object a rule:
   ``cdm_seeds_h100_graphed_s20.json`` and
   ``tabular_seeds_h100_adult_graphed.json``): the CDM study's protected
   cells exactly 0.0 and its lost factors against the JAX package's by
-  the ``lost`` rule, and the adult CDG-VAE's ``tabular`` bounds.
+  the ``lost`` rule, and the adult CDG-VAE's ``tabular`` bounds;
+- ``item 34`` (the frozen-pretrained regime on the card, from the trunk
+  of ``tools/celeba_pretrain.py``): ``probe`` (``celeba_probe_h100.json``
+  against ``celeba_probe.json``), each trunk's attributes separable at
+  0.95 as many as the JAX file's and its least test accuracy >= 0.95;
+  ``pretrained_lam5`` and ``pretrained_warmup300_lam50``
+  (``celeba_study_<arm>_h100.json``), the ``item 27`` rule with the band
+  widened to the JAX mean ± max(3 std, 0.05), against the JAX run, or
+  against the three one-seed JAX runs of warmup 300 merged
+  (:func:`merge_jax_celeba`), and the do-leakage exactly 0.0. The floor
+  stands because the port's trunk is its own pretraining's, not the JAX
+  run's file, and three JAX seeds give a std as small as 0.0005.
 
 ``--merge_jax_cdm BASE RUN...``, ``--merge_jax_online RUN...`` and
 ``--merge_jax_freebits A RUN...`` first write the JAX CPU summaries from
@@ -59,6 +70,7 @@ import os
 import numpy as np
 
 from .cdm_seeds import PROTECTED, RESULTS, summarize, write_json
+from .celeba_study import summarize as summarize_celeba
 
 DOCS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "docs", "results")
@@ -69,6 +81,15 @@ FREE_BITS = {"freebits025": 0.25, "freebits100": 1.0}
 # the CelebA study's arms on the card, and the JAX package's runs of each
 CELEBA_ARMS = {"frozenrand_lam2000": "celeba_study_frozenrand_lam2000.json",
                "headline": "celeba_study.json"}
+# item 34: the frozen-pretrained arms, and the JAX runs of each (merged
+# where there are several), held to bands no narrower than ± 0.05
+PRETRAINED_ARMS = {
+    "pretrained_lam5": ["celeba_study_pretrained_lam5.json"],
+    "pretrained_warmup300_lam50": [
+        f"celeba_study_pretrained_warmup300_lam50{s}.json"
+        for s in ("", "_s2", "_s3")]}
+PRETRAINED_FLOOR = 0.05
+SEPARABLE = 0.95  # the probe's accuracy bar, as the JAX summary counts it
 
 
 def fisher_exact(a: int, b: int, c: int, d: int) -> float:
@@ -206,13 +227,14 @@ def informative_rule(port: dict, jax: dict, above: float = 0.65) -> dict:
             "closes": pv >= 0.05, "port_f1": own, "jax_f1": ref}
 
 
-def celeba_rule(port: dict, jax: dict) -> dict:
+def celeba_rule(port: dict, jax: dict, floor: float = 0.0) -> dict:
     """Item 27: each entry of the port's CelebA study's mean diagonal
-    against the JAX run's mean ± 3 std, or ± 0.1 where the JAX run has one
-    seed; each port seed's entries inside the band are counted too."""
+    against the JAX run's mean ± max(``floor``, 3 std), or ± 0.1 where the
+    JAX run has one seed; each port seed's entries inside the band are
+    counted too, and the do-leakage must be exactly 0.0."""
     one = len(jax["per_seed"]) == 1
     half = np.full(len(jax["diag_mean"]), 0.1) if one \
-        else 3 * np.asarray(jax["diag_std"])
+        else np.maximum(floor, 3 * np.asarray(jax["diag_std"]))
     lo, hi = np.asarray(jax["diag_mean"]) - half, \
         np.asarray(jax["diag_mean"]) + half
     mean = np.asarray(port["diag_mean"])
@@ -227,6 +249,41 @@ def celeba_rule(port: dict, jax: dict) -> dict:
             "seed_entries": int(per_seed.size),
             "do_leakage_max": port["do_leakage_max"],
             "held": bool(held.all()) and port["do_leakage_max"] == 0.0}
+
+
+def merge_jax_celeba(parts: list) -> dict:
+    """One summary of the seeds of several JAX CelebA runs, their per-seed
+    diagonals' mean and population std (``scripts/celeba_study.py``'s
+    ``diags.std(0)``) and the largest do-leakage; one run as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    seeds = [s for p in parts for s in p["protocol"]["seeds"]]
+    return summarize_celeba(dict(parts[0]["protocol"], seeds=seeds),
+                            [s for p in parts for s in p["per_seed"]], {})
+
+
+def probe_rule(port: dict, jax: dict) -> dict:
+    """Item 34's probe: for each trunk, as many attributes separable at
+    0.95 as the JAX file's, and the least test accuracy >= 0.95."""
+    out, held = {}, True
+    for trunk in ("random", "pretrained"):
+        if trunk not in port:
+            out[trunk] = {"held": False, "note": "not probed"}
+            held = False
+            continue
+        ps, js = port[trunk]["_summary"], jax[trunk]["_summary"]
+        rec = {"port_test_acc": {n: port[trunk][n]["test_acc"]
+                                 for n in port["nodes"]},
+               "port_n_separable": ps["n_separable_at_0.95"],
+               "jax_n_separable": js["n_separable_at_0.95"],
+               "port_min_test_acc": ps["min_test_acc"],
+               "jax_min_test_acc": js["min_test_acc"]}
+        rec["held"] = (rec["port_n_separable"] == rec["jax_n_separable"]
+                       and rec["port_min_test_acc"] >= SEPARABLE)
+        held &= rec["held"]
+        out[trunk] = rec
+    out["held"] = held
+    return out
 
 
 def merge_jax_cdm(base: str | None, runs: list, out: str,
@@ -335,6 +392,15 @@ def report(results: str = RESULTS, docs: str = DOCS) -> dict:
         port = r(f"celeba_study_{arm}_h100.json")
         if port:
             out[f"item 27 {arm}"] = celeba_rule(port, d(ref))
+    port = r("celeba_probe_h100.json")
+    if port:
+        out["item 34 probe"] = probe_rule(port, d("celeba_probe.json"))
+    for arm, refs in PRETRAINED_ARMS.items():
+        port = r(f"celeba_study_{arm}_h100.json")
+        if port:
+            out[f"item 34 {arm}"] = celeba_rule(
+                port, merge_jax_celeba([d(ref) for ref in refs]),
+                floor=PRETRAINED_FLOOR)
     for v in VARIANTS:
         for init in ("", "_jaxinit"):
             port = r(f"cdm_seeds_h100_{v}{init}.json")

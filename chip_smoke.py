@@ -217,14 +217,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     (``tools/adam_check.py``): the 16 px CDG-VAE and the packed CelebA
     buffers, the Adam eager and inside a captured CUDA graph, beside the
     plain Adam; after 1 step within 1e-7, after 200 steps (the graph: 200
-    replays) within 1e-6 and within 3 x the plain Adam's distance.
+    replays) within 1e-6 and within 3 x the plain Adam's distance;
+26. the CelebA trunk's pretraining (``tools/celeba_pretrain.py``, 128 px,
+    128 faces, one epoch) twice on the card, whose files must be equal
+    byte for byte, and once on the CPU, whose first step's loss the
+    card's must match within a relative 1e-4 (TF32 off); a graphed
+    2-epoch arm on its file through ``cli.celeba_main --torch_weights``
+    (32 faces, ``--align_warmup 1 --lambda 50``, the trunk frozen), whose
+    losses must be finite and whose do-leakage must be exactly 0.0; the
+    linear probe of the random and the pretrained trunk
+    (``tools/celeba_probe.py``, 64/32 faces); one ``pretrain`` JSON line
+    (ms a step, test attribute accuracy, the probe's accuracies).
 
 The CLIs of phases 8-17 replay graphs on the card by default
 (``--eager`` and ``--dp`` stay eager): phase 17's ``--profile`` trace
 holds the eager first step, its capture and the replays of its window.
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15, 19, 21, 22 and 24, and 17's, 18's, 20's, 23's and 25's 0) and
-summed in the ``{"kernels": [...]}`` JSON line, which is followed by the
+10-15, 19, 21, 22 and 24, and 17's, 18's, 20's, 23's, 25's and 26's 0)
+and summed in the ``{"kernels": [...]}`` JSON line, which is followed by the
 ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -303,6 +313,9 @@ TVAE_STEPS = {"loan": 15, "adult": 15, "covtype": 39}
 # 64 synthetic faces, 4 steps an epoch
 CELEBA_BATCH, CELEBA_BETA, CELEBA_LAM, CELEBA_LR = 16, 0.1, 5.0, 1e-3
 CELEBA_STEPS = 4
+# phase 26: the pretraining's first step on the card against the CPU, TF32
+# off: the same float32 math summed in other orders
+PRETRAIN_TOL = 1e-4
 # phase 21: one bf16 step on the card against the same step on the CPU.
 # cuBLAS and the CPU's bf16 GEMMs accumulate in other orders, so a bf16
 # activation can round to its neighbour: the metrics within one bf16 unit
@@ -3319,6 +3332,98 @@ def capturable_adam(*, card: str, dev) -> None:
           f"s (host clock) [{card}]")
 
 
+def pretrained_regime(*, work: Path, card: str, dev,
+                      path_launches: dict) -> None:
+    """Phase 26: the CelebA trunk's pretraining (``tools/celeba_pretrain.
+    py``) twice on the card and once on the CPU, a graphed arm on its file
+    through ``cli.celeba_main --torch_weights`` and the linear probe of
+    both trunks (``tools/celeba_probe.py``); see the module docstring."""
+    from argparse import Namespace
+
+    from cdgvae_torch.cli.common import graphed_epochs
+    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.tools import celeba_pretrain, celeba_probe, celeba_study
+    from cdgvae_torch.utils.checkpoint import load_checkpoint
+
+    renderer_cuda.launches = 0
+    t0 = time.perf_counter()
+    flags = ["--n_train", "128", "--n_test", "64", "--img_size", "128",
+             "--epochs", "1"]
+    sides, blobs = {}, {}
+    for run in ("card", "card again", "cpu"):
+        out = work / "pretrain" / run.replace(" ", "_") / "resnet18.pt"
+        extra = ["--device", "cpu"] if run == "cpu" else []
+        t1 = time.perf_counter()
+        sides[run] = celeba_pretrain.main([*flags, "--out", str(out),
+                                           *extra])
+        print(f"pretrain on the {run}: {time.perf_counter() - t1:.1f} s "
+              f"(host clock) [{card}]")
+        blobs[run] = out.read_bytes()
+    weights = work / "pretrain" / "card" / "resnet18.pt"
+    check(blobs["card"] == blobs["card again"],
+          "pretrain: two runs on the card wrote different files")
+    check(sides["card"]["card"] is not None,
+          "pretrain: no card record in the sidecar")
+    first = {run: sides[run]["losses"][0] for run in ("card", "cpu")}
+    rel = abs(first["card"] - first["cpu"]) / abs(first["cpu"])
+    print(f"pretrain first step loss: card {first['card']:.7f} cpu "
+          f"{first['cpu']:.7f} rel {rel:.2e} (limit {PRETRAIN_TOL:g}, TF32 "
+          f"off); files equal on the card: True; card and CPU files equal: "
+          f"{blobs['card'] == blobs['cpu']} [{card}]")
+    check(rel <= PRETRAIN_TOL, "pretrain: the first step's loss on the "
+          "card disagrees with the CPU")
+
+    # a graphed arm on the pretrained trunk, frozen: 32 faces, 2 epochs
+    corpus = work / "pretrain" / "corpus"
+    celeba_study.write_corpus_once(str(corpus), 32, 16, 128, 1)
+    arm = work / "pretrain" / "arm"
+    said, _, arm_s = run_cli([
+        "--data_dir", str(corpus), "--epochs", "2", "--align_warmup", "1",
+        "--lambda", "50", "--torch_weights", str(weights),
+        "--assets_dir", str(arm)], "celeba_main")
+    cfg = load_checkpoint(str(arm / "celeba_CDGVAE_linear"))["config"]
+    check(f"imported torchvision trunk from {weights}" in said
+          and cfg["torch_weights"] == str(weights) and not cfg["train_trunk"]
+          and graphed_epochs(cfg, dev), "pretrained arm: the trunk was not "
+          f"imported frozen, or the epochs were not graphed: {cfg}")
+    records = read_records(arm / "metrics.jsonl")
+    check(len(records) == 2 and all(math.isfinite(v) for r in records
+                                    for v in r.values()),
+          f"pretrained arm: records {records}")
+    scores = celeba_study.evaluate(
+        Namespace(img_size=128, device="cuda"), str(corpus),
+        str(arm / "celeba_CDGVAE_linear"), None, False)
+    leak = max(scores["do_leakage_outside_masks"])
+    print(f"pretrained arm (32 faces, 2 epochs, warmup 1, lambda 50): "
+          f"{arm_s:.1f} s (host clock); losses "
+          f"{[r['loss'] for r in records]}; diagonal "
+          f"{scores['latent_attr_corr_diag']}; do-leakage {leak} [{card}]")
+    check(scores["pretrained_trunk"] and leak == 0.0,
+          f"pretrained arm: do-leakage {leak}, pretrained "
+          f"{scores['pretrained_trunk']}")
+
+    t1 = time.perf_counter()
+    probe = celeba_probe.main([
+        "--n_train", "64", "--n_test", "32", "--torch_weights", str(weights),
+        "--out", str(work / "pretrain" / "probe.json")])
+    probe_s = time.perf_counter() - t1
+    accs = {trunk: {n: probe[trunk][n]["test_acc"] for n in probe["nodes"]}
+            for trunk in ("random", "pretrained")}
+    check(probe["card"] is not None and all(
+        0.0 <= a <= 1.0 for t in accs.values() for a in t.values()),
+        f"probe: {accs}")
+    path_launches["pretrained regime"] = renderer_cuda.launches
+    print("pretrain " + json.dumps({
+        "ms_per_step": sides["card"]["ms_per_step"],
+        "steps": len(sides["card"]["losses"]),
+        "test_attr_acc": sides["card"]["test_attr_acc"],
+        "probe_test_acc": accs, "probe_s": probe_s, "card": card}))
+    check(path_launches["pretrained regime"] == 0, "the pretrained regime "
+          f"launched the render kernel {renderer_cuda.launches} times")
+    print(f"phase 26 (the pretrained regime): {time.perf_counter() - t0:.1f}"
+          f" s (host clock); launches {{'render': 0}} [{card}]")
+
+
 def flat_leaves(tree: dict) -> list:
     """The leaves of a nested dict, in key order."""
     return [leaf for k in sorted(tree) for leaf in (
@@ -3988,8 +4093,13 @@ def main() -> int:
 
     # 25. the capturable Adam against optax's update, which renders nothing
     capturable_adam(card=card, dev=dev)
+
+    # 26. the CelebA trunk's pretraining, a pretrained arm and the probe,
+    # which render nothing
+    pretrained_regime(work=work, card=card, dev=dev,
+                      path_launches=path_launches)
     shutil.rmtree(work, ignore_errors=True)
-    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - t_start:.1f} s "
           f"(host clock) [{card}]")
 
     launches = sum(path_launches.values())

@@ -1,11 +1,12 @@
 """The port stands alone: importing every cdgvae_torch module loads neither
 JAX, optax, matplotlib, pandas, scikit-learn, PIL, networkx, OpenCV nor
 anything of cdgvae_tpu (the GPU machine has none of them), and not scipy,
-which only the PC p-values, the mixture and the copula normaliser import,
-when they run. No import statement of the port or of chip_smoke.py, at
-any depth, names JAX, optax, pandas, scikit-learn, OpenCV (``cv2``, which
-the JAX package's CelebA preprocessing imports) or cdgvae_tpu, and none at
-a module's top level names scipy."""
+which only the PC p-values, the mixture, the copula normaliser and the
+CelebA probe's fit import, when they run. No import statement of the port
+or of chip_smoke.py, at any depth, names JAX, optax, pandas,
+scikit-learn, OpenCV (``cv2``, which the JAX package's CelebA
+preprocessing imports) or cdgvae_tpu, and none at a module's top level
+names scipy."""
 import ast
 import json
 import subprocess
@@ -78,7 +79,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.cli.celeba_main",
                  "cdgvae_torch.ops.packing", "cdgvae_torch.data.jpeg",
                  "cdgvae_torch.data.cv_resize",
-                 "cdgvae_torch.cli.celeba_preprocess"):
+                 "cdgvae_torch.cli.celeba_preprocess",
+                 "cdgvae_torch.models.torchvision_resnet",
+                 "cdgvae_torch.tools.celeba_pretrain",
+                 "cdgvae_torch.tools.celeba_probe"):
         assert name in result["modules"]
 
 

@@ -2,10 +2,11 @@
 celeba_preprocess.py``, the same flags plus ``--device``): convert the
 raw corpus into per-sample [H, W, 3+5] npy files and labels
 (``data/celeba.py::preprocess``), decoding on the card unless ``--device
-cpu`` is given. On the card the JPEGs' entropy decoding is the native
-decoder (``csrc/jpeg_huffman.cpp``, built at first use; a failed build
-exits with its error), on host threads beside the device work; on the
-CPU the plain one.
+cpu`` is given. On the card the JPEGs' entropy decoding and the mask
+PNGs' row unfilter are native code (``csrc/jpeg_huffman.cpp`` and
+``csrc/png_unfilter.cpp``, built at first use; a failed build exits with
+its error), on host threads beside the device work; on the CPU the plain
+ones.
 
 Usage: python -m cdgvae_torch.cli.celeba_preprocess --base_dir
 ./CelebAMask-HQ --out_dir ./data [--causal_structure attractive]
@@ -42,8 +43,9 @@ def main(argv=None):
     print(f"preprocessed {s['files']} {'test' if args.test else 'train'} "
           f"images at {args.img_size} px in {s['wall']:.3f} s, "
           f"{s['files'] / max(s['wall'], 1e-9):.2f} files/s: host threads "
-          f"(JPEG entropy decoding: {s['entropy']}) {s['jpeg']:.3f} s of "
-          f"JPEGs, {s['png']:.3f} s of PNG masks, waited for "
+          f"(JPEG entropy decoding: {s['entropy']}; PNG unfilter: "
+          f"{s['unfilter']}) {s['jpeg']:.3f} s of JPEGs, {s['png']:.3f} s "
+          f"of PNG masks, waited for "
           f"{s['wait']:.3f} s; device reconstruction "
           f"{s['reconstruct']:.3f} s, resizes {s['resize']:.3f} s, copy to "
           f"the host {s['copy']:.3f} s; writes {s['write']:.3f} s")

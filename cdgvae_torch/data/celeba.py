@@ -7,7 +7,8 @@ celeba.py``).
   package's ``preprocess`` writes them with OpenCV and pandas: the port's
   own JPEG and PNG decoders on host threads (``data/jpeg.py``, whose
   entropy decoder on the card is native code, ``data/jpeg_native.py``;
-  ``data/png_io.py``), the IDCT, upsampling, colour conversion and
+  ``data/png_io.py``, whose row unfilter on the card is native code,
+  ``data/png_native.py``), the IDCT, upsampling, colour conversion and
   OpenCV's bilinear resize (``data/cv_resize.py``) on the device.
 * :class:`CelebADataset` loads the reference CelebALoader's layout,
   ``<data_dir>/{train,test}/{smile,attractive}/<i>.npy`` ([H, W, 3+5]
@@ -32,7 +33,7 @@ from ..models.celeba import ATTRACTIVE_NODES, SMILE_NODES
 from ..utils.device import resolve_device
 from .cv_resize import resize_linear
 from .jpeg import entropy_for, jpeg_pixels, read_jpeg_file
-from .png_io import read_png_bgr
+from .png_io import read_png_bgr, unfilter_for
 
 SMILE_SEG_MAP = [
     ["skin"],                                          # High_Cheekbones
@@ -111,9 +112,11 @@ def _timed(fn, *args):
     return fn(*args), time.perf_counter() - t0
 
 
-def _read_masks(base_dir: str, idxs: list, seg_map: list) -> tuple:
+def _read_masks(base_dir: str, idxs: list, seg_map: list,
+                unfilter: str) -> tuple:
     """Each image's groups of existing part files as indices into the
-    masks read (each part read once), and those masks (BGR uint8)."""
+    masks read (each part read once), and those masks (BGR uint8), their
+    rows unfiltered by ``unfilter``."""
     groups, paths = [], {}
     for idx in idxs:
         d = f"{base_dir}/CelebAMask-HQ-mask-anno/{idx // 2000}/"
@@ -123,7 +126,7 @@ def _read_masks(base_dir: str, idxs: list, seg_map: list) -> tuple:
             per.append([paths.setdefault(f, len(paths)) for f in files
                         if os.path.exists(f)])
         groups.append(per)
-    return groups, (read_png_bgr(list(paths)) if paths else [])
+    return groups, (read_png_bgr(list(paths), unfilter) if paths else [])
 
 
 def _sync(device: torch.device) -> None:
@@ -134,7 +137,8 @@ def _sync(device: torch.device) -> None:
 def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
                img_size: int = 128, train: bool = True,
                device: str | torch.device = "cuda",
-               entropy: str | None = None) -> dict:
+               entropy: str | None = None, unfilter: str | None = None
+               ) -> dict:
     """CelebAMask-HQ under ``base_dir`` -> ``{out_dir}/{train|test}/
     {causal_structure}/{idx}.npy`` (float64 [S, S, 8]: RGB / 255 and the
     structure's five part-mask groups, 1 where any part is nonzero) and
@@ -142,24 +146,29 @@ def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
     the JAX package writes, :data:`_CHUNK` files at a time.
 
     A chunk's JPEGs are read and entropy-decoded on a pool of host
-    threads, one task a file, and its masks in one more task (their PNG
-    unfilter runs in Python under the interpreter lock, where one batch
-    of a chunk's masks beat a task a file); the next
-    chunk's tasks are submitted before this chunk's device work, so the
-    host decodes while the device reconstructs. ``entropy`` picks the
-    entropy decoder (``data/jpeg.py``): by default
-    :func:`~cdgvae_torch.data.jpeg.entropy_for` the device, the native one
-    on a CUDA device (a failed build raises) and the plain one on the CPU.
+    threads, one task a file, and its masks read on the same pool: with
+    the native unfilter, which releases the interpreter lock, one task a
+    face; with the plain one, which runs in Python under the lock, one
+    task for the chunk's masks (where one batch beat a task a file). The
+    next chunk's tasks are submitted before this chunk's device work, so
+    the host decodes while the device reconstructs. ``entropy`` picks the
+    entropy decoder (``data/jpeg.py``) and ``unfilter`` the PNG unfilter
+    (``data/png_io.py``): by default
+    :func:`~cdgvae_torch.data.jpeg.entropy_for` and
+    :func:`~cdgvae_torch.data.png_io.unfilter_for` the device, the native
+    ones on a CUDA device (a failed build raises) and the plain ones on
+    the CPU.
 
-    Returns ``files``, ``entropy``, the pool's ``threads`` and seconds:
-    ``wall``; the host threads' summed seconds in ``jpeg`` (reading and
-    entropy-decoding the JPEGs) and ``png`` (the masks); ``wait``, the
-    seconds the device work waited for them; then, on the host's clock up
-    to a synchronisation, ``reconstruct`` (IDCT, upsampling, colour),
-    ``resize`` (images and masks) and ``copy`` (to the host); and
-    ``write``."""
+    Returns ``files``, ``entropy``, ``unfilter``, the pool's ``threads``
+    and seconds: ``wall``; the host threads' summed seconds in ``jpeg``
+    (reading and entropy-decoding the JPEGs) and ``png`` (reading and
+    decoding the masks); ``wait``, the seconds the device work waited for
+    them; then, on the host's clock up to a synchronisation,
+    ``reconstruct`` (IDCT, upsampling, colour), ``resize`` (images and
+    masks) and ``copy`` (to the host); and ``write``."""
     device = resolve_device(device)
     entropy = entropy or entropy_for(device)
+    unfilter = unfilter or unfilter_for(device)
     nodes = list(SMILE_NODES if causal_structure == "smile"
                  else ATTRACTIVE_NODES)
     seg_map = (SMILE_SEG_MAP if causal_structure == "smile"
@@ -173,9 +182,9 @@ def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
     os.makedirs(lab_out, exist_ok=True)
     threads = min(_CHUNK, os.cpu_count() or 1)
     seconds = {"files": len(img_list), "entropy": entropy,
-               "threads": threads, "wall": 0.0, "jpeg": 0.0, "png": 0.0,
-               "wait": 0.0, "reconstruct": 0.0, "resize": 0.0, "copy": 0.0,
-               "write": 0.0}
+               "unfilter": unfilter, "threads": threads, "wall": 0.0,
+               "jpeg": 0.0, "png": 0.0, "wait": 0.0, "reconstruct": 0.0,
+               "resize": 0.0, "copy": 0.0, "write": 0.0}
     chunks = [img_list[at:at + _CHUNK]
               for at in range(0, len(img_list), _CHUNK)]
     t_start = time.perf_counter()
@@ -183,23 +192,30 @@ def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
 
     def submit(names):
         idxs = [int(x.split(".")[0]) for x in names]
+        faces = ([[i] for i in idxs] if unfilter == "native" else [idxs])
         return idxs, [pool.submit(
             _timed, read_jpeg_file, base_dir + "/CelebA-HQ-img/" + x,
-            entropy) for x in names], pool.submit(
-            _timed, _read_masks, base_dir, idxs, seg_map)
+            entropy) for x in names], [pool.submit(
+                _timed, _read_masks, base_dir, f, seg_map, unfilter)
+                for f in faces]
 
     try:
         pending = submit(chunks[0]) if chunks else None
         for k, names in enumerate(chunks):
             t0 = time.perf_counter()
-            idxs, jpeg_futures, mask_future = pending
+            idxs, jpeg_futures, mask_futures = pending
             jpegs = []
             for f in jpeg_futures:
                 coef, s = f.result()
                 jpegs.append(coef)
                 seconds["jpeg"] += s
-            (groups, masks), s = mask_future.result()
-            seconds["png"] += s
+            groups, masks = [], []
+            for f in mask_futures:
+                (per_face, read), s = f.result()
+                groups += [[[j + len(masks) for j in g] for g in per]
+                           for per in per_face]
+                masks += read
+                seconds["png"] += s
             t1 = time.perf_counter()
             if k + 1 < len(chunks):
                 pending = submit(chunks[k + 1])

@@ -10,15 +10,19 @@ its labels in the file name rounded to 4 decimals.
   so the bytes differ from PIL's adaptively filtered files; the pixels do
   not).
 * :func:`load_png_dataset` reads a tree without PIL: :func:`decode_pngs`
-  inflates every file and undoes the scanline filters row by row across
-  all images at once on the host; on the device, :func:`resize_bicubic`
-  is a copy of Pillow's default ``Image.resize`` filter (bicubic, a =
-  -0.5, 22-bit fixed-point weights, the horizontal pass first, integer
-  arithmetic, so every device gives Pillow's bytes), and the images are
-  normalised by ``(x - 127.5) / 127.5``.
+  inflates every file with ``zlib`` and undoes the scanline filters of
+  all images of one shape at once on the host, by the unfilter that
+  :func:`unfilter_for` the device picks: on a CUDA device the native one
+  (``data/png_native.py``, host C++), elsewhere the plain one,
+  :func:`_unfilter`, a numpy pass a row; on the device,
+  :func:`resize_bicubic` is a copy of Pillow's default ``Image.resize``
+  filter (bicubic, a = -0.5, 22-bit fixed-point weights, the horizontal
+  pass first, integer arithmetic, so every device gives Pillow's bytes),
+  and the images are normalised by ``(x - 127.5) / 127.5``.
 * :func:`read_png_bgr` reads 8-bit greyscale, RGB and RGBA files as
   ``cv2.imread(path, IMREAD_COLOR)`` does: BGR, grey replicated to three
-  channels, alpha dropped (the CelebAMask-HQ part masks).
+  channels, alpha dropped (the CelebAMask-HQ part masks); the native
+  unfilter writes that layout itself.
 
 File names are sorted, as the JAX package sorts them (the reference's
 ``os.listdir`` order is filesystem-dependent); the order matters only for
@@ -36,15 +40,18 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.viz import write_png
+from . import png_native
 
 __all__ = ["save_png_dataset", "load_png_dataset", "sample_filename",
-           "decode_pngs", "read_png_bgr", "resize_bicubic"]
+           "decode_pngs", "read_png_bgr", "resize_bicubic", "unfilter_for"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> samples a pixel (grey, RGB, RGBA); grey only where
 # the caller asks for it
 _CHANNELS = {0: 1, 2: 3, 6: 4}
 _COLOUR_NAMES = {0: "greyscale", 3: "palette", 4: "greyscale with alpha"}
+# samples a pixel -> the samples of B, G, R in cv2.imread's IMREAD_COLOR
+_BGR = {1: [0, 0, 0], 3: [2, 1, 0], 4: [2, 1, 0]}
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point weights
 # (v - 127.5) / 127.5 of each uint8 level in float32, as numpy computes it.
 # Looked up, not computed: CUDA divides a tensor by a Python scalar as a
@@ -140,7 +147,10 @@ def _read_png(path: str, grey: bool = False
     if interlace:
         raise ValueError(f"{path}: interlace method {interlace} (Adam7) is "
                          "not supported")
-    return (h, w, _CHANNELS[colour]), zlib.decompress(b"".join(idat))
+    # inflated into one buffer of the scanlines' size: zlib releases the
+    # interpreter lock once, where a growing buffer takes it back a block
+    return (h, w, _CHANNELS[colour]), zlib.decompress(
+        b"".join(idat), bufsize=max(1, h * (1 + w * _CHANNELS[colour])))
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -201,12 +211,25 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_pngs(paths: list[str], grey: bool = False) -> list[np.ndarray]:
-    """Decode 8-bit RGB or RGBA PNGs (non-interlaced), and with ``grey``
-    8-bit greyscale ones, to [h, w, channels] uint8 arrays, in ``paths``
-    order. Files of one shape are unfiltered together. The files are read
-    and inflated one after another: for files of a few kilobytes, threads
-    contend for the interpreter lock and read slower."""
+def unfilter_for(device) -> str:
+    """The unfilter for files whose pixels go to ``device``: native for a
+    CUDA device, its library built and loaded now, so that a failed build
+    raises here and nothing falls back to the plain unfilter; plain on the
+    CPU."""
+    if torch.device(device).type == "cuda":
+        png_native.load()
+        return "native"
+    return "plain"
+
+
+def _decode(paths: list[str], grey: bool, unfilter: str, bgr: bool
+            ) -> list[np.ndarray]:
+    """The pixels of each file of ``paths``, in order: [h, w, channels]
+    uint8, or with ``bgr`` [h, w, 3] as ``cv2.imread`` gives them. Files
+    of one shape are unfiltered together, by ``unfilter`` (``"plain"`` or
+    ``"native"``)."""
+    if unfilter not in ("plain", "native"):
+        raise ValueError(f"unfilter {unfilter!r} is not 'plain' or 'native'")
     files = [_read_png(p, grey) for p in paths]
     groups: dict[tuple, list[int]] = {}
     for i, (shape, _) in enumerate(files):
@@ -221,22 +244,36 @@ def decode_pngs(paths: list[str], grey: bool = False) -> list[np.ndarray]:
                 raise ValueError(f"{paths[i]}: {len(body)} bytes of "
                                  f"scanlines, expected {h * stride}")
             raw[k] = np.frombuffer(body, np.uint8).reshape(h, stride)
-        pixels = _unfilter(raw, ch).reshape(len(idx), h, w, ch)
+        if unfilter == "native":
+            pixels = np.empty((len(idx), h, w, 3 if bgr else ch), np.uint8)
+            png_native.unfilter(raw, ch, pixels if bgr else pixels.reshape(
+                len(idx), h, w * ch), bgr)
+        else:
+            pixels = _unfilter(raw, ch).reshape(len(idx), h, w, ch)
+            if bgr:
+                pixels = pixels[..., _BGR[ch]]
         for k, i in enumerate(idx):
             images[i] = pixels[k]
     return images
 
 
-def read_png_bgr(paths: list[str]) -> list[np.ndarray]:
+def decode_pngs(paths: list[str], grey: bool = False,
+                unfilter: str = "plain") -> list[np.ndarray]:
+    """Decode 8-bit RGB or RGBA PNGs (non-interlaced), and with ``grey``
+    8-bit greyscale ones, to [h, w, channels] uint8 arrays, in ``paths``
+    order, their rows unfiltered by ``unfilter`` (``"plain"`` or
+    ``"native"``). Files of one shape are unfiltered together. The files
+    are read and inflated one after another: for files of a few kilobytes,
+    threads contend for the interpreter lock and read slower."""
+    return _decode(paths, grey, unfilter, bgr=False)
+
+
+def read_png_bgr(paths: list[str], unfilter: str = "plain"
+                 ) -> list[np.ndarray]:
     """``cv2.imread(path, IMREAD_COLOR)`` of 8-bit greyscale, RGB or RGBA
-    PNGs: BGR uint8 [h, w, 3] arrays, grey replicated, alpha dropped."""
-    out = []
-    for img in decode_pngs(paths, grey=True):
-        if img.shape[-1] == 1:
-            out.append(np.repeat(img, 3, axis=-1))
-        else:
-            out.append(np.ascontiguousarray(img[..., 2::-1]))
-    return out
+    PNGs: BGR uint8 [h, w, 3] arrays, grey replicated, alpha dropped; the
+    rows unfiltered by ``unfilter`` (``"plain"`` or ``"native"``)."""
+    return _decode(paths, True, unfilter, bgr=True)
 
 
 def _bicubic(x: np.ndarray) -> np.ndarray:
@@ -340,18 +377,22 @@ def resize_bicubic(images: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def load_png_dataset(split_dir: str, image_size: int = 64,
-                     device: str | torch.device = "cuda"
+                     device: str | torch.device = "cuda",
+                     unfilter: str | None = None
                      ) -> tuple[torch.Tensor, np.ndarray]:
     """Load one ``{train,test}`` directory of reference-format PNGs: each
     file resized to ``image_size`` as Pillow resizes it, RGB kept, then
-    ``(x - 127.5) / 127.5``; labels parsed from the file names. Returns
-    (x [n, H, W, 3] float32 in [-1, 1] on ``device``, labels [n, k]
-    float64)."""
+    ``(x - 127.5) / 127.5``; labels parsed from the file names. The rows
+    are unfiltered by ``unfilter``, by default :func:`unfilter_for` the
+    device. Returns (x [n, H, W, 3] float32 in [-1, 1] on ``device``,
+    labels [n, k] float64)."""
     device = resolve_device(device)
+    unfilter = unfilter or unfilter_for(device)
     names = sorted(f for f in os.listdir(split_dir) if f.endswith("png"))
     if not names:
         raise FileNotFoundError(f"no .png files in {split_dir}")
-    decoded = decode_pngs([os.path.join(split_dir, f) for f in names])
+    decoded = decode_pngs([os.path.join(split_dir, f) for f in names],
+                          unfilter=unfilter)
     groups: dict[tuple, list[int]] = {}
     for i, img in enumerate(decoded):
         groups.setdefault(img.shape, []).append(i)

@@ -71,9 +71,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     ``render_reference`` and its bound; ``cli.generate_data`` at its
     defaults and a cut DR export, the files against ``render_reference``;
     ``load_png_dataset`` of the export, the decoder on its files and on
-    the same pixels filtered as Pillow filters them (pixels equal), the
-    load of both trees; ``cli.main --data_dir``, ``cli.metric`` and
-    ``cli.inference`` on that checkpoint, ``cli.dr_main --data_dir``;
+    the same pixels filtered as Pillow filters them, each tree through
+    the plain PNG unfilter and the native one (``csrc/png_unfilter.cpp``,
+    host C++; pixels equal, files a second of each), the load of both
+    trees on the card (native: every file counted); ``cli.main
+    --data_dir``, ``cli.metric`` and ``cli.inference`` on that
+    checkpoint, ``cli.dr_main --data_dir``;
 16. the tabular family at its full synthetic sizes through
     ``cli.tabular_main``, ``cli.tabular_inference`` and
     ``cli.dag_discovery``, the loss and served answers on the card against
@@ -102,9 +105,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     replays); the full-width loss on the card against the CPU
     (TF32 off for matmuls and cuDNN); ``LoadedModel`` encode, reconstruct
     and counterfactual at batch 1 and 16 against the CPU; host ms a step,
-    f32 and bf16 interleaved, the device's busy share over 10 profiled
+    f32 and bf16 interleaved, the device's busy share over 5 profiled
     steps (no host wait or copy), kernels a step and the host's time by
-    op over the same 10 steps, achieved TFLOP/s from the FLOP count
+    op over the same 5 steps, achieved TFLOP/s from the FLOP count
     (held to torch's ``FlopCounterMode`` within 1%) against the float32
     and bfloat16 peaks, and the peak memory. It renders nothing: 0
     launches;
@@ -137,12 +140,17 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     output), every scan through the native JPEG entropy decoder
     (``csrc/jpeg_huffman.cpp``, host C++: built, held against the plain
     decoder's coefficients on every fixture JPEG, the 1024 px face's
-    decode timed both ways), and files a second at 1024 -> 128 px over
-    copies of the 1024 px face, enough for 12 s of work at the pace of a
-    first run of 80 (host threads' ms a file of JPEG and PNG decoding,
-    the device's wait, reconstruction, resize and copy ms, the 30,000-file
-    estimate). Neither path renders: 0 launches each; the decoder's
-    numbers go on a ``{"host_decoder": ...}`` line before the card's;
+    decode timed both ways) and every mask file through the native PNG
+    unfilter (``csrc/png_unfilter.cpp``, host C++: held against the plain
+    one on every fixture mask, the face's 9 masks and a grey mask with
+    rows of every filter 0-4 timed both ways), and files a second at 1024
+    -> 128 px over copies of the 1024 px face, enough for 15 s of work at
+    the pace of a first run of 80 (host threads' ms a file of JPEG and PNG
+    decoding, the device's wait against its own reconstruction, resize
+    and copy ms, the 30,000-file estimate). Neither path renders: 0
+    launches each; the decoder's numbers go on a ``{"host_decoder":
+    ...}`` line and the unfilter's (with phase 15's) on a
+    ``{"host_png_unfilter": ...}`` line before the card's;
 21. the library options that no CLI sets, at full width: 10 bf16 steps
     (``compute_dtype``) against 10 float32 steps from one init (losses
     finite and falling, params and Adam state float32); one bf16 step on
@@ -300,6 +308,8 @@ EVAL_REPEATS, ROBUSTNESS_EPOCHS = 3, 100
 # phase 15: cli.generate_data's defaults (10,000 samples at 96 px, chunks
 # of 2,048), the DR export cut to 2,000
 EXPORT_N, EXPORT_PX, EXPORT_CHUNK, EXPORT_DR_N = 10000, 96, 2048, 2000
+# the export's files that phase 15 decodes with each PNG unfilter in turn
+PNG_DECODE_N = 2500
 # phase 16: tabular_main's defaults; steps an epoch at the full synthetic
 # sizes (train rows 4,000, 40,000 and 10,000)
 TAB_BATCH, TAB_BETA, TAB_LAM, TAB_LR = 256, 0.01, 10.0, 0.01
@@ -313,6 +323,9 @@ TVAE_STEPS = {"loan": 15, "adult": 15, "covtype": 39}
 # 64 synthetic faces, 4 steps an epoch
 CELEBA_BATCH, CELEBA_BETA, CELEBA_LAM, CELEBA_LR = 16, 0.1, 5.0, 1e-3
 CELEBA_STEPS = 4
+# steps in each of phase 18's profiled windows: a window of a CelebA step's
+# 6,000 kernels takes seconds a step to record and tabulate
+CELEBA_PROFILED = 5
 # phase 26: the pretraining's first step on the card against the CPU, TF32
 # off: the same float32 math summed in other orders
 PRETRAIN_TOL = 1e-4
@@ -517,11 +530,10 @@ def render_bound_ms(n: int, size: int, background: bool) -> tuple[float, str]:
 PILLOW_FILTERS = (0, 2, 1, 4)  # None, Up, Sub, Paeth (no Average)
 
 
-def pillow_scanlines(pixels: np.ndarray) -> np.ndarray:
-    """uint8 [n, h, w, c] -> PNG scanlines [n, h, 1 + w*c] uint8, each row
-    filtered as Pillow's encoder filters it (``PILLOW_FILTERS``), its filter
-    byte first: the files of a tree saved with Pillow, as users of the
-    reference hold them."""
+def filtered_rows(pixels: np.ndarray) -> np.ndarray:
+    """uint8 [n, h, w, c] -> every row filtered by each PNG filter type,
+    None, Sub, Up, Average and Paeth: [5, n, h, w*c] uint8, the PNG spec's
+    arithmetic written out on whole arrays."""
     n, h, w, c = pixels.shape
     x = pixels.reshape(n, h, w * c).astype(np.int16)
     up = np.zeros_like(x)
@@ -534,16 +546,41 @@ def pillow_scanlines(pixels: np.ndarray) -> np.ndarray:
     pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
     paeth = np.where((pa <= pb) & (pa <= pc), left,
                      np.where(pb <= pc, up, up_left))
-    rows = np.stack([x, x - up, x - left, x - paeth]) & 0xFF
-    best = np.minimum(rows, 256 - rows).sum(axis=-1).argmin(axis=0)
-    kinds = np.array(PILLOW_FILTERS, np.uint8)[best]
-    chosen = np.take_along_axis(rows, best[None, ..., None], axis=0)[0]
-    return np.concatenate([kinds[..., None], chosen.astype(np.uint8)],
+    return (np.stack([x, x - left, x - up, x - ((left + up) >> 1),
+                      x - paeth]) & 0xFF).astype(np.uint8)
+
+
+def scanlines_of(rows: np.ndarray, kinds: np.ndarray) -> np.ndarray:
+    """PNG scanlines [n, h, 1 + w*c] uint8 of ``filtered_rows``' [5, n, h,
+    w*c], row (i, r) filtered by ``kinds[i, r]``, its filter byte first."""
+    chosen = np.take_along_axis(rows, kinds[None, ..., None].astype(np.int64),
+                                axis=0)[0]
+    return np.concatenate([kinds[..., None].astype(np.uint8), chosen],
                           axis=-1)
 
 
-def write_scanlines(path: Path, scanlines: np.ndarray) -> None:
-    """An 8-bit RGB PNG of filtered scanlines [h, 1 + w*3] uint8."""
+def pillow_scanlines(pixels: np.ndarray) -> np.ndarray:
+    """uint8 [n, h, w, c] -> PNG scanlines [n, h, 1 + w*c] uint8, each row
+    filtered as Pillow's encoder filters it (``PILLOW_FILTERS``), its filter
+    byte first: the files of a tree saved with Pillow, as users of the
+    reference hold them."""
+    rows = filtered_rows(pixels)
+    tried = rows[list(PILLOW_FILTERS)].astype(np.int16)
+    best = np.minimum(tried, 256 - tried).sum(axis=-1).argmin(axis=0)
+    return scanlines_of(rows, np.array(PILLOW_FILTERS, np.uint8)[best])
+
+
+def every_filter_scanlines(pixels: np.ndarray) -> np.ndarray:
+    """uint8 [n, h, w, c] -> PNG scanlines [n, h, 1 + w*c] uint8, row r
+    filtered by filter type r mod 5: every type, Average among them."""
+    n, h = pixels.shape[:2]
+    kinds = np.broadcast_to(np.arange(h) % 5, (n, h))
+    return scanlines_of(filtered_rows(pixels), kinds)
+
+
+def write_scanlines(path: Path, scanlines: np.ndarray, bpp: int = 3) -> None:
+    """An 8-bit PNG of filtered scanlines [h, 1 + w*bpp] uint8: greyscale
+    for ``bpp`` 1, RGB for 3, RGBA for 4."""
     h, stride = scanlines.shape
 
     def chunk(kind: bytes, data: bytes) -> bytes:
@@ -552,8 +589,8 @@ def write_scanlines(path: Path, scanlines: np.ndarray) -> None:
 
     path.write_bytes(
         b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", (stride - 1) // 3, h, 8, 2,
-                                     0, 0, 0))
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", (stride - 1) // bpp, h, 8,
+                                     {1: 0, 3: 2, 4: 6}[bpp], 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6))
         + chunk(b"IEND", b""))
 
@@ -938,15 +975,18 @@ def host_s(fn, rounds: int = 3) -> float:
 
 
 def decode_and_load_pillow_tree(*, work: Path, card: str, dev, paths: list,
-                                x_want: torch.Tensor) -> None:
+                                x_want: torch.Tensor) -> dict:
     """The PNG decoder on the export's ``write_png`` files (filter 0 on
     every row) and on the same pixels re-encoded as Pillow filters them
-    (Sub, Up and Paeth rows, which the decoder walks pixel by pixel), the
-    two trees interleaved; the row loop alone on each tree's scanlines
-    beside one copy of the filter-0 scanlines; then ``load_png_dataset`` of
-    each tree again, whose images must equal ``x_want``, the ``write_png``
-    tree's first load."""
-    from cdgvae_torch.data import png_io
+    (Sub, Up and Paeth rows), each tree with the plain unfilter (a numpy
+    pass a row; Paeth walked pixel by pixel) and the native one, the four
+    interleaved; each unfilter alone on each tree's scanlines beside one
+    copy of the filter-0 scanlines, on the first ``PNG_DECODE_N`` files;
+    then ``load_png_dataset`` of each whole tree again on the card (the
+    native unfilter), whose images must equal ``x_want``, the
+    ``write_png`` tree's first load. Returns the files a second of each
+    decode and load."""
+    from cdgvae_torch.data import png_io, png_native
 
     pixels = png_io.decode_pngs([str(p) for p in paths])
     pil = work / "png_pillow" / "train"
@@ -960,38 +1000,51 @@ def decode_and_load_pillow_tree(*, work: Path, card: str, dev, paths: list,
                           [pil / p.name for p in paths[i:i + 500]], scan))
     trees = {"write_png": [str(p) for p in paths],
              "Pillow": [str(pil / p.name) for p in paths]}
-    decode = {name: [] for name in trees}
+    runs = [(name, unfilter) for name in trees for unfilter in
+            ("plain", "native")]
+    decode = {run: [] for run in runs}
+    n = min(PNG_DECODE_N, len(paths))
     for _ in range(2):
-        for name, files in trees.items():
+        for name, unfilter in runs:
             t0 = time.perf_counter()
-            got = png_io.decode_pngs(files)
-            decode[name].append(time.perf_counter() - t0)
+            got = png_io.decode_pngs(trees[name][:n], unfilter=unfilter)
+            decode[name, unfilter].append(time.perf_counter() - t0)
             check(all(np.array_equal(a, b) for a, b in zip(got, pixels)),
-                  f"the {name} tree decodes to other pixels")
+                  f"the {name} tree decodes to other pixels through the "
+                  f"{unfilter} unfilter")
             del got
     rows = dict(zip(("None", "Sub", "Up", "Average", "Paeth"),
                     kinds.tolist()))
-    n = len(paths)
+    rates = {f"decode {name} {unfilter} files_per_s": n / min(decode[
+        name, unfilter]) for name, unfilter in runs}
     print(f"decode_pngs of {n} files at {EXPORT_PX} px (host clock, 2 "
-          f"rounds interleaved): write_png's (filter 0) "
-          f"{', '.join(f'{s:.3f}' for s in decode['write_png'])} s = "
-          f"{n / min(decode['write_png']):.0f} files/s; Pillow's filters "
-          f"(rows {rows}) {', '.join(f'{s:.3f}' for s in decode['Pillow'])}"
-          f" s = {n / min(decode['Pillow']):.0f} files/s; pixels equal "
-          f"[{card}]")
+          f"rounds interleaved; Pillow's rows in the {len(paths)} files "
+          f"{rows}): " + "; ".join(
+              f"{name} {unfilter} "
+              f"{', '.join(f'{s:.3f}' for s in decode[name, unfilter])} s = "
+              f"{n / min(decode[name, unfilter]):.0f} files/s"
+              for name, unfilter in runs) + f"; pixels equal [{card}]")
     scan = {name: np.stack([np.frombuffer(png_io._read_png(f)[1], np.uint8)
-                            .reshape(EXPORT_PX, -1) for f in files])
+                            .reshape(EXPORT_PX, -1) for f in files[:n]])
             for name, files in trees.items()}
-    loop0 = host_s(lambda: png_io._unfilter(scan["write_png"], 3))
+    alone = {}
+    for name, lines in scan.items():
+        out = np.empty((n, EXPORT_PX, EXPORT_PX * 3), np.uint8)
+        alone[name] = (host_s(lambda: png_io._unfilter(lines, 3)),
+                       host_s(lambda: png_native.unfilter(lines, 3, out)))
+        check(np.array_equal(out, png_io._unfilter(lines, 3)),
+              f"the {name} scanlines unfilter natively to other bytes")
     copy0 = host_s(lambda: scan["write_png"][:, :, 1:].copy())
-    loop_pil = host_s(lambda: png_io._unfilter(scan["Pillow"], 3))
-    print(f"unfilter alone, {n} files (host clock, median of 3): filter-0 "
-          f"rows through the row loop {loop0 * 1e3:.1f} ms, one copy of "
-          f"them {copy0 * 1e3:.1f} ms; Pillow's rows {loop_pil * 1e3:.1f} "
-          f"ms [{card}]")
+    print(f"unfilter alone, {n} files (host clock, median of 3): "
+          + "; ".join(f"{name}'s rows plain {a[0] * 1e3:.1f} ms, native "
+                      f"{a[1] * 1e3:.1f} ms" for name, a in alone.items())
+          + f"; one copy of the filter-0 rows {copy0 * 1e3:.1f} ms; bytes "
+          f"equal [{card}]")
     del scan, pixels
+    n = len(paths)
     load = {}
     for name, files in trees.items():
+        before = png_native.files
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, _ = png_io.load_png_dataset(str(Path(files[0]).parent), 64,
@@ -1000,16 +1053,21 @@ def decode_and_load_pillow_tree(*, work: Path, card: str, dev, paths: list,
         load[name] = time.perf_counter() - t0
         check(torch.equal(x, x_want), f"the {name} tree loads to other "
               "images than its first load")
+        check(png_native.files - before == n, f"the {name} tree's load "
+              f"unfiltered {png_native.files - before} of {n} files "
+              "natively")
+        rates[f"load {name} files_per_s"] = n / load[name]
         del x
     print(f"load_png_dataset again ({n} files, {EXPORT_PX} -> 64 px, host "
-          f"clock): write_png's tree {load['write_png']:.3f} s = "
-          f"{n / load['write_png']:.0f} files/s; the Pillow-filtered tree "
-          f"{load['Pillow']:.3f} s = {n / load['Pillow']:.0f} files/s; "
-          f"images equal [{card}]")
+          f"clock, every file through the native unfilter): write_png's "
+          f"tree {load['write_png']:.3f} s = {n / load['write_png']:.0f} "
+          f"files/s; the Pillow-filtered tree {load['Pillow']:.3f} s = "
+          f"{n / load['Pillow']:.0f} files/s; images equal [{card}]")
+    return rates
 
 
 def png_trees(*, work: Path, card: str, dev, path_launches: dict,
-              clf_ckpt: Path, check_render, finite_falling) -> float:
+              clf_ckpt: Path, check_render, finite_falling) -> tuple:
     """Phase 15: the render kernel at the export's 96 px, ``cli.
     generate_data`` at its defaults (real) and at a cut ``--n`` (DR), the
     files held against ``render_reference``, then the CLIs on the trees:
@@ -1017,15 +1075,16 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
     ``cli.inference`` reading the tree from that checkpoint's config, and
     ``cli.dr_main --data_dir``. Adds the export's render launches to
     ``path_launches["png export"]``; returns the largest max |d| of its
-    render checks."""
+    render checks and the PNG decoder's files a second."""
     from cdgvae_torch.data.pendulum import sample_factors_real
     from cdgvae_torch.data.pendulum_dr import sample_factors_dr
     from cdgvae_torch.data.png_io import (decode_pngs, load_png_dataset,
-                                         sample_filename)
+                                         sample_filename, unfilter_for)
     from cdgvae_torch.ops import renderer_cuda
     from cdgvae_torch.ops.renderer import render_reference
     from cdgvae_torch.utils.checkpoint import load_checkpoint
 
+    t_phase = time.perf_counter()
     # the kernel at 96 px on a chunk of the export, with and without the
     # DR background bit, into one buffer as the export renders
     factors, is_test = sample_factors_real(1, EXPORT_N)
@@ -1097,7 +1156,13 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
     check(level <= 1.0, "the exported files disagree with render_reference")
 
     # the load alone (decode on the host, resize on the card), then the
-    # CLIs on the trees; nothing renders on these paths
+    # CLIs on the trees; nothing renders on these paths. The native
+    # unfilter is built (the card path's choice) before the load is timed
+    t0 = time.perf_counter()
+    check(unfilter_for(dev) == "native", "the card path does not pick the "
+          "native PNG unfilter")
+    print(f"build png_unfilter.cpp (host C++) and load: "
+          f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     x, y = load_png_dataset(str(real / "train"), 64, device=dev)
@@ -1108,9 +1173,9 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
     print(f"load_png_dataset({got['train']} files, {EXPORT_PX} -> 64 px): "
           f"{load_s:.3f} s = {got['train'] / load_s:.0f} files/s (host "
           f"clock) [{card}]")
-    decode_and_load_pillow_tree(work=work, card=card, dev=dev,
-                                paths=sorted((real / "train").iterdir()),
-                                x_want=x)
+    rates = decode_and_load_pillow_tree(
+        work=work, card=card, dev=dev,
+        paths=sorted((real / "train").iterdir()), x_want=x)
     del x, y
     tree_dir = work / "png_cli"
     ckpt = tree_dir / "model_CDGVAE_linear"
@@ -1148,7 +1213,9 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
           f"{metric_s:.3f} s (structural zeros exactly 0.0); inference "
           f"{inf_s:.3f} s; dr_main --data_dir 1 epoch {dr_main_s:.3f} s, loss "
           f"{dr_loss}; render launches 0 [{card}]")
-    return max_err
+    print(f"phase 15 (PNG trees): {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock) [{card}]")
+    return max_err, rates
 
 
 def tabular(*, work: Path, card: str, dev, rng, profiled_steps) -> None:
@@ -1635,6 +1702,7 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
     from cdgvae_torch.utils.checkpoint import load_checkpoint
     from cdgvae_torch.utils.profiling import newest_trace, rank_ops
 
+    t_phase = time.perf_counter()
     config = vars(get_args([]))  # the defaults
     check(config["img_size"] == 128 and config["conv_dim"] == 32
           and config["batch_size"] == CELEBA_BATCH,
@@ -1741,6 +1809,8 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
     print("celeba_main --profile: top CUDA kernels of the trace (total "
           "ms): " + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in ranked))
 
+    print(f"phase 18, through the CLI runs: "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
     # the full-width loss on the card against the CPU: same weights, batch
     # and draws (a CPU generator draws for both), TF32 off
     x_np, y_np = synthetic_celeba(64, config["img_size"], seed=config["seed"])
@@ -1777,6 +1847,8 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
     # backward's two products (input and weight gradients) elsewhere
     step_flops = flops["trunk"] + 3 * (flops["head"] + flops["decoder"])
 
+    print(f"phase 18, through the loss on the card and the CPU: "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
     # serving: the fixed run's checkpoint on the card against the CPU
     served = {"cuda": LoadedModel.load(str(ckpt), device=dev),
               "cpu": LoadedModel.load(str(ckpt), device="cpu")}
@@ -1799,9 +1871,12 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
                   f"(CUDA events), max |d| {err:.3e} against the CPU "
                   f"[{card}]")
     del served
+    print(f"phase 18, through serving on the card and the CPU: "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
 
     # host ms a step (f32 and bf16 in turn, epochs of 4 steps, 2 a round)
-    # and the device's busy share over a profiled window of 10 steps
+    # and the device's busy share over a profiled window of
+    # CELEBA_PROFILED steps
     x_all = torch.as_tensor(x_np, device=dev)
     y_all = torch.as_tensor(y_np, device=dev)
     steppers = {}
@@ -1832,24 +1907,29 @@ def celeba(*, work: Path, card: str, dev, profiled_steps) -> None:
         step, refresh = steppers[name]
         gen = torch.Generator(device=dev).manual_seed(77)
         order = torch.cat([epoch_batches(64, CELEBA_BATCH, gen)
-                           for _ in range(3)])[:10]
+                           for _ in range(3)])[:CELEBA_PROFILED]
         host_s = host[f"CelebA {name}"]
-        ten_steps = (lambda: [(step(x_all[i], y_all[i], generator=gen),
-                               refresh()) for i in order])
+        window = (lambda: [(step(x_all[i], y_all[i], generator=gen),
+                            refresh()) for i in order])
         kernels = profiled_steps(f"CelebA {name} step (and SN refresh)",
-                                 ten_steps, 10, host_s)
-        busy_s = sum(e.self_device_time_total for e in kernels) * 1e-6 / 10
-        # where the host's time goes: the same 10 steps, host ops only
+                                 window, CELEBA_PROFILED, host_s)
+        busy_s = sum(e.self_device_time_total for e in kernels) * 1e-6 / (
+            CELEBA_PROFILED)
+        # where the host's time goes: the same steps, host ops only
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            ten_steps()
+            window()
             torch.cuda.synchronize()
         ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-        host_ms = sum(e.self_cpu_time_total for e in ops) / 1e3 / 10
-        print(f"CelebA {name}: {sum(e.count for e in kernels) / 10:.0f} "
+        host_ms = sum(e.self_cpu_time_total for e in ops) / 1e3 / (
+            CELEBA_PROFILED)
+        print(f"CelebA {name}: "
+              f"{sum(e.count for e in kernels) / CELEBA_PROFILED:.0f} "
               f"kernels a step; host ops (profiled) {host_ms:.3f} ms a step, "
               f"top by self time (ms a step, calls a step): " + "; ".join(
-                  f"{e.key[:40]} {e.self_cpu_time_total / 1e4:.3f} "
-                  f"({e.count / 10:.0f})" for e in ops[:8]) + f" [{card}]")
+                  f"{e.key[:40]} "
+                  f"{e.self_cpu_time_total / 1e3 / CELEBA_PROFILED:.3f} "
+                  f"({e.count / CELEBA_PROFILED:.0f})" for e in ops[:8])
+              + f" [{card}]")
         peak_ops = PEAK_F32_OPS_PER_S if name == "f32" \
             else PEAK_BF16_OPS_PER_S
         print(f"CelebA {name}: {step_flops / 1e12:.4f} TFLOP a step "
@@ -2109,10 +2189,11 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
 
 
 def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
-                           path_launches: dict) -> dict:
+                           path_launches: dict) -> tuple:
     """Phase 20: the packed parameter layout at cli.celeba_main's defaults
     and CelebAMask-HQ preprocessing on the card (see the module
-    docstring). Returns the native entropy decoder's numbers."""
+    docstring). Returns the native entropy decoder's and PNG unfilter's
+    numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     from cdgvae_torch.cli.celeba_main import get_args
@@ -2250,21 +2331,98 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
     check(path_launches["packing"] == 0, "the packed CelebA path launched "
           f"the render kernel {path_launches['packing']} times")
 
-    decoder = preprocessing(root=root, work=work, card=card, dev=dev,
-                            path_launches=path_launches)
+    decoders = preprocessing(root=root, work=work, card=card, dev=dev,
+                             path_launches=path_launches)
     print(f"phase 20 (packing, preprocessing): {time.perf_counter() - t0:.1f}"
           f" s (host clock); launches {{'render': 0}} on both [{card}]")
-    return decoder
+    return decoders
+
+
+def mask_unfilter(*, corpus: Path, work: Path, card: str, dev) -> dict:
+    """Phase 20's native PNG unfilter on this host: built, held against
+    the plain one on every fixture mask (pixels equal), the 1024 px face's
+    9 masks timed both ways on one thread, and one grey mask re-encoded
+    with row r filtered by type r mod 5 (Average among them) timed both
+    ways. Returns its numbers."""
+    from cdgvae_torch.data.png_io import (_read_png, read_png_bgr,
+                                         unfilter_for)
+
+    t_lib = time.perf_counter()
+    check(unfilter_for(dev) == "native", "the card path does not pick the "
+          "native PNG unfilter")
+    lib_s = time.perf_counter() - t_lib
+    masks = sorted(str(p) for p in (corpus / "CelebAMask-HQ-mask-anno"
+                                    ).rglob("*.png"))
+    check(all(np.array_equal(a, b) for a, b in zip(
+        read_png_bgr(masks, "native"), read_png_bgr(masks, "plain"))),
+        "the native PNG unfilter reads the fixture masks to other pixels")
+    face = sorted(str(p) for p in (corpus / "CelebAMask-HQ-mask-anno" / "0"
+                                   ).glob("00000_*.png"))
+    native_ms = min(host_s(lambda: read_png_bgr(face, "native"), 1)
+                    for _ in range(20)) * 1e3
+    plain_ms = min(host_s(lambda: read_png_bgr(face, "plain"), 1)
+                   for _ in range(3)) * 1e3
+    print(f"build png_unfilter.cpp (host C++) and load: {lib_s:.2f} s; "
+          f"native PNG unfiltering equal to plain on {len(masks)} fixture "
+          f"masks (pixels, cv2.imread's BGR)")
+    print(f"the 1024 px face's {len(face)} part masks (512 px; read_png_bgr:"
+          f" read, inflate, unfilter, BGR), one thread: native "
+          f"{native_ms:.3f} ms a face (min of 20), plain {plain_ms:.3f} ms "
+          f"(min of 3): {plain_ms / native_ms:.1f}x [{card}]")
+
+    # a grey mask with every filter: the first price of Average on the card
+    grey = next(p for p in masks if _read_png(p, grey=True)[0] == (512, 512,
+                                                                   1))
+    pixels = read_png_bgr([grey])[0][None, ..., :1]
+    every = work / "every_filter.png"
+    write_scanlines(every, every_filter_scanlines(pixels)[0], bpp=1)
+    got = read_png_bgr([str(every)], "native")[0]
+    check(np.array_equal(got, read_png_bgr([str(every)], "plain")[0])
+          and np.array_equal(got[..., :1], pixels[0]),
+          "the every-filter mask unfilters natively to other bytes")
+    every_ms = min(host_s(lambda: read_png_bgr([str(every)], "native"), 1)
+                   for _ in range(20)) * 1e3
+    every_plain_ms = min(host_s(lambda: read_png_bgr([str(every)], "plain"),
+                                1) for _ in range(2)) * 1e3
+    print(f"{Path(grey).name} re-encoded with rows of filters 0-4 in turn "
+          f"({every.stat().st_size:,} bytes), read_png_bgr on one thread: "
+          f"native {every_ms:.3f} ms (min of 20), plain {every_plain_ms:.3f}"
+          f" ms (min of 2): {every_plain_ms / every_ms:.1f}x; bytes equal "
+          f"[{card}]")
+    return {"name": "png_unfilter", "route": "host C++",
+            "source": "cdgvae_torch/csrc/png_unfilter.cpp",
+            "replaces": "cv2.imread's and Pillow's PNG unfiltering in the "
+                        "JAX package's CelebA preprocessing and PNG trees "
+                        "(no TPU kernel)",
+            "mask_ms_a_face": native_ms, "plain_mask_ms_a_face": plain_ms,
+            "filters_0_4_ms": every_ms,
+            "plain_filters_0_4_ms": every_plain_ms}
+
+
+def expected_mask_files(corpus: Path, structure: str, train: bool) -> int:
+    """The part-mask files that preprocessing the split of ``corpus`` reads
+    once each: every existing file of the structure's groups."""
+    from cdgvae_torch.data.celeba import (ATTRACTIVE_SEG_MAP, SMILE_SEG_MAP,
+                                          _split)
+
+    seg_map = SMILE_SEG_MAP if structure == "smile" else ATTRACTIVE_SEG_MAP
+    files = set()
+    for name in _split(str(corpus), train):
+        idx = int(name.split(".")[0])
+        d = corpus / "CelebAMask-HQ-mask-anno" / str(idx // 2000)
+        files |= {d / f"{idx:05d}_{a}.png" for parts in seg_map
+                  for a in parts}
+    return sum(f.exists() for f in files)
 
 
 def preprocessing(*, root: Path, work: Path, card: str, dev,
-                  path_launches: dict) -> dict:
-    """Phase 20's CelebAMask-HQ preprocessing on the card and its native
-    JPEG entropy decoder (see the module docstring). Returns the
-    decoder's numbers."""
+                  path_launches: dict) -> tuple:
+    """Phase 20's CelebAMask-HQ preprocessing on the card, its native JPEG
+    entropy decoder and its native PNG unfilter (see the module
+    docstring). Returns the decoder's and the unfilter's numbers."""
     import hashlib
 
-    from cdgvae_torch.data import jpeg_native
+    from cdgvae_torch.data import jpeg_native, png_native
     from cdgvae_torch.data.jpeg import entropy_for, read_jpeg
     from cdgvae_torch.ops import renderer_cuda
 
@@ -2303,10 +2461,12 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           f"read_jpeg: markers and Huffman codes): native, one thread, "
           f"{native_ms:.3f} ms (min of 20), plain {plain_ms:.1f} ms (min of "
           f"2): {plain_ms / native_ms:.1f}x [{card}]")
+    png = mask_unfilter(corpus=corpus, work=work, card=card, dev=dev)
 
     # preprocessing of the fixture corpus: the module entry point in its
     # own process once, then in this one; every file's hash against the
     # JAX package's (expected.json), every scan through the native decoder
+    # and every mask file through the native unfilter
     want = json.loads((fixtures / "expected.json").read_text())
     pre = work / "preprocess"
     renderer_cuda.launches = 0
@@ -2317,14 +2477,15 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
          "--out_dir", str(pre / "128" / "smile")], cwd=root,
         capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0 and "preprocessed" in proc.stdout
-          and "JPEG entropy decoding: native" in proc.stdout,
+          and "JPEG entropy decoding: native" in proc.stdout
+          and "PNG unfilter: native" in proc.stdout,
           f"python -m cdgvae_torch.cli.celeba_preprocess: {proc.returncode} "
           f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
     print(f"python -m cdgvae_torch.cli.celeba_preprocess (its own "
           f"process, on the card): {proc.stdout.strip()} "
           f"({time.perf_counter() - t_pre:.1f} s with the start) [{card}]")
-    jpeg_native.scans = 0
-    files = 0
+    jpeg_native.scans = png_native.files = 0
+    files = masks = 0
     for size in (128, 64):
         for structure in ("smile", "attractive"):
             for split in ([], ["--test"]):
@@ -2335,12 +2496,17 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
                      "--causal_structure", structure, "--out_dir",
                      str(pre / str(size) / structure), *split],
                     "celeba_preprocess")
-                check(s["entropy"] == "native", "preprocess on the card "
-                      f"decoded with the {s['entropy']} entropy decoder")
+                check(s["entropy"] == "native" and s["unfilter"] == "native",
+                      f"preprocess on the card decoded with the "
+                      f"{s['entropy']} entropy decoder and the "
+                      f"{s['unfilter']} unfilter")
                 files += s["files"]
+                masks += expected_mask_files(corpus, structure, not split)
     # each fixture JPEG has one scan
     check(jpeg_native.scans == files, f"{files} files preprocessed, "
           f"{jpeg_native.scans} scans through the native decoder")
+    check(png_native.files == masks, f"{masks} mask files read, "
+          f"{png_native.files} through the native unfilter")
     got = {f"{p.relative_to(pre)}": hashlib.sha256(p.read_bytes()
                                                    ).hexdigest()
            for p in sorted(pre.rglob("*.npy"))}
@@ -2348,13 +2514,15 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
     print(f"preprocess on the card: {len(got)} .npy files, {same} of "
           f"{len(want)} equal to expected.json (the JAX package's); "
           f"{jpeg_native.scans} scans entropy-decoded natively in this "
-          f"process, one a file")
+          f"process, one a file; {png_native.files} mask files unfiltered "
+          f"natively, each part file once")
     check(got == want, "preprocess on the card differs from expected.json: "
           f"{sorted(k for k in want if got.get(k) != want[k])[:6]}")
 
     # files a second at 1024 -> 128 px: copies of the 1024 px face and its
     # masks; a run over 80 copies (64 in the train split, index mod 5 != 4)
-    # warms and sets the pace, then enough copies for 12 s of work
+    # warms and sets the pace, then enough copies for 15 s of work (the
+    # run must do 10 s of work: the first run's pace can be the slower)
     big = work / "preprocess_1024"
     (big / "CelebA-HQ-img").mkdir(parents=True)
     masks = big / "CelebAMask-HQ-mask-anno" / "0"
@@ -2377,18 +2545,22 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
             "\n".join([str(n), lines[1], *rows]) + "\n")
 
     def run_1024():
-        jpeg_native.scans = 0
+        jpeg_native.scans = png_native.files = 0
         _, s, wall = run_cli(["--base_dir", str(big), "--out_dir",
                               str(work / "preprocess_1024_out")],
                              "celeba_preprocess")
-        check(s["entropy"] == "native" and jpeg_native.scans == s["files"],
+        check(s["entropy"] == "native" and jpeg_native.scans == s["files"]
+              and s["unfilter"] == "native"
+              and png_native.files == len(parts) * s["files"],
               f"the 1024 px run: {s['entropy']} entropy decoding, "
-              f"{jpeg_native.scans} native scans for {s['files']} files")
+              f"{jpeg_native.scans} native scans for {s['files']} files; "
+              f"the {s['unfilter']} unfilter, {png_native.files} native "
+              f"mask files")
         return s, wall
 
     copies(80)
     s, _ = run_1024()
-    n_train = math.ceil(12.0 / (s["wall"] / s["files"]))
+    n_train = math.ceil(15.0 / (s["wall"] / s["files"]))
     copies(n_train + -(-n_train // 4))
     s, wall = run_1024()
     n = s["files"]
@@ -2399,7 +2571,8 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           f"{s['wall']:.3f} s ({wall:.3f} s with the CLI's set-up); host "
           f"threads ({s['threads']}): JPEG reading and entropy decoding "
           f"{s['jpeg'] / n * 1e3:.2f} ms a file, PNG masks "
-          f"{s['png'] / n * 1e3:.2f} ms a file (thread time), the device "
+          f"{s['png'] / n * 1e3:.2f} ms a file (thread time, native "
+          f"unfilter, a task a face), the device "
           f"waited for them {s['wait'] / n * 1e3:.2f} ms a file; device: "
           f"reconstruction (IDCT, upsampling, colour) "
           f"{s['reconstruct'] / n * 1e3:.2f} ms, resizes "
@@ -2407,19 +2580,29 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           f"{s['copy'] / n * 1e3:.2f} ms a file; writes "
           f"{s['write'] / n * 1e3:.2f} ms a file; 30,000 files would take "
           f"{30000 / rate / 60:.1f} min [{card}]")
+    own = s["reconstruct"] + s["resize"] + s["copy"]
+    print(f"preprocess at 1024 -> 128 px: the device waited for the host "
+          f"{s['wait'] / n * 1e3:.2f} ms a file against its own "
+          f"reconstruction, resizes and copy {own / n * 1e3:.2f} ms a file "
+          f"and the writes' {s['write'] / n * 1e3:.2f} ms [{card}]")
     check(s["wall"] >= 10.0, f"the 1024 px run did only {s['wall']:.1f} s "
           "of work")
     torch.cuda.synchronize()
     path_launches["preprocess"] = renderer_cuda.launches
     check(path_launches["preprocess"] == 0, "preprocessing launched the "
           f"render kernel {path_launches['preprocess']} times")
+    png.update({"files": png_native.files,
+                "png_thread_ms_a_face": s["png"] / n * 1e3,
+                "wait_ms_a_file": s["wait"] / n * 1e3,
+                "device_ms_a_file": own / n * 1e3,
+                "write_ms_a_file": s["write"] / n * 1e3})
     return {"name": "jpeg_huffman", "route": "host C++",
             "source": "cdgvae_torch/csrc/jpeg_huffman.cpp",
             "replaces": "cv2.imread's entropy decoding in the JAX "
                         "package's CelebA preprocessing (no TPU kernel)",
             "scans": jpeg_native.scans, "ms": native_ms,
             "plain_ms": plain_ms, "files_per_s": rate,
-            "minutes_for_30000": 30000 / rate / 60}
+            "minutes_for_30000": 30000 / rate / 60}, png
 
 
 def library_options(*, card: str, dev, dataset, path_launches: dict,
@@ -4034,10 +4217,11 @@ def main() -> int:
         profiled_steps=profiled_steps))
 
     # 15. PNG trees
-    max_err = max(max_err, png_trees(
+    png_err, png_tree_rates = png_trees(
         work=work, card=card, dev=dev, path_launches=path_launches,
         clf_ckpt=clf_ckpt, check_render=check_render,
-        finite_falling=finite_falling))
+        finite_falling=finite_falling)
+    max_err = max(max_err, png_err)
 
     # 16. the tabular family
     tabular(work=work, card=card, dev=dev, rng=rng,
@@ -4070,8 +4254,9 @@ def main() -> int:
 
     # 20. the packed layout and CelebAMask-HQ preprocessing, which render
     # nothing
-    decoder = packing_and_preprocess(root=root, work=work, card=card,
-                                     dev=dev, path_launches=path_launches)
+    decoder, png = packing_and_preprocess(root=root, work=work, card=card,
+                                          dev=dev,
+                                          path_launches=path_launches)
 
     # 21. the library options (bf16 steps, uint8 storage) and the CDM study
     # cut
@@ -4105,6 +4290,7 @@ def main() -> int:
     launches = sum(path_launches.values())
     print(f"render launches by path: {path_launches}, total {launches}")
     print(json.dumps({"host_decoder": decoder}))
+    print(json.dumps({"host_png_unfilter": {**png, **png_tree_rates}}))
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda",

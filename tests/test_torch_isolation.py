@@ -78,6 +78,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.train.celeba_steps",
                  "cdgvae_torch.cli.celeba_main",
                  "cdgvae_torch.ops.packing", "cdgvae_torch.data.jpeg",
+                 "cdgvae_torch.data.png_native",
                  "cdgvae_torch.data.cv_resize",
                  "cdgvae_torch.cli.celeba_preprocess",
                  "cdgvae_torch.models.torchvision_resnet",

@@ -4,9 +4,11 @@ raw corpus into per-sample [H, W, 3+5] npy files and labels
 (``data/celeba.py::preprocess``), decoding on the card unless ``--device
 cpu`` is given. On the card the JPEGs' entropy decoding and the mask
 PNGs' row unfilter are native code (``csrc/jpeg_huffman.cpp`` and
-``csrc/png_unfilter.cpp``, built at first use; a failed build exits with
-its error), on host threads beside the device work; on the CPU the plain
-ones.
+``csrc/png_unfilter.cpp``) on host threads beside the device work, and
+the pixel reconstruction and the resizes are CUDA kernels
+(``csrc/jpeg_reconstruct.cu`` and ``csrc/cv_resize.cu``), all built at
+first use (a failed build exits with its error); on the CPU the plain
+versions.
 
 Usage: python -m cdgvae_torch.cli.celeba_preprocess --base_dir
 ./CelebAMask-HQ --out_dir ./data [--causal_structure attractive]
@@ -46,9 +48,11 @@ def main(argv=None):
           f"(JPEG entropy decoding: {s['entropy']}; PNG unfilter: "
           f"{s['unfilter']}) {s['jpeg']:.3f} s of JPEGs, {s['png']:.3f} s "
           f"of PNG masks, waited for "
-          f"{s['wait']:.3f} s; device reconstruction "
-          f"{s['reconstruct']:.3f} s, resizes {s['resize']:.3f} s, copy to "
-          f"the host {s['copy']:.3f} s; writes {s['write']:.3f} s")
+          f"{s['wait']:.3f} s; device work at most "
+          f"{s['device_calls']} operators and launches a chunk: "
+          f"reconstruction {s['reconstruct']:.3f} s, resizes "
+          f"{s['resize']:.3f} s, copy to the host {s['copy']:.3f} s; "
+          f"writes {s['write']:.3f} s")
     return s
 
 

@@ -8,8 +8,13 @@ celeba.py``).
   own JPEG and PNG decoders on host threads (``data/jpeg.py``, whose
   entropy decoder on the card is native code, ``data/jpeg_native.py``;
   ``data/png_io.py``, whose row unfilter on the card is native code,
-  ``data/png_native.py``), the IDCT, upsampling, colour conversion and
-  OpenCV's bilinear resize (``data/cv_resize.py``) on the device.
+  ``data/png_native.py``); then on the card a chunk's IDCT, upsampling
+  and colour conversion run in the two kernels of
+  ``csrc/jpeg_reconstruct.cu``, and OpenCV's bilinear resize of its images
+  and of its part-mask groups in those of ``csrc/cv_resize.cu``, from
+  buffers staged in a few copies (``data/staging.py``); on the CPU the
+  plain torch versions (``data/jpeg.py::reconstruct``, ``data/
+  cv_resize.py::resize_linear``).
 * :class:`CelebADataset` loads the reference CelebALoader's layout,
   ``<data_dir>/{train,test}/{smile,attractive}/<i>.npy`` ([H, W, 3+5]
   float: RGB in [0, 1] and five part masks) and ``<data_dir>/{train,test}/
@@ -30,10 +35,13 @@ import numpy as np
 import torch
 
 from ..models.celeba import ATTRACTIVE_NODES, SMILE_NODES
+from ..ops import jpeg_cuda, resize_cuda
 from ..utils.device import resolve_device
-from .cv_resize import resize_linear
-from .jpeg import entropy_for, jpeg_pixels, read_jpeg_file
-from .png_io import read_png_bgr, unfilter_for
+from ..utils.profiling import OpCounter
+from .cv_resize import mask_groups_into, packed_taps, resize_into
+from .jpeg import StagedJpegs, entropy_for, read_jpeg_file
+from .png_io import decode_pngs, unfilter_for
+from .staging import Staging, part
 
 SMILE_SEG_MAP = [
     ["skin"],                                          # High_Cheekbones
@@ -92,20 +100,6 @@ def _labels(base_dir: str, nodes: list) -> dict:
     return out
 
 
-def _resized(images: list, size: int) -> torch.Tensor:
-    """uint8 [n, size, size, 3] of BGR images [h, w, 3] (tensors of one
-    device, any sizes), each resized as ``cv2.resize`` does."""
-    out = torch.empty((len(images), size, size, 3), dtype=torch.uint8,
-                      device=images[0].device)
-    groups: dict = {}
-    for i, img in enumerate(images):
-        groups.setdefault(tuple(img.shape), []).append(i)
-    for idx in groups.values():
-        out[idx] = resize_linear(torch.stack([images[i] for i in idx]),
-                                 size, size)
-    return out
-
-
 def _timed(fn, *args):
     """``fn(*args)`` and the seconds it took."""
     t0 = time.perf_counter()
@@ -115,8 +109,10 @@ def _timed(fn, *args):
 def _read_masks(base_dir: str, idxs: list, seg_map: list,
                 unfilter: str) -> tuple:
     """Each image's groups of existing part files as indices into the
-    masks read (each part read once), and those masks (BGR uint8), their
-    rows unfiltered by ``unfilter``."""
+    masks read (each part read once), and those masks (uint8), their rows
+    unfiltered by ``unfilter``, in the file's own channels with alpha
+    dropped ([h, w, 1] for the grey masks: whether any channel is nonzero
+    is the same as in ``cv2.imread``'s BGR, and a third of the bytes)."""
     groups, paths = [], {}
     for idx in idxs:
         d = f"{base_dir}/CelebAMask-HQ-mask-anno/{idx // 2000}/"
@@ -126,7 +122,10 @@ def _read_masks(base_dir: str, idxs: list, seg_map: list,
             per.append([paths.setdefault(f, len(paths)) for f in files
                         if os.path.exists(f)])
         groups.append(per)
-    return groups, (read_png_bgr(list(paths), unfilter) if paths else [])
+    if not paths:
+        return groups, []
+    return groups, [m[..., :3] if m.shape[-1] == 4 else m
+                    for m in decode_pngs(list(paths), True, unfilter)]
 
 
 def _sync(device: torch.device) -> None:
@@ -134,11 +133,88 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _launches() -> int:
+    """The preprocessing kernels' launches so far."""
+    return (jpeg_cuda.launches + resize_cuda.launches
+            + resize_cuda.mask_launches)
+
+
+def _chunk_staged(jpegs: list, masks: list, groups: list, size: int,
+                  device: torch.device, clock: list) -> tuple:
+    """A chunk's images uint8 [n, S, S, 3] and its mask groups [n, groups,
+    S, S] (numpy), from the chunk staged in one copy
+    (``data/staging.py``): the JPEGs' coefficients, tables and
+    orientations, the resize taps, the masks (in their files' channels,
+    ``_read_masks``) and the mask groups' part lists; then two launches a
+    JPEG geometry (``StagedJpegs``), one image resize a source size and
+    one mask-group launch a mask size, into one output buffer copied back
+    once. On a CUDA device those are the kernels, on the CPU their plain
+    versions. ``clock`` gets the host clock after the reconstruction, the
+    resizes and the copy."""
+    n, count = len(jpegs), len(groups) * len(groups[0])
+    staging = Staging()
+    staged = StagedJpegs(jpegs, staging)
+    resize_taps = [staging.add(packed_taps(h, w, size, size))
+                   for (h, w), _, _ in staged.runs]
+    # the masks by source size, each with its offset and channels; each
+    # size's list of every group entry's parts of that size, as indices
+    # among them
+    by_size: dict = {}
+    local = {}
+    for j, m in enumerate(masks):
+        same = by_size.setdefault(m.shape[:2], [])
+        local[j] = len(same)
+        same.append(j)
+    mask_sets = []
+    for hw, idx in by_size.items():
+        starts, parts = [0], []
+        for per in groups:
+            for g in per:
+                parts += [local[j] for j in g if masks[j].shape[:2] == hw]
+                starts.append(len(parts))
+        sizes = [masks[j].size for j in idx]
+        index = np.stack([np.cumsum([0] + sizes[:-1]),
+                          [masks[j].shape[2] for j in idx]], axis=1)
+        mask_sets.append((hw, *(staging.add(a, t) for a, t in (
+            ([masks[j] for j in idx], np.uint8), (index, np.int32),
+            (packed_taps(*hw, size, size), np.int32),
+            (np.array(starts), np.int32), (np.array(parts), np.int32)))))
+    pieces = staging.send(device)
+    pixels = staged.reconstruct(pieces, device)
+    _sync(device)
+    clock.append(time.perf_counter())
+    img_bytes = n * size * size * 3
+    out = torch.empty(img_bytes + (count * size * size if masks else 0),
+                      dtype=torch.uint8, device=device)
+    imgs_out, seg_out = (out.split_with_sizes([img_bytes, count * size
+                                               * size])
+                         if masks else (out, None))
+    done = 0
+    for ((h, w), files, at), taps in zip(staged.runs, resize_taps):
+        resize_into(part(pixels, at, files * h * w * 3), (files, h, w, 3),
+                    size, size, part(imgs_out, done * size * size * 3,
+                                     files * size * size * 3), pieces[taps])
+        done += files
+    for k, (hw, *slots) in enumerate(mask_sets):
+        mask_groups_into(pieces[slots[0]], pieces[slots[1]], hw,
+                         *(pieces[s] for s in slots[2:]), size, size,
+                         seg_out, accumulate=k > 0)
+    _sync(device)
+    clock.append(time.perf_counter())
+    host = out.cpu().numpy()
+    imgs = host[:img_bytes].reshape(n, size, size, 3)[
+        np.argsort(staged.positions)]
+    seg = (host[img_bytes:].reshape(n, len(groups[0]), size, size)
+           if masks else np.zeros((n, len(groups[0]), size, size), bool))
+    clock.append(time.perf_counter())
+    return imgs, seg
+
+
 def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
                img_size: int = 128, train: bool = True,
                device: str | torch.device = "cuda",
-               entropy: str | None = None, unfilter: str | None = None
-               ) -> dict:
+               entropy: str | None = None,
+               unfilter: str | None = None) -> dict:
     """CelebAMask-HQ under ``base_dir`` -> ``{out_dir}/{train|test}/
     {causal_structure}/{idx}.npy`` (float64 [S, S, 8]: RGB / 255 and the
     structure's five part-mask groups, 1 where any part is nonzero) and
@@ -157,15 +233,21 @@ def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
     :func:`~cdgvae_torch.data.jpeg.entropy_for` and
     :func:`~cdgvae_torch.data.png_io.unfilter_for` the device, the native
     ones on a CUDA device (a failed build raises) and the plain ones on
-    the CPU.
+    the CPU. A chunk's device work (:func:`_chunk_staged`) is a fixed
+    handful of copies and launches: on a CUDA device the kernels of
+    ``csrc/jpeg_reconstruct.cu`` and ``csrc/cv_resize.cu``, on the CPU
+    their plain versions.
 
-    Returns ``files``, ``entropy``, ``unfilter``, the pool's ``threads``
-    and seconds: ``wall``; the host threads' summed seconds in ``jpeg``
+    Returns ``files``, ``entropy``, ``unfilter``, the pool's
+    ``threads``, ``device_calls`` (the most PyTorch operators and kernel
+    launches that the main thread made for one chunk's device work) and
+    seconds: ``wall``; the host threads' summed seconds in ``jpeg``
     (reading and entropy-decoding the JPEGs) and ``png`` (reading and
     decoding the masks); ``wait``, the seconds the device work waited for
     them; then, on the host's clock up to a synchronisation,
-    ``reconstruct`` (IDCT, upsampling, colour), ``resize`` (images and
-    masks) and ``copy`` (to the host); and ``write``."""
+    ``reconstruct`` (staging, copies to the device, IDCT, upsampling,
+    colour), ``resize`` (images and masks) and ``copy`` (to the host); and
+    ``write``."""
     device = resolve_device(device)
     entropy = entropy or entropy_for(device)
     unfilter = unfilter or unfilter_for(device)
@@ -182,9 +264,10 @@ def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
     os.makedirs(lab_out, exist_ok=True)
     threads = min(_CHUNK, os.cpu_count() or 1)
     seconds = {"files": len(img_list), "entropy": entropy,
-               "unfilter": unfilter, "threads": threads, "wall": 0.0,
-               "jpeg": 0.0, "png": 0.0, "wait": 0.0, "reconstruct": 0.0,
-               "resize": 0.0, "copy": 0.0, "write": 0.0}
+               "unfilter": unfilter, "threads": threads,
+               "device_calls": 0, "wall": 0.0, "jpeg": 0.0, "png": 0.0,
+               "wait": 0.0, "reconstruct": 0.0, "resize": 0.0, "copy": 0.0,
+               "write": 0.0}
     chunks = [img_list[at:at + _CHUNK]
               for at in range(0, len(img_list), _CHUNK)]
     t_start = time.perf_counter()
@@ -219,35 +302,26 @@ def preprocess(base_dir: str, out_dir: str, causal_structure: str = "smile",
             t1 = time.perf_counter()
             if k + 1 < len(chunks):
                 pending = submit(chunks[k + 1])
-            pixels = jpeg_pixels(jpegs, device)
-            _sync(device)
-            t2 = time.perf_counter()
-            imgs = _resized(pixels, img_size)
-            if masks:
-                parts = _resized([torch.as_tensor(m, device=device)
-                                  for m in masks], img_size)
-                # a group is 1 where the channel sum of its parts is nonzero
-                nonzero = (parts != 0).any(dim=-1)
-            _sync(device)
-            t3 = time.perf_counter()
-            imgs = imgs.cpu().numpy()
-            if masks:
-                nonzero = nonzero.cpu().numpy()
-            t4 = time.perf_counter()
+            clock = [t1]
+            launched = _launches()
+            with OpCounter() as ops:
+                imgs, seg = _chunk_staged(jpegs, masks, groups, img_size,
+                                          device, clock)
+            seconds["device_calls"] = max(
+                seconds["device_calls"], ops.ops + _launches() - launched)
             for i, (name, idx) in enumerate(zip(names, idxs)):
-                seg_imgs = [nonzero[g].any(axis=0)[..., None].astype(
-                    np.float64) if g else np.zeros((img_size, img_size, 1))
-                    for g in groups[i]]
                 img = _LEVELS[imgs[i]][:, :, ::-1]
-                concat = np.concatenate([img] + seg_imgs, axis=-1)
+                concat = np.concatenate(
+                    [img, seg[i].transpose(1, 2, 0).astype(np.float64)],
+                    axis=-1)
                 np.save(os.path.join(img_out, str(idx)), concat)
                 np.save(os.path.join(lab_out, str(idx)), labels[name])
             t5 = time.perf_counter()
             seconds["wait"] += t1 - t0
-            seconds["reconstruct"] += t2 - t1
-            seconds["resize"] += t3 - t2
-            seconds["copy"] += t4 - t3
-            seconds["write"] += t5 - t4
+            seconds["reconstruct"] += clock[1] - clock[0]
+            seconds["resize"] += clock[2] - clock[1]
+            seconds["copy"] += clock[3] - clock[2]
+            seconds["write"] += t5 - clock[3]
     finally:
         pool.shutdown(cancel_futures=True)
     seconds["wall"] = time.perf_counter() - t_start

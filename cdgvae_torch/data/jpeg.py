@@ -11,9 +11,12 @@ coefficient blocks, in natural order, one array a component. Its
 below (one 16-bit table lookup a Huffman code), or ``"native"``,
 ``csrc/jpeg_huffman.cpp`` through ``data/jpeg_native.py``, which decodes
 the same coefficients and raises the same errors; :func:`entropy_for`
-picks by device, native for a CUDA device and plain on the CPU. On the
-tensor's device, :func:`reconstruct` turns the blocks of files of one
-geometry into pixels in integer torch arithmetic:
+picks by device, native for a CUDA device and plain on the CPU. Then
+the blocks of files of one geometry become pixels: on the CPU through
+:func:`reconstruct` and :func:`_orient`, the plain version, in integer
+torch arithmetic; on a CUDA device through the two kernels of
+``csrc/jpeg_reconstruct.cu`` (``ops/jpeg_cuda.py``), which compute the
+same bit for bit from a chunk staged in one copy (:class:`StagedJpegs`):
 
 * dequantisation and ``jidctint.c``'s ISLOW IDCT (``CONST_BITS`` 13,
   ``PASS1_BITS`` 2, ``DESCALE`` rounding, the column pass first), each
@@ -51,10 +54,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..ops import jpeg_cuda
 from . import jpeg_native
+from .staging import Staging, part
 
 __all__ = ["JpegCoefficients", "read_jpeg", "read_jpeg_file", "reconstruct",
-           "jpeg_pixels", "decode_jpegs", "entropy_for"]
+           "reconstruct_into", "StagedJpegs", "staged_pixels", "jpeg_pixels",
+           "decode_jpegs", "entropy_for"]
 
 # the entropy decoders :func:`read_jpeg` can run
 ENTROPY = ("plain", "native")
@@ -590,10 +596,134 @@ def entropy_for(device) -> str:
     return "plain"
 
 
+def oriented_shape(f: JpegCoefficients) -> tuple:
+    """(height, width) of ``f``'s pixels in its EXIF orientation."""
+    return ((f.width, f.height) if 5 <= f.orientation <= 8
+            else (f.height, f.width))
+
+
+def batches(files: list) -> list:
+    """The positions in ``files`` of each batch that reconstructs in one
+    go: files of one geometry and one oriented shape. Batches of one shape
+    are neighbours, so their pixels lie together for the resize; shapes and
+    geometries come in the order they first appear."""
+    by_shape: dict = {}
+    for i, f in enumerate(files):
+        by_shape.setdefault(oriented_shape(f), {}).setdefault(
+            f.geometry, []).append(i)
+    return [idx for geometries in by_shape.values()
+            for idx in geometries.values()]
+
+
+def reconstruct_into(coef: torch.Tensor, quant: torch.Tensor,
+                     orientation: torch.Tensor, geometry: tuple,
+                     out: torch.Tensor) -> torch.Tensor:
+    """Files of one ``geometry`` from their staged coefficients into
+    ``out``, as :func:`~cdgvae_torch.ops.jpeg_cuda.reconstruct` lays them
+    out: on a CUDA device through that kernel, on the CPU through
+    :func:`reconstruct` and :func:`_orient`, the plain version."""
+    if out.device.type == "cuda":
+        return jpeg_cuda.reconstruct(coef, quant, orientation, geometry, out)
+    height, width, sampling, colour = geometry
+    n = orientation.numel()
+    shapes = jpeg_cuda.blocks(height, width, sampling)
+    comps = [c.view(n, bh, bw, 64) for c, (bh, bw) in zip(
+        coef.split([n * bh * bw * 64 for bh, bw in shapes]), shapes)]
+    quant = quant.view(n, len(sampling), 64)
+    files = [JpegCoefficients(
+        height, width, sampling, colour, int(orientation[f]),
+        quant=[quant[f, c].numpy() for c in range(len(sampling))],
+        coef=[comps[c][f].numpy() for c in range(len(sampling))])
+        for f in range(n)]
+    pixels = reconstruct(files, out.device)
+    size = height * width * 3
+    for f, file in enumerate(files):
+        out[f * size:(f + 1) * size] = _orient(pixels[f],
+                                               file.orientation).reshape(-1)
+    return out
+
+
+class StagedJpegs:
+    """``files`` (``JpegCoefficients``) staged for reconstruction into one
+    pixel buffer: their coefficients, quant tables and orientations added
+    to ``staging`` (``data/staging.py``), one batch of :func:`batches` after
+    another. :attr:`positions` lists the files in the buffer's order and
+    :attr:`runs` its runs of one oriented shape: ``(shape, files, first
+    byte)``."""
+
+    def __init__(self, files: list, staging: Staging):
+        self.files = files
+        self.order = batches(files)
+        self.positions = [i for idx in self.order for i in idx]
+        self.slots = []
+        self.sizes = []
+        self.runs = []
+        at = 0
+        for idx in self.order:
+            group = [files[i] for i in idx]
+            comps = range(len(group[0].sampling))
+            self.slots.append((
+                staging.add([f.coef[c] for c in comps for f in group],
+                            np.int16),
+                staging.add([f.quant[c] for f in group for c in comps]),
+                staging.add(np.array([f.orientation for f in group],
+                                     np.int32))))
+            size = len(idx) * group[0].height * group[0].width * 3
+            shape = oriented_shape(group[0])
+            if self.runs and self.runs[-1][0] == shape:
+                self.runs[-1] = (shape, self.runs[-1][1] + len(idx),
+                                 self.runs[-1][2])
+            else:
+                self.runs.append((shape, len(idx), at))
+            self.sizes.append(size)
+            at += size
+
+    def reconstruct(self, pieces: list, device) -> torch.Tensor:
+        """The pixel buffer (uint8, on ``device``) from ``pieces``, the
+        staging's tensors on it: each batch through
+        :func:`reconstruct_into`, in :attr:`positions` order."""
+        pixels = torch.empty(sum(self.sizes), dtype=torch.uint8,
+                             device=device)
+        at = 0
+        for idx, (coef, quant, orientation), size in zip(
+                self.order, self.slots, self.sizes):
+            reconstruct_into(pieces[coef], pieces[quant], pieces[orientation],
+                             self.files[idx[0]].geometry,
+                             part(pixels, at, size))
+            at += size
+        return pixels
+
+    def images(self, pixels: torch.Tensor) -> list:
+        """Each file's BGR uint8 [H, W, 3] view of ``pixels``, in the
+        files' order."""
+        out: list = [None] * len(self.files)
+        at = 0
+        for i in self.positions:
+            f = self.files[i]
+            size = f.height * f.width * 3
+            out[i] = pixels[at:at + size].view(*oriented_shape(f), 3)
+            at += size
+        return out
+
+
+def staged_pixels(files: list, device) -> list:
+    """:func:`jpeg_pixels` through the staged chunk: one copy of the files'
+    coefficients, tables and orientations to ``device``, then
+    :func:`reconstruct_into` each batch."""
+    staging = Staging()
+    staged = StagedJpegs(files, staging)
+    pieces = staging.send(device)
+    return staged.images(staged.reconstruct(pieces, device))
+
+
 def jpeg_pixels(files: list, device) -> list:
     """The BGR uint8 [H, W, 3] images of ``files`` (``JpegCoefficients``)
     on ``device``, each in its EXIF orientation, in order; files of one
-    geometry are reconstructed in one batch."""
+    geometry are reconstructed in one batch: on a CUDA device by the
+    kernels of ``csrc/jpeg_reconstruct.cu`` (:func:`staged_pixels`), on the
+    CPU by :func:`reconstruct` and :func:`_orient`."""
+    if torch.device(device).type == "cuda":
+        return staged_pixels(files, device)
     groups: dict = {}
     for i, f in enumerate(files):
         groups.setdefault(f.geometry, []).append(i)

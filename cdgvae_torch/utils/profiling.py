@@ -18,6 +18,8 @@ utils/xplane.py:174-203``).
 * :func:`rank_ops` / :func:`print_ranking`: the newest trace under a
   directory, its events of one category (``"kernel"``: the device
   kernels) summed by name and ranked by total time.
+* :class:`OpCounter`: the PyTorch operators one thread dispatches inside
+  it (preprocessing's ``device_calls``).
 """
 from __future__ import annotations
 
@@ -28,11 +30,35 @@ import os
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # the optimizer steps a trace records (an InfoMax step takes two)
 TRACE_STEPS = 20
 # the open trace's step counters (one at most), for count_replayed_step
 _COUNTERS: list = []
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts in :attr:`ops` the operators that the entering thread hands
+    PyTorch's dispatcher inside the ``with`` block (each call the caller
+    makes, not the ones it runs inside; a dispatch mode is a thread's own,
+    so other threads' operators are not counted). A kernel launched through
+    ``ctypes`` is no operator: its wrapper counts it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # nothing here is compiled: without this, TorchDispatchMode wraps
+        # __torch_dispatch__ in torch.compile's disable, whose first call
+        # imports the compiler (2-8 s, inside the first chunk's time)
+        return False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        return func(*args, **(kwargs or {}))
 
 
 def count_replayed_step() -> None:

@@ -9,8 +9,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. the card (nvidia-smi name and power limit, torch, CUDA and numpy
    versions);
-2. the build of every CUDA kernel of the main path, timed, with the
-   compiler's report (registers, shared memory, spills, stack frame);
+2. the build of every kernel of the script (``BUILDS``: the CUDA
+   sources and the host C++ decoders), the compilers started together,
+   one a source, timed, with the render kernel's report (registers,
+   shared memory, spills, stack frame);
 3. each kernel against its plain torch version on the card, at the shapes
    the main path gives it (the online step's 128 images into a caller's
    buffer among them), at ragged sizes, at edge factors and at 16, 128
@@ -143,14 +145,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     decode timed both ways) and every mask file through the native PNG
     unfilter (``csrc/png_unfilter.cpp``, host C++: held against the plain
     one on every fixture mask, the face's 9 masks and a grey mask with
-    rows of every filter 0-4 timed both ways), and files a second at 1024
-    -> 128 px over copies of the 1024 px face, enough for 15 s of work at
-    the pace of a first run of 80 (host threads' ms a file of JPEG and PNG
-    decoding, the device's wait against its own reconstruction, resize
-    and copy ms, the 30,000-file estimate). Neither path renders: 0
+    rows of every filter 0-4 timed both ways), every chunk's device work
+    through the CUDA kernels of ``csrc/jpeg_reconstruct.cu`` and
+    ``csrc/cv_resize.cu`` (built, held against their plain versions on
+    the fixture JPEGs and on a chunk of 16 copies of the 1024 px face and
+    its masks, max |d| 0, and timed there on CUDA events beside their
+    bounds; their launches on the preprocessing runs of this process
+    counted), and files a second at 1024 -> 128 px over copies of the
+    1024 px face in three runs of :data:`PACE_FILES` files each, which must
+    end within :data:`PACE_BUDGET_S` together (host threads' ms a
+    file of JPEG and PNG decoding,
+    the device's wait against the main thread's staging, reconstruction,
+    resize and copy ms, its operators and launches a chunk, which must
+    stay under 20, the 30,000-file estimate). Neither path renders: 0
     launches each; the decoder's numbers go on a ``{"host_decoder":
     ...}`` line and the unfilter's (with phase 15's) on a
-    ``{"host_png_unfilter": ...}`` line before the card's;
+    ``{"host_png_unfilter": ...}`` line before the card's, and both, as
+    host C++ with the card's bounds for the same bytes, join the
+    preprocessing kernels on the kernels line;
 21. the library options that no CLI sets, at full width: 10 bf16 steps
     (``compute_dtype``) against 10 float32 steps from one init (losses
     finite and falling, params and Adam state float32); one bf16 step on
@@ -242,7 +254,8 @@ The CLIs of phases 8-17 replay graphs on the card by default
 holds the eager first step, its capture and the replays of its window.
 The render kernel's launches are counted around each path (phases 4, 8,
 10-15, 19, 21, 22 and 24, and 17's, 18's, 20's, 23's, 25's and 26's 0)
-and summed in the ``{"kernels": [...]}`` JSON line, which is followed by the
+and summed in the ``{"kernels": [...]}`` JSON line, beside phase 20's
+host decoders and preprocessing kernels, which is followed by the
 ``{"ok": true, ...}`` JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
@@ -255,6 +268,7 @@ import gc
 import io
 import json
 import math
+import os
 import shutil
 import statistics
 import struct
@@ -324,8 +338,19 @@ TVAE_STEPS = {"loan": 15, "adult": 15, "covtype": 39}
 CELEBA_BATCH, CELEBA_BETA, CELEBA_LAM, CELEBA_LR = 16, 0.1, 5.0, 1e-3
 CELEBA_STEPS = 4
 # steps in each of phase 18's profiled windows: a window of a CelebA step's
-# 6,000 kernels takes seconds a step to record and tabulate
-CELEBA_PROFILED = 5
+# 6,000 kernels takes seconds a step to record and tabulate (5 until phase
+# 20 timed three preprocessing runs)
+CELEBA_PROFILED = 3
+# phase 20: files in each of the three timed runs at 1024 -> 128 px (50
+# chunks of 16 in the train split of 1,000 copies; 9-11 s at the 70-87
+# files/s of PR 20's runs), and the seconds the three may take together.
+# The pace moved from 51 to 131 files/s between runs of one call, so the
+# runs are not sized from a pace seen; 40 files/s would spend the budget
+PACE_FILES, PACE_BUDGET_S = 800, 60.0
+# step 2's builds: the kernels of every phase, by name, from csrc/
+BUILDS = {"render": "render.cu", "jpeg_reconstruct": "jpeg_reconstruct.cu",
+          "cv_resize": "cv_resize.cu", "jpeg_huffman": "jpeg_huffman.cpp",
+          "png_unfilter": "png_unfilter.cpp"}
 # phase 26: the pretraining's first step on the card against the CPU, TF32
 # off: the same float32 math summed in other orders
 PRETRAIN_TOL = 1e-4
@@ -2192,8 +2217,7 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
                            path_launches: dict) -> tuple:
     """Phase 20: the packed parameter layout at cli.celeba_main's defaults
     and CelebAMask-HQ preprocessing on the card (see the module
-    docstring). Returns the native entropy decoder's and PNG unfilter's
-    numbers."""
+    docstring). Returns :func:`preprocessing`'s numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     from cdgvae_torch.cli.celeba_main import get_args
@@ -2331,11 +2355,11 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
     check(path_launches["packing"] == 0, "the packed CelebA path launched "
           f"the render kernel {path_launches['packing']} times")
 
-    decoders = preprocessing(root=root, work=work, card=card, dev=dev,
-                             path_launches=path_launches)
+    results = preprocessing(root=root, work=work, card=card, dev=dev,
+                            path_launches=path_launches)
     print(f"phase 20 (packing, preprocessing): {time.perf_counter() - t0:.1f}"
           f" s (host clock); launches {{'render': 0}} on both [{card}]")
-    return decoders
+    return results
 
 
 def mask_unfilter(*, corpus: Path, work: Path, card: str, dev) -> dict:
@@ -2353,9 +2377,11 @@ def mask_unfilter(*, corpus: Path, work: Path, card: str, dev) -> dict:
     lib_s = time.perf_counter() - t_lib
     masks = sorted(str(p) for p in (corpus / "CelebAMask-HQ-mask-anno"
                                     ).rglob("*.png"))
-    check(all(np.array_equal(a, b) for a, b in zip(
-        read_png_bgr(masks, "native"), read_png_bgr(masks, "plain"))),
-        "the native PNG unfilter reads the fixture masks to other pixels")
+    pixel_err = max(int(np.abs(a.astype(np.int64) - b).max()) for a, b in
+                    zip(read_png_bgr(masks, "native"),
+                        read_png_bgr(masks, "plain")))
+    check(pixel_err == 0, "the native PNG unfilter reads the fixture masks "
+          f"to other pixels, by up to {pixel_err}")
     face = sorted(str(p) for p in (corpus / "CelebAMask-HQ-mask-anno" / "0"
                                    ).glob("00000_*.png"))
     native_ms = min(host_s(lambda: read_png_bgr(face, "native"), 1)
@@ -2394,9 +2420,208 @@ def mask_unfilter(*, corpus: Path, work: Path, card: str, dev) -> dict:
             "replaces": "cv2.imread's and Pillow's PNG unfiltering in the "
                         "JAX package's CelebA preprocessing and PNG trees "
                         "(no TPU kernel)",
+            "max_abs_err": pixel_err,
+            # the face's filtered scanlines read once, BGR pixels written
+            "bound_ms": sum(h * (1 + w * ch) + h * w * 3 for (h, w, ch), _ in
+                            (_read_png(f, grey=True) for f in face))
+            / PEAK_BYTES_PER_S * 1e3,
             "mask_ms_a_face": native_ms, "plain_mask_ms_a_face": plain_ms,
             "filters_0_4_ms": every_ms,
             "plain_filters_0_4_ms": every_plain_ms}
+
+
+def resize_read_bytes(h: int, w: int, c: int, size: int) -> int:
+    """The source bytes a resize of an [h, w, c] image to size x size
+    reads: the rows and columns its taps name, each once."""
+    from cdgvae_torch.data.cv_resize import _taps
+
+    x0, x1, _, _ = _taps(w, size, True)
+    y0, y1, _, _ = _taps(h, size, False)
+    return (len(np.unique(np.concatenate([y0, y1])))
+            * len(np.unique(np.concatenate([x0, x1]))) * c)
+
+
+def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least ms the card could take: the bytes over its memory rate or
+    the 32-bit lane operations over its float32 rate outside the tensor
+    cores, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def preprocess_kernels(*, corpus: Path, card: str, dev) -> list[dict]:
+    """Phase 20's CUDA kernels at the main path's shapes: built, then held
+    against their plain versions on the card (max |d| 0) and timed on CUDA
+    events beside them and their bounds. A chunk is 16 copies of the 1024
+    px face and its masks as preprocessing stages them (the masks in their
+    files' channels), resized to 128 px. Returns their entries for the
+    kernels line (``launches`` filled in by the main path)."""
+    from cdgvae_torch.data.celeba import (SMILE_SEG_MAP, _CHUNK,
+                                          _read_masks)
+    from cdgvae_torch.data.cv_resize import (mask_groups_plain, packed_taps,
+                                             resize_linear)
+    from cdgvae_torch.data.jpeg import (StagedJpegs, _orient, jpeg_pixels,
+                                        read_jpeg, reconstruct)
+    from cdgvae_torch.data.staging import Staging
+    from cdgvae_torch.ops import _build, jpeg_cuda, resize_cuda
+
+    t0 = time.perf_counter()
+    for name in ("jpeg_reconstruct", "cv_resize"):
+        lib = _build.build(name, [f"{name}.cu"])
+        report = (lib.parent / f"lib{name}.log").read_text()
+        print(f"build {name}.cu: " + "; ".join(
+            line.split("info    : ")[-1].strip() for line in
+            report.splitlines() if "Used" in line or "stack frame" in line))
+    print(f"built jpeg_reconstruct.cu and cv_resize.cu in "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
+    size, n = 128, _CHUNK
+
+    # the reconstruction: every fixture JPEG in one staged call, then the
+    # chunk, against reconstruct and _orient on the card
+    jpegs = sorted((corpus / "CelebA-HQ-img").glob("*.jpg"))
+    files = [read_jpeg(p.read_bytes(), p.name, "native") for p in jpegs]
+    err = max(int((g.cpu().int() - w.int()).abs().max()) for g, w in zip(
+        jpeg_pixels(files, dev), jpeg_pixels(files, "cpu")))
+    face = files[0]
+    chunk = [face] * n
+    staging = Staging()
+    staged = StagedJpegs(chunk, staging)
+    pieces = staging.send(dev)
+    (coef, quant, orient), = staged.slots
+    pixels = torch.empty(n * face.height * face.width * 3, dtype=torch.uint8,
+                         device=dev)
+
+    def kernel_jpeg():
+        jpeg_cuda.reconstruct(pieces[coef], pieces[quant], pieces[orient],
+                              face.geometry, pixels)
+
+    def plain_jpeg():
+        return [_orient(p, face.orientation)
+                for p in reconstruct(chunk, dev)]
+
+    kernel_jpeg()
+    want = torch.stack(plain_jpeg())
+    err = max(err, int((pixels.view(want.shape).int() - want.int()).abs(
+        ).max()))
+    blocks = sum(bh * bw for bh, bw in jpeg_cuda.blocks(
+        face.height, face.width, face.sampling))
+    hw = face.height * face.width
+    # IDCT: 16 1-D passes of about 60 operations and 64 dequantising
+    # products and clamps a block; upsampling and colour about 50 a pixel
+    jpeg_bound = bound_of(n * (blocks * 128 + 3 * 64 * 4 + 4 + hw * 3),
+                          n * (blocks * (16 * 60 + 64 * 3) + hw * 50))
+    jpeg_ms, jpeg_plain_ms = time_ms(kernel_jpeg), time_ms(plain_jpeg, 3, 3)
+
+    # the images' resize, 1024 -> 128 px
+    taps = torch.as_tensor(packed_taps(face.height, face.width, size, size),
+                           device=dev)
+    imgs = torch.empty(n * size * size * 3, dtype=torch.uint8, device=dev)
+    shape = (n, face.height, face.width, 3)
+
+    def kernel_resize():
+        resize_cuda.resize(pixels, shape, taps, size, size, imgs)
+
+    def plain_resize():
+        return resize_linear(pixels.view(shape), size, size)
+
+    kernel_resize()
+    resize_err = int((imgs.view(n, size, size, 3).int()
+                      - plain_resize().int()).abs().max())
+    resize_bound = bound_of(
+        n * (resize_read_bytes(face.height, face.width, 3, size)
+             + size * size * 3) + taps.numel() * 4,
+        n * size * size * 3 * 12)
+    resize_ms, resize_plain_ms = time_ms(kernel_resize), time_ms(
+        plain_resize)
+
+    # the mask groups: the face's masks 16 times, the smile structure, as
+    # preprocessing stages them (each in its file's channels)
+    per_face, masks = _read_masks(str(corpus), [0], SMILE_SEG_MAP, "native")
+    masks = masks * n
+    mhw = masks[0].shape[:2]
+    stacked = torch.as_tensor(np.concatenate([m.reshape(-1) for m in masks]),
+                              device=dev)
+    index = torch.as_tensor(np.stack([
+        np.cumsum([0] + [m.size for m in masks[:-1]]),
+        [m.shape[2] for m in masks]], axis=1).reshape(-1), dtype=torch.int32,
+        device=dev)
+    per = len(masks) // n
+    entries = [[j + f * per for j in g] for f in range(n) for g in per_face[0]]
+    starts = torch.as_tensor(np.cumsum([0] + [len(g) for g in entries]),
+                             dtype=torch.int32, device=dev)
+    parts = torch.as_tensor([j for g in entries for j in g],
+                            dtype=torch.int32, device=dev)
+    mtaps = torch.as_tensor(packed_taps(*mhw, size, size), device=dev)
+    seg = torch.empty(len(entries) * size * size, dtype=torch.uint8,
+                      device=dev)
+    seg_plain = torch.empty_like(seg)
+
+    def kernel_masks():
+        resize_cuda.mask_groups(stacked, index, mhw, mtaps, starts, parts,
+                                size, size, seg)
+
+    def plain_masks():
+        mask_groups_plain(stacked, index, mhw, starts, parts, size, size,
+                          seg_plain)
+
+    kernel_masks()
+    plain_masks()
+    mask_err = int((seg.int() - seg_plain.int()).abs().max())
+    used = {j for g in entries for j in g}
+    channels = [m.shape[2] for m in masks]
+    mask_bound = bound_of(
+        sum(resize_read_bytes(*mhw, channels[j], size) for j in used)
+        + (index.numel() + starts.numel() + parts.numel() + mtaps.numel()) * 4
+        + seg.numel(),
+        sum(channels[j] for g in entries for j in g) * size * size * 12)
+    mask_ms, mask_plain_ms = time_ms(kernel_masks), time_ms(plain_masks, 3,
+                                                             3)
+    check(err == 0 and resize_err == 0 and mask_err == 0,
+          f"the preprocessing kernels differ from their plain versions: "
+          f"reconstruction {err}, resize {resize_err}, mask groups "
+          f"{mask_err}")
+    print(f"preprocessing kernels against their plain versions on the card,"
+          f" max |d| 0: the reconstruction on the {len(files)} fixture JPEGs"
+          f" in one call and on a chunk of {n} copies of the 1024 px face;"
+          f" the resize of that chunk to {size} px; the mask groups of its "
+          f"{len(masks)} masks ({mhw[0]}x{mhw[1]}, {channels.count(1)} grey, "
+          f"{len(masks) - channels.count(1)} colour), {len(entries)} groups "
+          f"[{card}]")
+    print(f"times at the chunk's shapes (CUDA events): jpeg_reconstruct "
+          f"(IDCT and colour, 2 launches) {jpeg_ms * 1e3:.2f} us against a "
+          f"{jpeg_bound[0] * 1e3:.2f} us bound ({jpeg_bound[1]}), plain "
+          f"reconstruct and _orient {jpeg_plain_ms * 1e3:.1f} us (with its "
+          f"copies of the coefficients to the card); cv_resize "
+          f"{resize_ms * 1e3:.2f} us against {resize_bound[0] * 1e3:.2f} us "
+          f"({resize_bound[1]}), plain resize_linear "
+          f"{resize_plain_ms * 1e3:.1f} us; mask groups {mask_ms * 1e3:.2f} "
+          f"us against {mask_bound[0] * 1e3:.2f} us ({mask_bound[1]}), plain"
+          f" {mask_plain_ms * 1e3:.1f} us [{card}]")
+    return [
+        {"name": "jpeg_reconstruct", "route": "cuda",
+         "source": "cdgvae_torch/csrc/jpeg_reconstruct.cu",
+         "replaces": "cv2.imread's pixel reconstruction (IDCT, upsampling, "
+                     "colour, EXIF orientation) in the JAX package's CelebA "
+                     "preprocessing; no TPU kernel",
+         "max_abs_err": err, "ms": jpeg_ms, "plain_ms": jpeg_plain_ms,
+         "bound_ms": jpeg_bound[0], "bound_by": jpeg_bound[1],
+         "library_ms": None},
+        {"name": "cv_resize", "route": "cuda",
+         "source": "cdgvae_torch/csrc/cv_resize.cu",
+         "replaces": "cv2.resize of the images in the JAX package's CelebA "
+                     "preprocessing; no TPU kernel",
+         "max_abs_err": resize_err, "ms": resize_ms,
+         "plain_ms": resize_plain_ms, "bound_ms": resize_bound[0],
+         "bound_by": resize_bound[1], "library_ms": None},
+        {"name": "cv_resize_mask_groups", "route": "cuda",
+         "source": "cdgvae_torch/csrc/cv_resize.cu",
+         "replaces": "cv2.resize of the part masks and their groups' any in"
+                     " the JAX package's CelebA preprocessing; no TPU kernel",
+         "max_abs_err": mask_err, "ms": mask_ms, "plain_ms": mask_plain_ms,
+         "bound_ms": mask_bound[0], "bound_by": mask_bound[1],
+         "library_ms": None}]
 
 
 def expected_mask_files(corpus: Path, structure: str, train: bool) -> int:
@@ -2418,13 +2643,15 @@ def expected_mask_files(corpus: Path, structure: str, train: bool) -> int:
 def preprocessing(*, root: Path, work: Path, card: str, dev,
                   path_launches: dict) -> tuple:
     """Phase 20's CelebAMask-HQ preprocessing on the card, its native JPEG
-    entropy decoder and its native PNG unfilter (see the module
-    docstring). Returns the decoder's and the unfilter's numbers."""
+    entropy decoder, its native PNG unfilter and its CUDA kernels (see the
+    module docstring). Returns the decoder's and the unfilter's numbers
+    and the kernels' entries for the kernels line."""
     import hashlib
 
     from cdgvae_torch.data import jpeg_native, png_native
     from cdgvae_torch.data.jpeg import entropy_for, read_jpeg
-    from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.ops import jpeg_cuda, renderer_cuda, resize_cuda
+    from cdgvae_torch.tools.preprocess_pace import face_corpus
 
     # the JPEG entropy decoders on this host: the native one built, then
     # held against the plain one on every fixture JPEG (the 1024 px face
@@ -2437,14 +2664,19 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           "native entropy decoder")
     lib_s = time.perf_counter() - t_lib
     jpegs = sorted((corpus / "CelebA-HQ-img").glob("*.jpg"))
+    coef_err = 0
     for path in jpegs:
         data = path.read_bytes()
         want = read_jpeg(data, path.name, "plain").coef
         got = read_jpeg(data, path.name, "native").coef
-        check(all(a.dtype == b.dtype and np.array_equal(a, b)
+        check(all(a.dtype == b.dtype and a.shape == b.shape
                   for a, b in zip(got, want)) and len(got) == len(want),
               f"{path.name}: the native entropy decoder's coefficients "
-              "differ from the plain one's")
+              "differ from the plain one's in shape or type")
+        coef_err = max([coef_err] + [int(np.abs(a.astype(np.int64) - b).max())
+                                     for a, b in zip(got, want)])
+    check(coef_err == 0, f"the native entropy decoder's coefficients differ"
+          f" from the plain one's by up to {coef_err}")
     data = face.read_bytes()
     native_ms = min(host_s(lambda: read_jpeg(data, "", "native"), 1)
                     for _ in range(20)) * 1e3
@@ -2462,6 +2694,7 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           f"{native_ms:.3f} ms (min of 20), plain {plain_ms:.1f} ms (min of "
           f"2): {plain_ms / native_ms:.1f}x [{card}]")
     png = mask_unfilter(corpus=corpus, work=work, card=card, dev=dev)
+    kernels = preprocess_kernels(corpus=corpus, card=card, dev=dev)
 
     # preprocessing of the fixture corpus: the module entry point in its
     # own process once, then in this one; every file's hash against the
@@ -2485,6 +2718,7 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           f"process, on the card): {proc.stdout.strip()} "
           f"({time.perf_counter() - t_pre:.1f} s with the start) [{card}]")
     jpeg_native.scans = png_native.files = 0
+    jpeg_cuda.launches = resize_cuda.launches = resize_cuda.mask_launches = 0
     files = masks = 0
     for size in (128, 64):
         for structure in ("smile", "attractive"):
@@ -2520,89 +2754,107 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           f"{sorted(k for k in want if got.get(k) != want[k])[:6]}")
 
     # files a second at 1024 -> 128 px: copies of the 1024 px face and its
-    # masks; a run over 80 copies (64 in the train split, index mod 5 != 4)
-    # warms and sets the pace, then enough copies for 15 s of work (the
-    # run must do 10 s of work: the first run's pace can be the slower)
+    # masks, PACE_FILES of them in the train split (index mod 5 != 4)
     big = work / "preprocess_1024"
-    (big / "CelebA-HQ-img").mkdir(parents=True)
-    masks = big / "CelebAMask-HQ-mask-anno" / "0"
-    masks.mkdir(parents=True)
-    lines = (corpus / "CelebAMask-HQ-attribute-anno.txt").read_text(
-        ).splitlines()
-    row0 = next(line for line in lines[2:] if line.startswith("0.jpg"))
-    parts = sorted((corpus / "CelebAMask-HQ-mask-anno" / "0").glob(
-        "00000_*.png"))
-    rows = []
-
-    def copies(n):
-        for i in range(len(rows), n):
-            shutil.copy(face, big / "CelebA-HQ-img" / f"{i}.jpg")
-            for part in parts:
-                shutil.copy(part, masks / part.name.replace("00000",
-                                                            f"{i:05d}"))
-            rows.append(row0.replace("0.jpg", f"{i}.jpg", 1))
-        (big / "CelebAMask-HQ-attribute-anno.txt").write_text(
-            "\n".join([str(n), lines[1], *rows]) + "\n")
+    parts = face_corpus(big, PACE_FILES)
 
     def run_1024():
-        jpeg_native.scans = png_native.files = 0
+        scans, mask_files = jpeg_native.scans, png_native.files
+        cpu0 = os.times()
         _, s, wall = run_cli(["--base_dir", str(big), "--out_dir",
                               str(work / "preprocess_1024_out")],
                              "celeba_preprocess")
-        check(s["entropy"] == "native" and jpeg_native.scans == s["files"]
+        # the host's cores busy over the run: this process's CPU seconds
+        # (its threads') over the run's wall
+        cpu = os.times()
+        s["cores_busy"] = ((cpu.user + cpu.system - cpu0.user - cpu0.system)
+                           / wall)
+        scans, mask_files = (jpeg_native.scans - scans,
+                             png_native.files - mask_files)
+        check(s["entropy"] == "native" and scans == s["files"]
               and s["unfilter"] == "native"
-              and png_native.files == len(parts) * s["files"],
+              and mask_files == len(parts) * s["files"],
               f"the 1024 px run: {s['entropy']} entropy decoding, "
-              f"{jpeg_native.scans} native scans for {s['files']} files; "
-              f"the {s['unfilter']} unfilter, {png_native.files} native "
-              f"mask files")
+              f"{scans} native scans for {s['files']} files; the "
+              f"{s['unfilter']} unfilter, {mask_files} native mask files")
         return s, wall
 
-    copies(80)
-    s, _ = run_1024()
-    n_train = math.ceil(15.0 / (s["wall"] / s["files"]))
-    copies(n_train + -(-n_train // 4))
-    s, wall = run_1024()
-    n = s["files"]
-    rate = n / s["wall"]
-    print(f"preprocess at 1024 -> 128 px, {n} files (one 4:2:0 q95 face, "
-          f"{len(data):,} bytes, and its {len(parts)} masks; reads warm: "
-          f"the copies were just written): {rate:.3f} files/s over "
-          f"{s['wall']:.3f} s ({wall:.3f} s with the CLI's set-up); host "
-          f"threads ({s['threads']}): JPEG reading and entropy decoding "
-          f"{s['jpeg'] / n * 1e3:.2f} ms a file, PNG masks "
-          f"{s['png'] / n * 1e3:.2f} ms a file (thread time, native "
-          f"unfilter, a task a face), the device "
-          f"waited for them {s['wait'] / n * 1e3:.2f} ms a file; device: "
-          f"reconstruction (IDCT, upsampling, colour) "
-          f"{s['reconstruct'] / n * 1e3:.2f} ms, resizes "
-          f"{s['resize'] / n * 1e3:.2f} ms, copy to the host "
-          f"{s['copy'] / n * 1e3:.2f} ms a file; writes "
-          f"{s['write'] / n * 1e3:.2f} ms a file; 30,000 files would take "
-          f"{30000 / rate / 60:.1f} min [{card}]")
-    own = s["reconstruct"] + s["resize"] + s["copy"]
-    print(f"preprocess at 1024 -> 128 px: the device waited for the host "
-          f"{s['wait'] / n * 1e3:.2f} ms a file against its own "
-          f"reconstruction, resizes and copy {own / n * 1e3:.2f} ms a file "
-          f"and the writes' {s['write'] / n * 1e3:.2f} ms [{card}]")
-    check(s["wall"] >= 10.0, f"the 1024 px run did only {s['wall']:.1f} s "
-          "of work")
+    # the fixture runs above warmed the path at the face's 1024 px
+    rates, owns, busy = [], [], []
+    t_runs = time.perf_counter()
+    for run in range(3):
+        s, wall = run_1024()
+        n = s["files"]
+        rate = n / s["wall"]
+        own = s["reconstruct"] + s["resize"] + s["copy"]
+        rates.append(rate)
+        owns.append(own / n * 1e3)
+        busy.append(s["cores_busy"])
+        print(f"preprocess at 1024 -> 128 px, run {run + 1} of 3, {n} files "
+              f"(one 4:2:0 q95 face, {len(data):,} bytes, and its "
+              f"{len(parts)} masks; reads warm: the copies were just "
+              f"written): {rate:.3f} files/s over {s['wall']:.3f} s "
+              f"({wall:.3f} s with the CLI's set-up); host threads "
+              f"({s['threads']}): JPEG reading and entropy decoding "
+              f"{s['jpeg'] / n * 1e3:.2f} ms a file, PNG masks "
+              f"{s['png'] / n * 1e3:.2f} ms a file (thread time, native "
+              f"unfilter, a task a face), the device waited for them "
+              f"{s['wait'] / n * 1e3:.2f} ms a file; the main thread's "
+              f"device work ({s['device_calls']} operators and launches a "
+              f"chunk at most): staging, copies up and reconstruction "
+              f"{s['reconstruct'] / n * 1e3:.2f} ms, resizes "
+              f"{s['resize'] / n * 1e3:.2f} ms, copy to the host "
+              f"{s['copy'] / n * 1e3:.2f} ms a file ({own / n * 1e3:.2f} in "
+              f"all); writes {s['write'] / n * 1e3:.2f} ms a file; the "
+              f"host's cores busy {s['cores_busy']:.2f} of "
+              f"{os.cpu_count()} (CPU seconds over the wall); 30,000 files "
+              f"would take {30000 / rate / 60:.1f} min [{card}]")
+        check(n == PACE_FILES, f"the 1024 px run preprocessed {n} files, "
+              f"not {PACE_FILES}")
+        check(s["device_calls"] < 20, f"the 1024 px run's device work: "
+              f"{s['device_calls']} operators and launches a chunk, not "
+              "under 20")
+        spent = time.perf_counter() - t_runs
+        check(spent <= PACE_BUDGET_S, f"the 1024 px runs spent {spent:.1f} s "
+              f"in {run + 1} of 3 runs, over their {PACE_BUDGET_S:.0f} s")
+    rate = statistics.median(rates)
+    print(f"preprocess at 1024 -> 128 px over three runs: "
+          f"{', '.join(f'{r:.3f}' for r in rates)} files/s (median "
+          f"{rate:.3f}); main thread's device work "
+          f"{', '.join(f'{o:.2f}' for o in owns)} ms a file; "
+          f"{s['device_calls']} operators and launches a chunk; the host's "
+          f"cores busy {', '.join(f'{b:.2f}' for b in busy)} of "
+          f"{os.cpu_count()} [{card}]")
     torch.cuda.synchronize()
     path_launches["preprocess"] = renderer_cuda.launches
     check(path_launches["preprocess"] == 0, "preprocessing launched the "
           f"render kernel {path_launches['preprocess']} times")
+    counts = {"jpeg_reconstruct": jpeg_cuda.launches,
+              "cv_resize": resize_cuda.launches,
+              "cv_resize_mask_groups": resize_cuda.mask_launches}
+    print(f"preprocessing's kernel launches on its path (the CLI runs in "
+          f"this process): {counts}")
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+        check(k["launches"] > 0, f"preprocessing never launched {k['name']}")
     png.update({"files": png_native.files,
                 "png_thread_ms_a_face": s["png"] / n * 1e3,
                 "wait_ms_a_file": s["wait"] / n * 1e3,
                 "device_ms_a_file": own / n * 1e3,
+                "device_calls_a_chunk": s["device_calls"],
+                "cores_busy": busy,
                 "write_ms_a_file": s["write"] / n * 1e3})
     return {"name": "jpeg_huffman", "route": "host C++",
             "source": "cdgvae_torch/csrc/jpeg_huffman.cpp",
             "replaces": "cv2.imread's entropy decoding in the JAX "
                         "package's CelebA preprocessing (no TPU kernel)",
-            "scans": jpeg_native.scans, "ms": native_ms,
-            "plain_ms": plain_ms, "files_per_s": rate,
-            "minutes_for_30000": 30000 / rate / 60}, png
+            "scans": jpeg_native.scans, "max_abs_err": coef_err,
+            "ms": native_ms, "plain_ms": plain_ms,
+            # the face's file read once, its coefficients written once
+            "bound_ms": (len(data) + blocks * 128) / PEAK_BYTES_PER_S * 1e3,
+            "files_per_s": rate,
+            "files_per_s_runs": rates,
+            "minutes_for_30000": 30000 / rate / 60}, png, kernels
 
 
 def library_options(*, card: str, dev, dataset, path_launches: dict,
@@ -3675,10 +3927,16 @@ def main() -> int:
     work = root / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
 
-    # 2. build
+    # 2. build: every kernel's compiler started together, one a source
     t0 = time.perf_counter()
-    lib = _build.build("render", ["render.cu"])
-    print(f"build render.cu: {time.perf_counter() - t0:.2f} s -> {lib.name}")
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
+        built = {name: pool.submit(
+            _build.build_host if source.endswith(".cpp") else _build.build,
+            name, [source]) for name, source in BUILDS.items()}
+        built = {name: f.result() for name, f in built.items()}
+    lib = built["render"]
+    print(f"build {', '.join(BUILDS.values())} together: "
+          f"{time.perf_counter() - t0:.2f} s -> {lib.name}")
     print("ptxas report (registers, shared memory, spills, stack frame):")
     print(lib.with_suffix(".log").read_text().strip())
 
@@ -4254,9 +4512,9 @@ def main() -> int:
 
     # 20. the packed layout and CelebAMask-HQ preprocessing, which render
     # nothing
-    decoder, png = packing_and_preprocess(root=root, work=work, card=card,
-                                          dev=dev,
-                                          path_launches=path_launches)
+    decoder, png, preprocess_entries = packing_and_preprocess(
+        root=root, work=work, card=card, dev=dev,
+        path_launches=path_launches)
 
     # 21. the library options (bf16 steps, uint8 storage) and the CDM study
     # cut
@@ -4292,13 +4550,25 @@ def main() -> int:
     print(json.dumps({"host_decoder": decoder}))
     print(json.dumps({"host_png_unfilter": {**png, **png_tree_rates}}))
     print(card_line())
+    # the host C++ decoders' bounds are the card's: their bytes over its
+    # memory rate
+    host_entries = [
+        {"name": name, "route": "host C++", "source": d["source"],
+         "replaces": d["replaces"], "launches": launched,
+         "max_abs_err": d["max_abs_err"], "ms": ms, "plain_ms": plain,
+         "bound_ms": d["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        for name, d, launched, ms, plain in (
+            ("jpeg_huffman", decoder, decoder["scans"], decoder["ms"],
+             decoder["plain_ms"]),
+            ("png_unfilter", png, png["files"], png["mask_ms_a_face"],
+             png["plain_mask_ms_a_face"]))]
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda",
         "source": "cdgvae_torch/csrc/render.cu",
         "replaces": "cdgvae_tpu/ops/renderer_pallas.py:146",
         "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]}))
+        "library_ms": None}, *host_entries, *preprocess_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -83,7 +83,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.cli.celeba_preprocess",
                  "cdgvae_torch.models.torchvision_resnet",
                  "cdgvae_torch.tools.celeba_pretrain",
-                 "cdgvae_torch.tools.celeba_probe"):
+                 "cdgvae_torch.tools.celeba_probe",
+                 "cdgvae_torch.ops.jpeg_cuda", "cdgvae_torch.ops.resize_cuda",
+                 "cdgvae_torch.data.staging",
+                 "cdgvae_torch.tools.preprocess_pace"):
         assert name in result["modules"]
 
 

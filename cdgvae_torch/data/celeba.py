@@ -145,7 +145,7 @@ def _chunk_staged(jpegs: list, masks: list, groups: list, size: int,
     S, S] (numpy), from the chunk staged in one copy
     (``data/staging.py``): the JPEGs' coefficients, tables and
     orientations, the resize taps, the masks (in their files' channels,
-    ``_read_masks``) and the mask groups' part lists; then two launches a
+    ``_read_masks``) and the mask groups' part lists; then one launch a
     JPEG geometry (``StagedJpegs``), one image resize a source size and
     one mask-group launch a mask size, into one output buffer copied back
     once. On a CUDA device those are the kernels, on the CPU their plain

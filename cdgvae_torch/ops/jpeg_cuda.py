@@ -6,12 +6,12 @@ Replaces no TPU kernel: it ports the pixel reconstruction that
 (``data/jpeg.py::reconstruct`` and ``_orient`` stay the plain version and
 the CPU path). The library is built by ``nvcc`` at first launch
 (``_build.py``) and bound with ``ctypes``. :func:`reconstruct` checks its
-inputs, allocates the samples between the two kernels, launches both on
-the current stream without synchronising, and raises if a launch fails.
-It never falls back to the plain version.
+inputs, launches the one kernel (IDCT, upsampling, colour and
+orientation, the samples kept in shared memory) on the current stream
+without synchronising, and raises if the launch fails. It never falls
+back to the plain version.
 
-``launches`` counts the kernels launched: two a call, the IDCT and the
-upsampling and colour conversion.
+``launches`` counts the kernels launched: one a call.
 """
 from __future__ import annotations
 
@@ -23,6 +23,10 @@ from . import _build
 
 # data/jpeg.py::JpegCoefficients.colour, in the kernel's numbering
 COLOURS = ("ycc", "rgb", "grey")
+# csrc/jpeg_reconstruct.cu's kNarrow: the largest input magnitude of an
+# ISLOW IDCT pass whose every intermediate stays inside int32 (the source
+# derives it; tests/test_torch_preprocess_kernels.py checks it)
+IDCT_NARROW = 34531
 
 launches = 0
 _lib = None
@@ -35,11 +39,9 @@ def _load():
                                            ["jpeg_reconstruct.cu"])))
         p, i = ctypes.c_void_p, ctypes.c_int
         sampling = ctypes.POINTER(ctypes.c_int)
-        lib.cdgvae_jpeg_idct.argtypes = [p, p, p, i, i, i, i, sampling, p]
-        lib.cdgvae_jpeg_idct.restype = i
-        lib.cdgvae_jpeg_colour.argtypes = [p, p, p, i, i, i, i, sampling, i,
-                                           p]
-        lib.cdgvae_jpeg_colour.restype = i
+        lib.cdgvae_jpeg_reconstruct.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                sampling, i, p]
+        lib.cdgvae_jpeg_reconstruct.restype = i
         _lib = lib
     return _lib
 
@@ -81,18 +83,24 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 def reconstruct(coef: torch.Tensor, quant: torch.Tensor,
                 orientation: torch.Tensor, geometry: tuple,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                wide: torch.Tensor | None = None) -> torch.Tensor:
     """The pixels of n files of one ``geometry`` (``(height, width,
     sampling, colour)``, ``data/jpeg.py::JpegCoefficients.geometry``) on
-    their CUDA device.
+    their CUDA device, in one launch.
 
     ``coef`` int16 holds every component's blocks, component-major: [n,
     blocks down, blocks across, 64] (natural order) of component 0, then of
-    1 and 2; ``quant`` int32 [n, components, 64] the files' tables;
+    1 and 2, starting at a 4-byte boundary (``data/staging.py``'s pieces
+    start on whole words); ``quant`` int32 [n, components, 64] the files'
+    tables;
     ``orientation`` int32 [n] their EXIF orientations. Returns uint8 of n *
     height * width * 3 elements (``out``, if given): file f's BGR image at
     f * height * width * 3, [height, width, 3] in its orientation's frame
-    ([width, height, 3] for 5-8)."""
+    ([width, height, 3] for 5-8). ``wide``, an int32 [4] tensor on the
+    same device if given, gets the kernel's IDCT passes added to it, a
+    warp's pass of 4 blocks (8 halo blocks) at a time: column passes in
+    32 and in 64 bits, then row passes in 32 and in 64 bits."""
     _check_geometry(geometry)
     height, width, sampling, colour = geometry
     n = orientation.numel()
@@ -100,11 +108,18 @@ def reconstruct(coef: torch.Tensor, quant: torch.Tensor,
     _check("coef", coef, torch.int16, count * 64)
     _check("quant", quant, torch.int32, n * len(sampling) * 64)
     _check("orientation", orientation, torch.int32, n)
+    if coef.data_ptr() % 4:
+        raise ValueError("coef must start at a 4-byte boundary (its blocks "
+                         "are read as 4-byte words)")
+    if wide is not None:
+        _check("wide", wide, torch.int32, 4)
     if out is None:
         out = torch.empty(n * height * width * 3, dtype=torch.uint8,
                           device=coef.device)
     _check("out", out, torch.uint8, n * height * width * 3)
-    devices = {t.device for t in (coef, quant, orientation, out)}
+    tensors = (coef, quant, orientation, out) + (
+        () if wide is None else (wide,))
+    devices = {t.device for t in tensors}
     if len(devices) != 1 or coef.device.type != "cuda":
         raise ValueError("reconstruct needs its tensors on one CUDA device, "
                          f"got {sorted(map(str, devices))}")
@@ -114,22 +129,13 @@ def reconstruct(coef: torch.Tensor, quant: torch.Tensor,
     factors = (ctypes.c_int * 6)(*[k for hv in sampling for k in hv])
     global launches
     with torch.cuda.device(coef.device):
-        samples = torch.empty(count * 64, dtype=torch.uint8,
-                              device=coef.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cdgvae_jpeg_idct(coef.data_ptr(), quant.data_ptr(),
-                                  samples.data_ptr(), n, height, width,
-                                  len(sampling), factors, stream)
+        rc = lib.cdgvae_jpeg_reconstruct(
+            coef.data_ptr(), quant.data_ptr(), orientation.data_ptr(),
+            out.data_ptr(), None if wide is None else wide.data_ptr(), n,
+            height, width, len(sampling), factors, COLOURS.index(colour),
+            torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"JPEG IDCT kernel launch failed: CUDA error "
-                               f"{rc}")
-        launches += 1
-        rc = lib.cdgvae_jpeg_colour(samples.data_ptr(),
-                                    orientation.data_ptr(), out.data_ptr(),
-                                    n, height, width, len(sampling), factors,
-                                    COLOURS.index(colour), stream)
-        if rc != 0:
-            raise RuntimeError(f"JPEG colour kernel launch failed: CUDA "
-                               f"error {rc}")
+            raise RuntimeError(f"JPEG reconstruction kernel launch failed: "
+                               f"CUDA error {rc}")
         launches += 1
     return out

@@ -4,10 +4,12 @@ for part-mask groups.
 
 Replaces no TPU kernel: it ports the ``cv2.resize`` of the JAX package's
 CelebAMask-HQ preprocessing (``data/cv_resize.py::resize_linear`` stays
-the plain version and the CPU path). The library is built by ``nvcc`` at
-first launch (``_build.py``) and bound with ``ctypes``. Each function
-checks its inputs, launches on the current stream without synchronising
-and raises if the launch fails. Neither falls back to the plain version.
+the plain version and the CPU path). A thread makes every channel of an
+output pixel from one tap pair on a 2-D grid (the images or group
+entries down, runs of 256 output pixels across). The library is built
+by ``nvcc`` at first launch (``_build.py``) and bound with ``ctypes``.
+Each function checks its inputs, launches on the current stream without
+synchronising and raises if the launch fails. Neither falls back to the plain version.
 The taps are ``data/cv_resize.py::packed_taps``: OpenCV's float32
 arithmetic, done on the host.
 

@@ -149,15 +149,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     through the CUDA kernels of ``csrc/jpeg_reconstruct.cu`` and
     ``csrc/cv_resize.cu`` (built, held against their plain versions on
     the fixture JPEGs and on a chunk of 16 copies of the 1024 px face and
-    its masks, max |d| 0, and timed there on CUDA events beside their
-    bounds; their launches on the preprocessing runs of this process
-    counted), and files a second at 1024 -> 128 px over copies of the
-    1024 px face in three runs of :data:`PACE_FILES` files each, which must
-    end within :data:`PACE_BUDGET_S` together (host threads' ms a
-    file of JPEG and PNG decoding,
-    the device's wait against the main thread's staging, reconstruction,
-    resize and copy ms, its operators and launches a chunk, which must
-    stay under 20, the 30,000-file estimate). Neither path renders: 0
+    its masks, max |d| 0, the chunk's IDCT passes counted by width, and
+    timed there on device time beside the host's time a call, an empty
+    launch and their bounds; their launches on the preprocessing runs of
+    this process counted), and files a second at 1024 -> 128 px over
+    copies of the 1024 px face in three runs of :data:`PACE_FILES` files
+    each, which must end within :data:`PACE_BUDGET_S` together (host
+    threads' ms a file of JPEG and PNG decoding, the device's wait
+    against the main thread's staging, reconstruction, resize and copy
+    ms, its operators and launches a chunk, which must stay under 20,
+    the 30,000-file estimate). Neither path renders: 0
     launches each; the decoder's numbers go on a ``{"host_decoder":
     ...}`` line and the unfilter's (with phase 15's) on a
     ``{"host_png_unfilter": ...}`` line before the card's, and both, as
@@ -416,23 +417,6 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """The device time of ``fn`` a call, from CUDA events around ``reps``
-    calls that the host queues while a sleeping kernel holds the stream,
-    so that no host gap falls between them."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # about 0.1 s at the H100's clock
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def host_waits(kernels_and_events) -> dict:
@@ -1992,6 +1976,7 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
     from cdgvae_torch.parallel import make_mesh, process_group, replicate
     from cdgvae_torch.parallel.mesh import GradBuffer
     from cdgvae_torch.parallel.dryrun import dryrun_multichip
+    from cdgvae_torch.tools.preprocess_pace import device_ms
     from cdgvae_torch.train.celeba_steps import make_celeba_step
     from cdgvae_torch.train.loop import run_epochs
     from cdgvae_torch.train.online import (make_online_run_from_loss,
@@ -2453,19 +2438,20 @@ def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
 
 def preprocess_kernels(*, corpus: Path, card: str, dev) -> list[dict]:
     """Phase 20's CUDA kernels at the main path's shapes: built, then held
-    against their plain versions on the card (max |d| 0) and timed on CUDA
-    events beside them and their bounds. A chunk is 16 copies of the 1024
-    px face and its masks as preprocessing stages them (the masks in their
-    files' channels), resized to 128 px. Returns their entries for the
-    kernels line (``launches`` filled in by the main path)."""
-    from cdgvae_torch.data.celeba import (SMILE_SEG_MAP, _CHUNK,
-                                          _read_masks)
-    from cdgvae_torch.data.cv_resize import (mask_groups_plain, packed_taps,
-                                             resize_linear)
-    from cdgvae_torch.data.jpeg import (StagedJpegs, _orient, jpeg_pixels,
-                                        read_jpeg, reconstruct)
-    from cdgvae_torch.data.staging import Staging
-    from cdgvae_torch.ops import _build, jpeg_cuda, resize_cuda
+    against their plain versions on the card (max |d| 0) and timed on
+    device time (calls queued behind a sleeping kernel, ``device_ms``)
+    beside the host's time a call (``host_ms``), an empty launch, their
+    bounds and their plain versions. A chunk is 16 copies of the 1024 px
+    face and its masks as preprocessing stages them (the masks in their
+    files' channels), resized to 128 px
+    (``tools/preprocess_pace.py::kernel_chunk``). Returns their entries for
+    the kernels line (``launches`` filled in by the main path)."""
+    from cdgvae_torch.data.cv_resize import mask_groups_plain, resize_linear
+    from cdgvae_torch.data.jpeg import (_orient, jpeg_pixels, read_jpeg,
+                                        reconstruct)
+    from cdgvae_torch.ops import _build, jpeg_cuda
+    from cdgvae_torch.tools.preprocess_pace import (device_ms, host_ms,
+                                                    kernel_chunk)
 
     t0 = time.perf_counter()
     for name in ("jpeg_reconstruct", "cv_resize"):
@@ -2476,7 +2462,6 @@ def preprocess_kernels(*, corpus: Path, card: str, dev) -> list[dict]:
             report.splitlines() if "Used" in line or "stack frame" in line))
     print(f"built jpeg_reconstruct.cu and cv_resize.cu in "
           f"{time.perf_counter() - t0:.1f} s (host clock)")
-    size, n = 128, _CHUNK
 
     # the reconstruction: every fixture JPEG in one staged call, then the
     # chunk, against reconstruct and _orient on the card
@@ -2484,24 +2469,18 @@ def preprocess_kernels(*, corpus: Path, card: str, dev) -> list[dict]:
     files = [read_jpeg(p.read_bytes(), p.name, "native") for p in jpegs]
     err = max(int((g.cpu().int() - w.int()).abs().max()) for g, w in zip(
         jpeg_pixels(files, dev), jpeg_pixels(files, "cpu")))
-    face = files[0]
-    chunk = [face] * n
-    staging = Staging()
-    staged = StagedJpegs(chunk, staging)
-    pieces = staging.send(dev)
-    (coef, quant, orient), = staged.slots
-    pixels = torch.empty(n * face.height * face.width * 3, dtype=torch.uint8,
-                         device=dev)
-
-    def kernel_jpeg():
-        jpeg_cuda.reconstruct(pieces[coef], pieces[quant], pieces[orient],
-                              face.geometry, pixels)
+    c = kernel_chunk(corpus, dev)
+    face, n, size, mhw = c["face"], c["n"], c["size"], c["mhw"]
+    pixels, imgs, seg, masks = c["pixels"], c["imgs"], c["seg"], c["masks"]
+    wide = torch.zeros(4, dtype=torch.int32, device=dev)
+    jpeg_cuda.reconstruct(c["coef"], c["quant"], c["orient"], face.geometry,
+                          pixels, wide)
+    passes = wide.tolist()
 
     def plain_jpeg():
         return [_orient(p, face.orientation)
-                for p in reconstruct(chunk, dev)]
+                for p in reconstruct(c["chunk"], dev)]
 
-    kernel_jpeg()
     want = torch.stack(plain_jpeg())
     err = max(err, int((pixels.view(want.shape).int() - want.int()).abs(
         ).max()))
@@ -2512,72 +2491,38 @@ def preprocess_kernels(*, corpus: Path, card: str, dev) -> list[dict]:
     # products and clamps a block; upsampling and colour about 50 a pixel
     jpeg_bound = bound_of(n * (blocks * 128 + 3 * 64 * 4 + 4 + hw * 3),
                           n * (blocks * (16 * 60 + 64 * 3) + hw * 50))
-    jpeg_ms, jpeg_plain_ms = time_ms(kernel_jpeg), time_ms(plain_jpeg, 3, 3)
 
     # the images' resize, 1024 -> 128 px
-    taps = torch.as_tensor(packed_taps(face.height, face.width, size, size),
-                           device=dev)
-    imgs = torch.empty(n * size * size * 3, dtype=torch.uint8, device=dev)
-    shape = (n, face.height, face.width, 3)
-
-    def kernel_resize():
-        resize_cuda.resize(pixels, shape, taps, size, size, imgs)
-
     def plain_resize():
-        return resize_linear(pixels.view(shape), size, size)
+        return resize_linear(pixels.view(c["shape"]), size, size)
 
-    kernel_resize()
+    c["cv_resize"]()
     resize_err = int((imgs.view(n, size, size, 3).int()
                       - plain_resize().int()).abs().max())
     resize_bound = bound_of(
         n * (resize_read_bytes(face.height, face.width, 3, size)
-             + size * size * 3) + taps.numel() * 4,
+             + size * size * 3) + c["taps"].numel() * 4,
         n * size * size * 3 * 12)
-    resize_ms, resize_plain_ms = time_ms(kernel_resize), time_ms(
-        plain_resize)
 
     # the mask groups: the face's masks 16 times, the smile structure, as
     # preprocessing stages them (each in its file's channels)
-    per_face, masks = _read_masks(str(corpus), [0], SMILE_SEG_MAP, "native")
-    masks = masks * n
-    mhw = masks[0].shape[:2]
-    stacked = torch.as_tensor(np.concatenate([m.reshape(-1) for m in masks]),
-                              device=dev)
-    index = torch.as_tensor(np.stack([
-        np.cumsum([0] + [m.size for m in masks[:-1]]),
-        [m.shape[2] for m in masks]], axis=1).reshape(-1), dtype=torch.int32,
-        device=dev)
-    per = len(masks) // n
-    entries = [[j + f * per for j in g] for f in range(n) for g in per_face[0]]
-    starts = torch.as_tensor(np.cumsum([0] + [len(g) for g in entries]),
-                             dtype=torch.int32, device=dev)
-    parts = torch.as_tensor([j for g in entries for j in g],
-                            dtype=torch.int32, device=dev)
-    mtaps = torch.as_tensor(packed_taps(*mhw, size, size), device=dev)
-    seg = torch.empty(len(entries) * size * size, dtype=torch.uint8,
-                      device=dev)
     seg_plain = torch.empty_like(seg)
 
-    def kernel_masks():
-        resize_cuda.mask_groups(stacked, index, mhw, mtaps, starts, parts,
-                                size, size, seg)
-
     def plain_masks():
-        mask_groups_plain(stacked, index, mhw, starts, parts, size, size,
-                          seg_plain)
+        mask_groups_plain(c["stacked"], c["index"], mhw, c["starts"],
+                          c["parts"], size, size, seg_plain)
 
-    kernel_masks()
+    c["cv_resize_mask_groups"]()
     plain_masks()
     mask_err = int((seg.int() - seg_plain.int()).abs().max())
+    entries = c["entries"]
     used = {j for g in entries for j in g}
     channels = [m.shape[2] for m in masks]
     mask_bound = bound_of(
         sum(resize_read_bytes(*mhw, channels[j], size) for j in used)
-        + (index.numel() + starts.numel() + parts.numel() + mtaps.numel()) * 4
-        + seg.numel(),
+        + sum(c[k].numel() for k in ("index", "starts", "parts", "mtaps"))
+        * 4 + seg.numel(),
         sum(channels[j] for g in entries for j in g) * size * size * 12)
-    mask_ms, mask_plain_ms = time_ms(kernel_masks), time_ms(plain_masks, 3,
-                                                             3)
     check(err == 0 and resize_err == 0 and mask_err == 0,
           f"the preprocessing kernels differ from their plain versions: "
           f"reconstruction {err}, resize {resize_err}, mask groups "
@@ -2589,39 +2534,60 @@ def preprocess_kernels(*, corpus: Path, card: str, dev) -> list[dict]:
           f"{len(masks)} masks ({mhw[0]}x{mhw[1]}, {channels.count(1)} grey, "
           f"{len(masks) - channels.count(1)} colour), {len(entries)} groups "
           f"[{card}]")
-    print(f"times at the chunk's shapes (CUDA events): jpeg_reconstruct "
-          f"(IDCT and colour, 2 launches) {jpeg_ms * 1e3:.2f} us against a "
-          f"{jpeg_bound[0] * 1e3:.2f} us bound ({jpeg_bound[1]}), plain "
-          f"reconstruct and _orient {jpeg_plain_ms * 1e3:.1f} us (with its "
-          f"copies of the coefficients to the card); cv_resize "
-          f"{resize_ms * 1e3:.2f} us against {resize_bound[0] * 1e3:.2f} us "
-          f"({resize_bound[1]}), plain resize_linear "
-          f"{resize_plain_ms * 1e3:.1f} us; mask groups {mask_ms * 1e3:.2f} "
-          f"us against {mask_bound[0] * 1e3:.2f} us ({mask_bound[1]}), plain"
-          f" {mask_plain_ms * 1e3:.1f} us [{card}]")
+    # the chunk's IDCT passes: a warp's column or row pass of 4 blocks (8
+    # halo blocks), in 32 bits where its inputs fit
+    print(f"jpeg_reconstruct's IDCT passes on the chunk (one launch): "
+          f"column passes {passes[0]} in 32 bits, {passes[1]} in 64; row "
+          f"passes {passes[2]} in 32 bits, {passes[3]} in 64")
+
+    # device times (the kernel alone) beside the host's time a call (the
+    # wrapper's checks and launch)
+    times = {k: (device_ms(c[k]), host_ms(c[k])) for k in (
+        "jpeg_reconstruct", "cv_resize", "cv_resize_mask_groups")}
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0))
+    plain = {"jpeg_reconstruct": time_ms(plain_jpeg, 3, 3),
+             "cv_resize": time_ms(plain_resize),
+             "cv_resize_mask_groups": time_ms(plain_masks, 3, 3)}
+    bounds = {"jpeg_reconstruct": jpeg_bound, "cv_resize": resize_bound,
+              "cv_resize_mask_groups": mask_bound}
+    rows = []
+    for k, (dev_ms, call_ms) in times.items():
+        b_ms, b_by = bounds[k]
+        rows.append(f"{k} {dev_ms * 1e3:.2f} us (host {call_ms * 1e3:.2f}) "
+                    f"against a {b_ms * 1e3:.2f} us bound ({b_by}: "
+                    f"{b_ms / dev_ms:.3f} of it), plain "
+                    f"{plain[k] * 1e3:.1f} us")
+    print(f"times at the chunk's shapes (device time a call, then the "
+          f"host's time a call; an empty launch {empty_ms * 1e3:.2f} us): "
+          + "; ".join(rows) + f" [{card}]")
+    entry = {"route": "cuda", "library_ms": None,
+             "empty_launch_ms": empty_ms}
     return [
-        {"name": "jpeg_reconstruct", "route": "cuda",
+        {"name": "jpeg_reconstruct", **entry,
          "source": "cdgvae_torch/csrc/jpeg_reconstruct.cu",
          "replaces": "cv2.imread's pixel reconstruction (IDCT, upsampling, "
                      "colour, EXIF orientation) in the JAX package's CelebA "
                      "preprocessing; no TPU kernel",
-         "max_abs_err": err, "ms": jpeg_ms, "plain_ms": jpeg_plain_ms,
-         "bound_ms": jpeg_bound[0], "bound_by": jpeg_bound[1],
-         "library_ms": None},
-        {"name": "cv_resize", "route": "cuda",
+         "max_abs_err": err, "ms": times["jpeg_reconstruct"][0],
+         "host_call_ms": times["jpeg_reconstruct"][1],
+         "plain_ms": plain["jpeg_reconstruct"], "bound_ms": jpeg_bound[0],
+         "bound_by": jpeg_bound[1], "idct_passes_32_64": passes},
+        {"name": "cv_resize", **entry,
          "source": "cdgvae_torch/csrc/cv_resize.cu",
          "replaces": "cv2.resize of the images in the JAX package's CelebA "
                      "preprocessing; no TPU kernel",
-         "max_abs_err": resize_err, "ms": resize_ms,
-         "plain_ms": resize_plain_ms, "bound_ms": resize_bound[0],
-         "bound_by": resize_bound[1], "library_ms": None},
-        {"name": "cv_resize_mask_groups", "route": "cuda",
+         "max_abs_err": resize_err, "ms": times["cv_resize"][0],
+         "host_call_ms": times["cv_resize"][1],
+         "plain_ms": plain["cv_resize"], "bound_ms": resize_bound[0],
+         "bound_by": resize_bound[1]},
+        {"name": "cv_resize_mask_groups", **entry,
          "source": "cdgvae_torch/csrc/cv_resize.cu",
          "replaces": "cv2.resize of the part masks and their groups' any in"
                      " the JAX package's CelebA preprocessing; no TPU kernel",
-         "max_abs_err": mask_err, "ms": mask_ms, "plain_ms": mask_plain_ms,
-         "bound_ms": mask_bound[0], "bound_by": mask_bound[1],
-         "library_ms": None}]
+         "max_abs_err": mask_err, "ms": times["cv_resize_mask_groups"][0],
+         "host_call_ms": times["cv_resize_mask_groups"][1],
+         "plain_ms": plain["cv_resize_mask_groups"],
+         "bound_ms": mask_bound[0], "bound_by": mask_bound[1]}]
 
 
 def expected_mask_files(corpus: Path, structure: str, train: bool) -> int:
@@ -3292,6 +3258,7 @@ def graphed_epochs(*, work: Path, card: str, dev, dataset,
     from cdgvae_torch.models.sagan import sn_refresh
     from cdgvae_torch.ops import renderer_cuda
     from cdgvae_torch.ops.packing import Packer
+    from cdgvae_torch.tools.preprocess_pace import device_ms
     from cdgvae_torch.train.celeba_steps import make_celeba_step
     from cdgvae_torch.train.loop import run_epochs
     from cdgvae_torch.train.scanned import NoisePlan, make_epoch_runner
@@ -3453,6 +3420,7 @@ def graphed_paths(*, work: Path, card: str, dev, dataset,
     from cdgvae_torch.factory import (build_pendulum_model,
                                       build_tabular_model, tvae_block_mask)
     from cdgvae_torch.ops import renderer_cuda
+    from cdgvae_torch.tools.preprocess_pace import device_ms
     from cdgvae_torch.train.online import (dr_batch_fn,
                                            make_online_run_from_loss,
                                            pendulum_batch_fn)

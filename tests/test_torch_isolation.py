@@ -86,7 +86,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cdgvae_torch.tools.celeba_probe",
                  "cdgvae_torch.ops.jpeg_cuda", "cdgvae_torch.ops.resize_cuda",
                  "cdgvae_torch.data.staging",
-                 "cdgvae_torch.tools.preprocess_pace"):
+                 "cdgvae_torch.tools.preprocess_pace",
+                 "cdgvae_torch.tools.jpeg_loads"):
         assert name in result["modules"]
 
 

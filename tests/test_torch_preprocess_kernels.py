@@ -11,6 +11,8 @@ The kernels themselves run on the card only
 (``tests/test_torch_preprocess_cuda.py``).
 """
 import hashlib
+import inspect
+import itertools
 import json
 import subprocess
 import sys
@@ -98,6 +100,12 @@ def _jpeg_args(n: int = 2, geometry: tuple = G420, **change) -> dict:
     ({"geometry": (24, 40, ((1, 1),) * 4, "ycc")}, ValueError,
      "4 components"),
     ({"geometry": (0, 40, ((1, 1),), "grey")}, ValueError, "a frame of"),
+    ({"coef": torch.zeros(4608 + 1, dtype=torch.int16)[1:]}, ValueError,
+     "coef must start at a 4-byte boundary"),
+    ({"wide": torch.zeros(4, dtype=torch.int64)}, TypeError,
+     "wide must be torch.int32"),
+    ({"wide": torch.zeros(3, dtype=torch.int32)}, ValueError,
+     "wide must be a contiguous tensor of 4"),
 ])
 def test_jpeg_wrapper_refuses_before_any_build(no_build, change, error,
                                                match):
@@ -388,3 +396,123 @@ def test_pace_tool_counts_a_tree_in_its_own_process(tmp_path):
                             tmp_path / "1", tmp_path / "out", 32, "cpu")
     assert s["files"] == 1 and s["ops"] >= s["device_calls"] > 0
     assert len(list((tmp_path / "out").rglob("*.npy"))) == 2
+
+
+def _islow_pass(x: list, shift: int, rnd: int, seen: list) -> list:
+    """One pass of ``csrc/jpeg_reconstruct.cu``'s ``idct_1d`` in numpy
+    int64, in its order of operations (the rounding ``rnd`` folded into
+    tmp0 and tmp1), every intermediate appended to ``seen``."""
+    def r(v):
+        seen.append(v)
+        return v
+    z1 = r(r(x[2] + x[6]) * 4433)
+    tmp2 = r(z1 - r(x[6] * 15137))
+    tmp3 = r(z1 + r(x[2] * 6270))
+    tmp0 = r(r(r(x[0] + x[4]) * 8192) + rnd)
+    tmp1 = r(r(r(x[0] - x[4]) * 8192) + rnd)
+    tmp10, tmp13 = r(tmp0 + tmp3), r(tmp0 - tmp3)
+    tmp11, tmp12 = r(tmp1 + tmp2), r(tmp1 - tmp2)
+    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = r(t0 + t3), r(t1 + t2), r(t0 + t2), r(t1 + t3)
+    z5 = r(r(z3 + z4) * 9633)
+    z1, z2 = r(z1 * -7373), r(z2 * -20995)
+    z3, z4 = r(r(z3 * -16069) + z5), r(r(z4 * -3196) + z5)
+    t0 = r(r(r(t0 * 2446) + z1) + z3)
+    t1 = r(r(r(t1 * 16819) + z2) + z4)
+    t2 = r(r(r(t2 * 25172) + z2) + z3)
+    t3 = r(r(r(t3 * 12299) + z1) + z4)
+    return [r(v) >> shift for v in (
+        tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0, tmp13 - t0,
+        tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+
+
+def _islow_ends(x: list, seen: list) -> list:
+    """``idct_ends``: the column pass's rows 0 and 7 alone, as the halo
+    computes them."""
+    def r(v):
+        seen.append(v)
+        return v
+    z1 = r(r(x[2] + x[6]) * 4433)
+    tmp10 = r(r(r(r(r(x[0] + x[4]) * 8192) + 1024) + z1) + r(x[2] * 6270))
+    z5 = r(r(r(r(x[7] + x[3]) + x[5]) + x[1]) * 9633)
+    t3 = r(r(r(x[1] * 12299) + r(r(x[7] + x[1]) * -7373))
+           + r(r(r(x[5] + x[1]) * -3196) + z5))
+    return [r(tmp10 + t3) >> 11, r(tmp10 - t3) >> 11]
+
+
+INT32 = (-2 ** 31, 2 ** 31 - 1)
+# the column pass (rounding 2^10, shift 11) and the row pass (2^17 and the
+# +128 folded in as 128 << 18, shift 18)
+PASSES = {"column": (11, 1 << 10), "row": (18, (1 << 17) + (128 << 18))}
+
+
+def _extremes(limit: int, passes) -> tuple:
+    """The least and greatest intermediate of ``passes`` over every sign
+    pattern of 8 inputs at +-``limit`` (an affine function's extremes over
+    the box lie at its corners)."""
+    signs = np.array(list(itertools.product((-1, 1), repeat=8)), np.int64)
+    x = [signs[:, k] * np.int64(limit) for k in range(8)]
+    seen = []
+    for name in passes:
+        if name == "ends":
+            _islow_ends(x, seen)
+        else:
+            _islow_pass(x, *PASSES[name], seen)
+    return (min(int(v.min()) for v in seen),
+            max(int(v.max()) for v in seen))
+
+
+def test_idct_32_bit_limit_is_the_largest_exact_one():
+    """``csrc/jpeg_reconstruct.cu``'s kNarrow (``jpeg_cuda.IDCT_NARROW``):
+    at +-L every intermediate of both passes and of the halo's column
+    ends stays inside int32, for every sign pattern; at L + 1 the row pass
+    leaves it. The source states the same L."""
+    limit = jpeg_cuda.IDCT_NARROW
+    source = (Path(jpeg_cuda.__file__).resolve().parent.parent / "csrc"
+              / "jpeg_reconstruct.cu").read_text()
+    assert f"constexpr int kNarrow = {limit};" in source
+    lo, hi = _extremes(limit, ("column", "row", "ends"))
+    assert INT32[0] <= lo and hi <= INT32[1]
+    lo, hi = _extremes(limit + 1, ("row",))
+    assert lo < INT32[0] or hi > INT32[1]
+    # the derivation in the source: the largest coefficient sum of an
+    # intermediate is 61,214, the largest constant 2^17 + 2^25
+    assert limit == (2 ** 31 - 1 - 2 ** 17 - 2 ** 25) // 61214
+    assert _extremes(1, ("column",))[1] - _extremes(0, ("column",))[1] == (
+        61214)
+
+
+def test_islow_pass_is_the_plain_versions():
+    """The mirrored pass above computes what ``data/jpeg.py::_idct_1d``
+    does (the row pass 128 higher), on seeded inputs inside the limit."""
+    from cdgvae_torch.data.jpeg import _idct_1d
+
+    rng = np.random.default_rng(0)
+    x = [rng.integers(-jpeg_cuda.IDCT_NARROW, jpeg_cuda.IDCT_NARROW + 1,
+                      1000) for _ in range(8)]
+    for name, (shift, rnd) in PASSES.items():
+        got = _islow_pass(x, shift, rnd, [])
+        want = _idct_1d(x, shift)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w + (128 if name == "row" else 0))
+    ends = _islow_ends(x, [])
+    want = _idct_1d(x, 11)
+    assert np.array_equal(ends[0], want[0]) and np.array_equal(ends[1],
+                                                               want[7])
+
+
+def test_pace_tool_kernel_mode_ships_a_whole_program(tmp_path):
+    """``preprocess_pace --kernels`` sends :func:`kernel_chunk` and its
+    timers to a process in each tree: the program compiles, and on the CPU
+    the chunk it builds has phase 20's shapes."""
+    code = "\n\n".join(["from pathlib import Path"] + [
+        inspect.getsource(f) for f in (preprocess_pace.kernel_chunk,
+                                       preprocess_pace.device_ms,
+                                       preprocess_pace.host_ms)]
+        + [preprocess_pace._KERNELS])
+    compile(code, "kernels", "exec")
+    c = preprocess_pace.kernel_chunk(CORPUS, "cpu")
+    assert c["n"] == 16 and c["shape"] == (16, 1024, 1024, 3)
+    assert c["coef"].data_ptr() % 4 == 0
+    assert len(c["entries"]) == 80 and len(c["masks"]) == 144
+    assert {"jpeg_reconstruct", "cv_resize", "cv_resize_mask_groups"} <= set(c)

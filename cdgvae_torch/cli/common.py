@@ -23,7 +23,7 @@ from ..parallel.mesh import (check_devices, is_main, launch, shard_rows,
                              split_batch)
 from ..train.loop import run_epochs, run_epochs_semi
 from ..train.online import make_online_run_from_loss, train_split_size
-from ..train.scanned import Averager
+from ..train.scanned import Averager, end_epoch
 
 # --platform values and the device each means
 _PLATFORM_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -291,7 +291,9 @@ def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
     subsamples its shard of the labeled rows, and the metrics are the
     cross-rank mean (``cdgvae_tpu/cli/common.py:205-268``). With
     ``graph_noise`` (one device, CUDA) each step replays a CUDA graph
-    (``train/online.py::make_online_run_from_loss``)."""
+    (``train/online.py::make_online_run_from_loss``). The epoch's
+    reduction and sync are a ``driver.epoch_end`` span
+    (``train/scanned.py::end_epoch``)."""
     bs = config["batch_size"]
     steps_per_epoch = max(train_split_size(config["n_samples"]) // bs, 1)
     kw, local_bs = {}, bs
@@ -316,7 +318,7 @@ def run_online_training(config, *, loss_fn, optimizer, device, start_epoch,
     for epoch in range(start_epoch, config["epochs"]):
         avg = Averager(mesh)
         avg.add(run(epoch * steps_per_epoch))
-        metrics = avg.result()
+        metrics = end_epoch(avg)
         on_epoch(epoch, metrics)
         history.append(metrics)
         if post_epoch is not None and (post_epoch_pred is None

@@ -39,6 +39,7 @@ from torch.func import functional_call
 from ..nn import global_batch_stats
 from ..ops import losses
 from ..parallel.mesh import GradBuffer
+from ..utils.profiling import mark
 from .steps import trained_params
 
 
@@ -126,6 +127,7 @@ def make_celeba_step(model, optimizer: torch.optim.Optimizer, beta: float,
     def step(*batch, **draws):
         with global_batch_stats(stats_mesh):
             loss, metrics = loss_fn(*batch, **draws)
+            mark("forward")
             if grads is None:
                 optimizer.zero_grad(set_to_none=True)
             else:
@@ -137,7 +139,9 @@ def make_celeba_step(model, optimizer: torch.optim.Optimizer, beta: float,
             for p in trained:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        mark("backward")
         optimizer.step()
+        mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

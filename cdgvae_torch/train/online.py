@@ -55,6 +55,7 @@ from ..data.pendulum import _BETA, sample_factors_real, shadow_physics
 from ..data.pendulum_dr import sample_factors_dr
 from ..ops.renderer import render
 from ..parallel.mesh import rank_path
+from ..utils.profiling import span
 from ..utils.simulation import ONLINE_STEP, derived_seed
 from .scanned import CapturedStep, NoisePlan, make_supervised_loss_fn
 from .steps import step_from_loss
@@ -318,12 +319,14 @@ class GraphedOnlineStep(CapturedStep):
 
     def stage(self, generator: torch.Generator) -> None:
         """The step's draws, in the eager step's order: the batch's, the
-        labeled rows, the step's noise (and marginal)."""
-        self._batch.draw(generator, out=self.draws)
-        if self._labeled is not None:
-            self.rows_l.copy_(_labeled_rows(len(self._labeled[0]),
-                                            self._bs_l, generator))
-        self.plan.draw(generator)
+        labeled rows, the step's noise (and marginal); a
+        ``driver.stage`` span."""
+        with span("driver.stage"):
+            self._batch.draw(generator, out=self.draws)
+            if self._labeled is not None:
+                self.rows_l.copy_(_labeled_rows(len(self._labeled[0]),
+                                                self._bs_l, generator))
+            self.plan.draw(generator)
 
     def body(self) -> dict:
         x, y = self._batch.batch(self.draws)
@@ -363,7 +366,8 @@ def make_online_run_from_loss(loss_fn: Callable, optimizer,
     of the labeled set are drawn without replacement), forward, backward
     and optimizer step, with data and noise drawn from the generator
     derived from ``(seed, step)``. The metrics come back as device tensors
-    [n_steps_per_call] keyed like ``loss_fn``'s, unsynced.
+    [n_steps_per_call] keyed like ``loss_fn``'s, unsynced; each step is a
+    ``driver.step`` span.
 
     Under a ``mesh`` this is one rank of the sharded trainer (module
     docstring): ``sample_batch`` draws ``local_bs`` rows, ``labeled`` is
@@ -422,8 +426,10 @@ def make_online_run_from_loss(loss_fn: Callable, optimizer,
     def run(step0: int) -> dict:
         per_step = []
         for i in range(step0, step0 + n_steps_per_call):
-            generator.manual_seed(derived_seed(seed, ONLINE_STEP, i, *path))
-            per_step.append(one_step(generator))
+            with span("driver.step"):
+                generator.manual_seed(derived_seed(seed, ONLINE_STEP, i,
+                                                   *path))
+                per_step.append(one_step(generator))
         return {k: torch.stack([m[k] for m in per_step])
                 for k in per_step[0]}
 

@@ -28,6 +28,13 @@ data, one device (no mesh) and ``capturable`` Adams
 (``train/steps.py::make_optimizer``); a failed capture raises, and
 nothing falls back to the eager loop.
 
+Both runners record host spans while a profiler records
+(``utils/profiling.py::span``): each step a ``driver.step``, inside it
+the graphed step's ``driver.stage`` and ``driver.replay``, and the
+epoch's reduction and sync a ``driver.epoch_end``. A capture marks the
+step's device phases with timing events in its graph
+(``utils/profiling.py::mark``).
+
 A uint8 dataset is quantized images (:func:`quantize_images`): both
 runners gather its rows as bytes and decode them in the step
 (:func:`unflatten_items`), so it trains what its dequantised float32
@@ -49,7 +56,8 @@ import torch
 
 from ..ops import losses, renderer_cuda
 from ..parallel.mesh import all_reduce_mean
-from ..utils.profiling import count_replayed_step
+from ..utils.profiling import (capturing, count_replayed_step, mark,
+                               phase_times, span)
 from .steps import _metrics, forward
 
 
@@ -71,15 +79,28 @@ class Averager:
         self._acc.append({k: v.detach().clone() for k, v in metrics.items()})
 
     def result(self) -> dict:
-        if not self._acc:
+        """The mean, which empties the averager: its copies are freed
+        before it returns."""
+        acc, self._acc = self._acc, []
+        if not acc:
             return {}
-        keys = sorted(self._acc[0])
+        keys = sorted(acc[0])
         means = torch.stack([torch.cat([m[k].reshape(-1)
-                                        for m in self._acc]).mean()
+                                        for m in acc]).mean()
                              for k in keys])
         if self._mesh is not None:
             all_reduce_mean([means], self._mesh)
         return dict(zip(keys, means.tolist()))
+
+
+def end_epoch(avg: Averager) -> dict:
+    """An epoch's end, a ``driver.epoch_end`` span: ``avg.result()``, the
+    epoch's one host sync, and right after it, while tracing, the read of
+    the last replay's phases (``utils/profiling.py::phase_times``)."""
+    with span("driver.epoch_end"):
+        metrics = avg.result()
+        phase_times.read()
+    return metrics
 
 
 def make_supervised_loss_fn(model, beta: float, lam: float,
@@ -210,11 +231,13 @@ class CapturedStep:
     runs it eagerly the first time, on the stream the capture then uses,
     captures it, and replays the graph at every later call (:meth:`replay`
     alone replays it, for timing); the metrics are the graph's static
-    outputs, the same tensors at every replay. A replay counts toward an
-    open ``--profile`` trace
-    (``utils/profiling.py::count_replayed_step``) and adds the render
+    outputs, the same tensors at every replay. A replay is a
+    ``driver.replay`` span, counts toward an open ``--profile`` trace
+    (``utils/profiling.py::count_replayed_step``), adds the render
     launches the graph holds to ``ops/renderer_cuda.py``'s count
-    (:attr:`renders`: those its capture recorded).
+    (:attr:`renders`: those its capture recorded) and leaves its phase
+    marks (:attr:`marks`, the timing events the capture recorded) to be
+    read at the next host sync.
 
     The garbage collector runs before each capture: a dead reference cycle
     that holds an earlier runner's graph (a seed's or an arm's, in a
@@ -225,12 +248,15 @@ class CapturedStep:
     def __init__(self, body: Callable[[], dict], device):
         self.body, self.device = body, torch.device(device)
         self.graph, self.metrics, self.renders = None, None, 0
+        self.marks = None
 
     def replay(self) -> None:
         """One replay of the captured graph, counted."""
-        self.graph.replay()
-        renderer_cuda.count_replay(self.renders)
-        count_replayed_step()
+        with span("driver.replay"):
+            self.graph.replay()
+            renderer_cuda.count_replay(self.renders)
+            count_replayed_step()
+        phase_times.latest = self.marks
 
     def run(self) -> dict:
         if self.graph is not None:
@@ -246,10 +272,12 @@ class CapturedStep:
         recorded = renderer_cuda.captured
         # thread_local: a checkpoint thread's copies may run meanwhile
         with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
+                              capture_error_mode="thread_local"), \
+                capturing() as marks:
             self.metrics = self.body()
         current.wait_stream(side)
         self.graph, self.renders = graph, renderer_cuda.captured - recorded
+        self.marks = marks
         return metrics
 
 
@@ -285,20 +313,23 @@ class GraphedStep(CapturedStep):
     def stage(self, rows, generator: torch.Generator) -> None:
         """The step's inputs: each stream's rows into its index buffer,
         and the plan's draws from ``generator``, drawn as the eager step
-        draws them."""
-        for buf, r in zip(self.rows, rows):
-            buf.copy_(r)
-        self.plan.draw(generator)
+        draws them (a ``driver.stage`` span)."""
+        with span("driver.stage"):
+            for buf, r in zip(self.rows, rows):
+                buf.copy_(r)
+            self.plan.draw(generator)
 
     def body(self) -> dict:
         """What the graph holds: the gathers and decodes of the staged
-        rows, the step on the staged draws, and ``post_update``."""
+        rows, the step on the staged draws, and ``post_update`` (its phase
+        marked)."""
         batch = [t[idx] if shape is None else unflatten_items(t[idx], shape)
                  for idx, gathers in zip(self.rows, self._streams)
                  for t, shape in gathers]
         metrics = self._step(*batch, **self.plan.kwargs)
         if self._post is not None:
             self._post()
+            mark("post_update")
         return metrics
 
     def __call__(self, rows, generator: torch.Generator) -> dict:
@@ -364,18 +395,20 @@ def make_epoch_runner(step_fn: Callable, batch_size: int,
         batches = epoch_batches(n, batch_size, generator)
         if graph_noise is None:
             for idx in batches:
-                xi = unflatten_items(xf[idx], item_shape)
-                avg.add(step_fn(xi, y[idx], generator=generator))
-                if post_update is not None:
-                    post_update()
-            return avg.result()  # the one host sync
+                with span("driver.step"):
+                    xi = unflatten_items(xf[idx], item_shape)
+                    avg.add(step_fn(xi, y[idx], generator=generator))
+                    if post_update is not None:
+                        post_update()
+            return end_epoch(avg)  # the one host sync
         graphed = _graphed_step(
             run, step_fn, post_update,
             lambda: graph_noise(batch_size, device=x.device),
             [(batch_size, [(xf, item_shape), (y, None)])], (xf, y))
         for idx in batches:
-            avg.add(graphed((idx,), generator))
-        return avg.result()  # the one host sync
+            with span("driver.step"):
+                avg.add(graphed((idx,), generator))
+        return end_epoch(avg)  # the one host sync
 
     run.graphed = None
     return run
@@ -430,10 +463,12 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
         avg = Averager(mesh)
         if graph_noise is None:
             for iu, il in zip(idx_u, idx_l):
-                avg.add(step_fn(unflatten_items(xf_u[iu], x_u.shape[1:]),
-                                unflatten_items(xf_l[il], x_l.shape[1:]),
-                                y_l[il], generator=generator))
-            return avg.result()  # the one host sync
+                with span("driver.step"):
+                    avg.add(step_fn(
+                        unflatten_items(xf_u[iu], x_u.shape[1:]),
+                        unflatten_items(xf_l[il], x_l.shape[1:]),
+                        y_l[il], generator=generator))
+            return end_epoch(avg)  # the one host sync
         graphed = _graphed_step(
             run, step_fn, None,
             lambda: graph_noise(batch_size, device=x_u.device),
@@ -441,8 +476,9 @@ def make_scanned_epochs_semi(step_fn: Callable, batch_size: int,
              (batch_size_l, [(xf_l, x_l.shape[1:]), (y_l, None)])],
             (xf_u, xf_l, y_l))
         for iu, il in zip(idx_u, idx_l):
-            avg.add(graphed((iu, il), generator))
-        return avg.result()  # the one host sync
+            with span("driver.step"):
+                avg.add(graphed((iu, il), generator))
+        return end_epoch(avg)  # the one host sync
 
     run.graphed = None
     return run

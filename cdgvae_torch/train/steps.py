@@ -25,6 +25,7 @@ from torch.func import functional_call
 
 from ..ops import losses
 from ..parallel.mesh import GradBuffer
+from ..utils.profiling import mark
 
 
 def _metrics(loss, recon, kl, align, logvar, node, extra=None) -> dict:
@@ -170,12 +171,15 @@ def step_from_loss(loss_fn: Callable, optimizer, mesh=None) -> Callable:
     come back as detached device scalars, this rank's own. Under a
     ``mesh`` (``parallel.mesh.Mesh``) the gradients live in one flat
     buffer (``parallel.mesh.GradBuffer``), averaged over the ranks between
-    backward and the optimizer step."""
+    backward and the optimizer step. In a CUDA graph's capture the ends of
+    the forward, backward and optimizer phases are marked
+    (``utils/profiling.py::mark``)."""
     grads = GradBuffer(trained_params(optimizer), mesh) \
         if mesh is not None else None
 
     def step(*batch, **draws):
         loss, metrics = loss_fn(*batch, **draws)
+        mark("forward")
         if grads is None:
             optimizer.zero_grad(set_to_none=True)
         else:
@@ -183,7 +187,9 @@ def step_from_loss(loss_fn: Callable, optimizer, mesh=None) -> Callable:
         loss.backward()
         if grads is not None:
             grads.mean()
+        mark("backward")
         optimizer.step()
+        mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

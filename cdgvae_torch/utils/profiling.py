@@ -1,6 +1,6 @@
-"""Tracing, step timing and the ranking of a trace's kernels (port of
-``cdgvae_tpu/utils/profiling.py`` and the ranking half of ``cdgvae_tpu/
-utils/xplane.py:174-203``).
+"""Tracing, the program's spans and step phases, and the ranking of a
+trace's kernels (port of ``cdgvae_tpu/utils/profiling.py`` and the ranking
+half of ``cdgvae_tpu/utils/xplane.py:174-203``).
 
 * :func:`trace`: ``torch.profiler`` over the enclosed block, CPU activity
   and, where a GPU is present, CUDA activity, written as a Chrome trace
@@ -12,9 +12,19 @@ utils/xplane.py:174-203``).
   runs no Python, so the graphed runners count it
   (:func:`count_replayed_step`, from ``train/scanned.py::CapturedStep``),
   and the step's capture counts nothing.
-* :class:`StepTimer`: step times and rates; on a CUDA device timed with
-  CUDA events (device time between ``start`` and ``stop``), else on the
-  host clock.
+* :func:`span`: a named host span of the epoch drivers
+  (``driver.step``, ``driver.stage``, ``driver.replay``,
+  ``driver.epoch_end``), a ``cpu_op`` event on the
+  trace's clock. Tracing is on exactly while a ``torch.profiler`` records
+  in the process; off, a span costs one read of the profiler's flag and
+  is a shared no-op.
+* :func:`mark`: the end of a phase of a training step (:data:`PHASES`),
+  a timing CUDA event that the step's capture records into its graph
+  (:func:`capturing`), so every replay stamps it on the device; outside a
+  capture it does nothing. While tracing, the epoch drivers read the
+  latest replay's phase times at their one host sync an epoch into
+  :data:`phase_times` (:class:`PhaseTimes`): one reading an epoch, of
+  its last replay.
 * :func:`rank_ops` / :func:`print_ranking`: the newest trace under a
   directory, its events of one category (``"kernel"``: the device
   kernels) summed by name and ranked by total time.
@@ -27,15 +37,104 @@ import contextlib
 import glob
 import json
 import os
-import time
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 
 # the optimizer steps a trace records (an InfoMax step takes two)
 TRACE_STEPS = 20
 # the open trace's step counters (one at most), for count_replayed_step
 _COUNTERS: list = []
+# a training step's device phases, each ended by the mark of its name
+PHASES = ("forward", "backward", "optimizer", "post_update")
+# what a span is while no profiler records
+_OFF = contextlib.nullcontext()
+# the marks of the capture in progress (set by capturing)
+_capture: StepMarks | None = None
+
+
+def span(name: str):
+    """A context that records the host span ``name`` into the running
+    profiler's trace; while none records, the shared no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
+
+
+class StepMarks:
+    """The timing events one captured step records, in order: the body's
+    start, then the end of each phase it marks (:func:`mark`). They are
+    event-record nodes of the graph, so after a replay and a sync each
+    holds that replay's time."""
+
+    def __init__(self):
+        self.events: list = []
+
+    def record(self, name: str) -> None:
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        self.events.append((name, event))
+
+    def elapsed(self) -> list:
+        """(phase, device ms) from each mark to the next, of the latest
+        replay; the events must be complete."""
+        return [(name, start.elapsed_time(end)) for (_, start), (name, end)
+                in zip(self.events, self.events[1:])]
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph's capture of a step: records the body's start
+    and lets :func:`mark` record into the :class:`StepMarks` it yields."""
+    global _capture
+    marks = StepMarks()
+    marks.record("start")
+    _capture = marks
+    try:
+        yield marks
+    finally:
+        _capture = None
+
+
+def mark(phase: str) -> None:
+    """The end of ``phase`` (one of :data:`PHASES`) of the step being
+    captured; outside a capture nothing."""
+    if _capture is not None:
+        _capture.record(phase)
+
+
+class PhaseTimes:
+    """Running sums and counts of the replays' device phases (ms), by
+    phase. The graphed runners note each replay's marks
+    (:attr:`latest`); the epoch drivers call :meth:`read` right after
+    their host sync, which adds the latest replay's phases once, and only
+    while tracing."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.sums: dict = {}
+        self.counts: dict = {}
+        self.latest: StepMarks | None = None
+
+    def read(self) -> None:
+        if self.latest is None or not _autograd_profiler._is_profiler_enabled:
+            return
+        for name, ms in self.latest.elapsed():
+            self.sums[name] = self.sums.get(name, 0.0) + ms
+            self.counts[name] = self.counts.get(name, 0) + 1
+        self.latest = None
+
+    def mean_ms(self, phase: str) -> float | None:
+        """The mean of ``phase`` over the reads, or None without one."""
+        n = self.counts.get(phase)
+        return self.sums[phase] / n if n else None
+
+
+phase_times = PhaseTimes()
 
 
 class OpCounter(TorchDispatchMode):
@@ -108,47 +207,6 @@ def trace(logdir: str | None, steps: int = TRACE_STEPS):
         finally:
             hook.remove()
             _COUNTERS.remove(count)
-
-
-class StepTimer:
-    """Accumulates step times; ``report()`` returns steps/sec and
-    images/sec (rows a second for a tabular batch). On a CUDA ``device``
-    a ``start``/``stop`` pair is timed by CUDA events on the current
-    stream, so ``stop`` waits for the device."""
-
-    def __init__(self, batch_size: int, device: str | torch.device = "cpu"):
-        self.batch_size = batch_size
-        self._cuda = torch.device(device).type == "cuda"
-        self.reset()
-
-    def reset(self):
-        self._t0 = None
-        self._steps = 0
-        self._elapsed = 0.0
-
-    def start(self):
-        if self._cuda:
-            self._t0 = torch.cuda.Event(enable_timing=True)
-            self._t0.record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self, n_steps: int = 1):
-        if self._cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            end.synchronize()
-            self._elapsed += self._t0.elapsed_time(end) / 1e3
-        else:
-            self._elapsed += time.perf_counter() - self._t0
-        self._steps += n_steps
-
-    def report(self) -> dict:
-        if self._elapsed == 0:
-            return {}
-        sps = self._steps / self._elapsed
-        return {"steps_per_sec": sps,
-                "images_per_sec": sps * self.batch_size}
 
 
 def newest_trace(trace_dir: str) -> dict:

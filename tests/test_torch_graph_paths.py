@@ -618,6 +618,13 @@ def test_a_capture_counts_no_launch_and_a_replay_its_launches(monkeypatch):
         def replay(self):
             pass
 
+    class FakeEvent:  # the capture's phase marks
+        def __init__(self, **flags):
+            pass
+
+        def record(self):
+            pass
+
     @contextlib.contextmanager
     def fake_capture(graph, stream=None, capture_error_mode=None):
         capturing[0] = True
@@ -628,6 +635,7 @@ def test_a_capture_counts_no_launch_and_a_replay_its_launches(monkeypatch):
                         ("Stream", lambda device=None: FakeStream()),
                         ("stream", contextlib.nullcontext),
                         ("CUDAGraph", FakeGraph), ("graph", fake_capture),
+                        ("Event", FakeEvent),
                         ("is_current_stream_capturing",
                          lambda: capturing[0])):
         monkeypatch.setattr(torch.cuda, attr, value)
@@ -642,6 +650,8 @@ def test_a_capture_counts_no_launch_and_a_replay_its_launches(monkeypatch):
     step.run()
     assert (renderer_cuda.launches, renderer_cuda.captured) == (1, 1)
     assert step.renders == 1 and step.graph is not None
+    # the capture marked the body's start (the body marks no phase)
+    assert [name for name, _ in step.marks.events] == ["start"]
     for n in range(2, 5):
         step.run()
         assert renderer_cuda.launches == n

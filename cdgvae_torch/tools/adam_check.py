@@ -6,9 +6,11 @@ corrections live on the device, so that a CUDA graph can hold the update.
 The reference steps ``optax.adam``. This module feeds one set of float32
 gradients, drawn with numpy from a seed, to three updates in lockstep:
 
-* the ``capturable`` Adam of ``make_optimizer``, stepped eagerly, and the
-  same optimizer inside a captured CUDA graph (the first step eager, as
-  the graphed trainers run it, then one replay a step), each on the card;
+* the ``capturable`` Adam of ``make_optimizer`` (on the card one launch
+  of ``ops/adam_cuda.py::adam_step`` a param group), stepped eagerly, and
+  the same optimizer inside a captured CUDA graph (the first step eager,
+  as the graphed trainers run it, then one replay a step), each on the
+  card;
 * the plain Adam (``capturable=False``), on the same device;
 * :func:`optax_adam_f64`, a float64 numpy transcription of
   ``optax.chain(add_decayed_weights(wd), scale_by_adam(0.9, 0.999,
@@ -259,6 +261,15 @@ CASES = {
     "tvae weight decay": (tvae_build, 1e-5),
     "packed celeba": (packed_celeba_build, 0.0),
 }
+
+
+def adam_state(opts: list) -> list:
+    """Every tensor of the optimizers ``opts``, in order: each leaf, then
+    its step count and moments, for comparing two Adams bit for bit."""
+    return [t for opt in opts for group in opt.param_groups
+            for p in group["params"]
+            for t in (p, *(opt.state[p][k] for k in
+                           ("step", "exp_avg", "exp_avg_sq")))]
 
 
 def format_result(name: str, result: dict, steps: int = STEPS) -> str:

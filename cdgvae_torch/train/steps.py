@@ -23,7 +23,7 @@ from typing import Callable
 import torch
 from torch.func import functional_call
 
-from ..ops import losses
+from ..ops import adam_cuda, losses
 from ..parallel.mesh import GradBuffer
 from ..utils.profiling import mark
 
@@ -82,22 +82,27 @@ class CapturableAdam(torch.optim.Adam):
     plain Adam's over 200 steps on the H100 (``tools/adam_check.py``).
     This update computes the bias corrections in float64 on the device,
     from the step counts, rounds them to float32 as the plain update's
-    scalars are rounded, and then runs the plain update's foreach ops in
-    its order: ``lerp`` and ``addcmul`` into the moments, the square root
-    divided by sqrt(1 - b2^t), ``eps`` added, and ``param += -lr / (1 -
-    b1^t) * exp_avg / denom``. No host value is read, so a CUDA graph can
-    hold it; it also runs on the CPU. The state (``step``, ``exp_avg``,
+    scalars are rounded, and then runs the plain update's arithmetic in
+    its order (``ops/adam_cuda.py::adam_plain``). A group of CUDA leaves
+    takes one launch of the hand-written kernel (``adam_step``, the same
+    update bit for bit; a group of more than ``MAX_LEAVES`` leaves one a
+    ``MAX_LEAVES``), CPU leaves the plain foreach chain. No host value is
+    read, so a CUDA graph can hold it. The state (``step``, ``exp_avg``,
     ``exp_avg_sq``) is torch Adam's, so checkpoints and
     ``utils/interop.py`` read it as they read any Adam's."""
 
     def __init__(self, params, lr: float, weight_decay: float = 0.0):
         super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                          capturable=True, weight_decay=weight_decay)
+        # the kernel's ticket counter on each device, zeroed, kept for the
+        # life of the optimizer (a captured graph's launches use it)
+        self._tickets = {}
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise ValueError("CapturableAdam.step takes no closure")
+    def _groups(self):
+        """Each param group's leaves that have a gradient, their state set
+        up as torch Adam's: ``(params, grads, steps, exp_avgs,
+        exp_avg_sqs)`` and the group's hyperparameters, as ``adam_plain``
+        and ``adam_step`` take them."""
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
@@ -111,27 +116,37 @@ class CapturableAdam(torch.optim.Adam):
                         p, memory_format=torch.preserve_format)
                     st["exp_avg_sq"] = torch.zeros_like(
                         p, memory_format=torch.preserve_format)
-            b1, b2 = group["betas"]
-            steps = [st["step"] for st in states]
-            m = [st["exp_avg"] for st in states]
-            v = [st["exp_avg_sq"] for st in states]
-            grads = [p.grad for p in params]
-            torch._foreach_add_(steps, 1)
-            if group["weight_decay"]:
-                grads = torch._foreach_add(grads, params,
-                                           alpha=group["weight_decay"])
-            torch._foreach_lerp_(m, grads, 1 - b1)
-            torch._foreach_mul_(v, b2)
-            torch._foreach_addcmul_(v, grads, grads, 1 - b2)
-            t = torch.stack(steps).double()
-            step_size = (-group["lr"] / (1 - torch.pow(b1, t))).float()
-            bc2_sqrt = (1 - torch.pow(b2, t)).sqrt().float()
-            denom = torch._foreach_sqrt(v)
-            torch._foreach_div_(denom, list(bc2_sqrt.unbind()))
-            torch._foreach_add_(denom, group["eps"])
-            update = torch._foreach_div(m, denom)
-            torch._foreach_mul_(update, list(step_size.unbind()))
-            torch._foreach_add_(params, update)
+            yield ((params, [p.grad for p in params],
+                    [st["step"] for st in states],
+                    [st["exp_avg"] for st in states],
+                    [st["exp_avg_sq"] for st in states]),
+                   dict(lr=group["lr"], betas=group["betas"],
+                        eps=group["eps"],
+                        weight_decay=group["weight_decay"]))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("CapturableAdam.step takes no closure")
+        for leaves, hyper in self._groups():
+            params = leaves[0]
+            if any(p.is_cuda for p in params):
+                device = params[0].device
+                if device not in self._tickets:
+                    self._tickets[device] = torch.zeros(
+                        1, dtype=torch.int32, device=device)
+                adam_cuda.adam_step(*leaves, **hyper,
+                                    ticket=self._tickets[device])
+            else:
+                adam_cuda.adam_plain(*leaves, **hyper)
+
+    @torch.no_grad()
+    def plain_step(self) -> None:
+        """The step by the plain foreach chain (``adam_plain``) on the
+        leaves' device, whatever it is: the version the card's checks
+        hold the kernel to, bit for bit."""
+        for leaves, hyper in self._groups():
+            adam_cuda.adam_plain(*leaves, **hyper)
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,

@@ -238,7 +238,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
     (``tools/adam_check.py``): the 16 px CDG-VAE and the packed CelebA
     buffers, the Adam eager and inside a captured CUDA graph, beside the
     plain Adam; after 1 step within 1e-7, after 200 steps (the graph: 200
-    replays) within 1e-6 and within 3 x the plain Adam's distance;
+    replays) within 1e-6 and within 3 x the plain Adam's distance; then
+    one Adam step of the pendulum's 17 leaves (64 px) and of CelebA's
+    leaves at ``cli.celeba_main``'s defaults, packed and unpacked, each a
+    replay of a captured graph timed on CUDA events: the kernel
+    (``csrc/adam.cu``), equal bit for bit to its plain version
+    (``CapturableAdam.plain_step``) on the same gradients, that plain
+    version, and torch's ``Adam(fused=True, capturable=True)`` as a
+    yardstick the port never calls, beside the kernel's bound (its
+    bytes); and the kernel's and the plain version's eager steps on the
+    host clock;
 26. the CelebA trunk's pretraining (``tools/celeba_pretrain.py``, 128 px,
     128 faces, one epoch) twice on the card, whose files must be equal
     byte for byte, and once on the CPU, whose first step's loss the
@@ -254,10 +263,14 @@ The CLIs of phases 8-17 replay graphs on the card by default
 (``--eager`` and ``--dp`` stay eager): phase 17's ``--profile`` trace
 holds the eager first step, its capture and the replays of its window.
 The render kernel's launches are counted around each path (phases 4, 8,
-10-15, 19, 21, 22 and 24, and 17's, 18's, 20's, 23's, 25's and 26's 0)
-and summed in the ``{"kernels": [...]}`` JSON line, beside phase 20's
-host decoders and preprocessing kernels, which is followed by the
-``{"ok": true, ...}`` JSON object as the last line.
+10-15, 19, 21, 22 and 24, and 16's, 17's, 18's, 20's, 23's, 25's and
+26's 0), and the Adam kernel's around the same paths, each checked
+against the launches that the path's capturable Adam steps owed (one a
+param group an eager step or a capture, none a replay;
+:class:`PathLaunches`). Both are summed over the paths in the
+``{"kernels": [...]}`` JSON line, beside phase 20's host decoders and
+preprocessing kernels, which is followed by the ``{"ok": true, ...}``
+JSON object as the last line.
 Without a CUDA device, or without the repository beside it, the script
 exits nonzero and prints no result.
 """
@@ -351,7 +364,10 @@ PACE_FILES, PACE_BUDGET_S = 800, 60.0
 # step 2's builds: the kernels of every phase, by name, from csrc/
 BUILDS = {"render": "render.cu", "jpeg_reconstruct": "jpeg_reconstruct.cu",
           "cv_resize": "cv_resize.cu", "jpeg_huffman": "jpeg_huffman.cpp",
-          "png_unfilter": "png_unfilter.cpp"}
+          "png_unfilter": "png_unfilter.cpp", "adam": "adam.cu"}
+# bytes an Adam step moves an element in float32: the parameter, gradient
+# and both moments read, the parameter and both moments written
+ADAM_BYTES_PER_ELEMENT = 7 * 4
 # phase 26: the pretraining's first step on the card against the CPU, TF32
 # off: the same float32 math summed in other orders
 PRETRAIN_TOL = 1e-4
@@ -417,6 +433,65 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+class PathLaunches(dict):
+    """The render kernel's launches by path (the items) and the Adam
+    kernel's (``adam``), each read over its path: :meth:`start` zeroes
+    the counters before a path and :meth:`take` files them after it.
+
+    Built once, it also counts, apart from the kernel's wrapper, the
+    launches that ``CapturableAdam``'s steps owe: one a param group of
+    CUDA leaves with a gradient (one a ``MAX_LEAVES`` of them) each time
+    ``step`` runs eagerly or is captured into a CUDA graph; a replay
+    calls no ``step`` and launches nothing from the host. Both methods
+    check that the kernel launched exactly what was owed since the last
+    of them, so every capturable Adam step of the run on the card went
+    through the kernel; the launches between paths are filed as
+    ``"between paths"``."""
+
+    def __init__(self):
+        import functools
+
+        from cdgvae_torch.ops import adam_cuda
+        from cdgvae_torch.train.steps import CapturableAdam
+        super().__init__()
+        self.adam, self.owed = {}, 0
+        step = CapturableAdam.step
+
+        # functools.wraps keeps torch's mark of a step it has wrapped
+        @functools.wraps(step)
+        def counted(opt, closure=None):
+            for group in opt.param_groups:
+                params = [p for p in group["params"] if p.grad is not None]
+                if any(p.is_cuda for p in params):
+                    self.owed += -(-len(params) // adam_cuda.MAX_LEAVES)
+            return step(opt, closure)
+
+        CapturableAdam.step = counted
+
+    def _adam(self, path: str) -> int:
+        """The Adam launches since the last call, checked against what
+        was owed, filed under ``path``."""
+        from cdgvae_torch.ops import adam_cuda
+        got = adam_cuda.launches
+        check(got == self.owed, f"{path}: the Adam kernel launched {got} "
+              f"times; the capturable Adam's steps owed {self.owed} "
+              "launches (a group an eager step or a capture)")
+        if got or path != "between paths":
+            self.adam[path] = self.adam.get(path, 0) + got
+        adam_cuda.launches = self.owed = 0
+        return got
+
+    def start(self) -> None:
+        from cdgvae_torch.ops import renderer_cuda
+        self._adam("between paths")
+        renderer_cuda.launches = 0
+
+    def take(self, path: str) -> None:
+        from cdgvae_torch.ops import renderer_cuda
+        self._adam(path)
+        self[path] = renderer_cuda.launches
 
 
 def host_waits(kernels_and_events) -> dict:
@@ -636,7 +711,7 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
     from cdgvae_torch.utils.checkpoint import load_checkpoint
 
     # the DR train split: one launch with the background column
-    renderer_cuda.launches = 0
+    path_launches.start()
     t0 = time.perf_counter()
     dr_ds = PendulumDRDataset(n=N_SAMPLES, device=dev)
     torch.cuda.synchronize()
@@ -679,7 +754,7 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
     dr_dir = work / "dr"
     dr_ckpt = dr_dir / "model_DR_CDGVAE_linear"
     args = ["--n_samples", str(N_SAMPLES)]
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, dr_s = run_cli(args + ["--epochs", "2", "--assets_dir",
                                  str(dr_dir)], "dr_main")
     said, _, _ = run_cli(args + ["--epochs", "3", "--assets_dir",
@@ -702,7 +777,7 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
     eager = [r["loss"] for r in read_records(eager_dir / "metrics.jsonl")]
     check(len(eager) == 1 and math.isfinite(eager[0]),
           f"DR --eager losses {eager}")
-    path_launches["dr"] = renderer_cuda.launches
+    path_launches.take("dr")
     check(path_launches["dr"] == 3, f"DR: {path_launches['dr']} render "
           "launches, not 3 (2 epochs, the resume, --eager)")
     print(f"DR cli: 2 epochs in {dr_s:.3f} s, resumed to 3, --eager 1 epoch "
@@ -711,11 +786,11 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
           f"{path_launches['dr']}}} [{card}]")
 
     online_dir = work / "dr_online"
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, online_s = run_cli(args + ["--online", "--epochs", "2",
                                      "--assets_dir", str(online_dir)],
                              "dr_main")
-    path_launches["dr online"] = renderer_cuda.launches
+    path_launches.take("dr online")
     check(path_launches["dr online"] >= online_steps,
           f"DR online: {path_launches['dr online']} render launches for "
           f"{online_steps} steps")
@@ -726,10 +801,10 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
           f"{path_launches['dr online']}}} [{card}]")
 
     im_dir = work / "dr_infomax"
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, im_s = run_cli(args + ["--model", "InfoMax", "--epochs", "2",
                                  "--assets_dir", str(im_dir)], "dr_main")
-    path_launches["dr infomax"] = renderer_cuda.launches
+    path_launches.take("dr infomax")
     check(path_launches["dr infomax"] == 1, f"DR InfoMax: "
           f"{path_launches['dr infomax']} render launches, not 1")
     extras = load_checkpoint(str(im_dir / "model_DR_InfoMax_linear"))[
@@ -760,10 +835,10 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
     semi_args = args + ["--labeled_ratio", "0.1", "--batch_sizeL",
                         str(BATCH_L)]
     semi_dir, semi_online_dir = work / "dr_semi", work / "dr_semi_online"
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, semi_s = run_cli(semi_args + ["--epochs", "2", "--assets_dir",
                                         str(semi_dir)], "dr_main_semi")
-    path_launches["dr semi"] = renderer_cuda.launches
+    path_launches.take("dr semi")
     check(path_launches["dr semi"] == 2, f"DR semi: "
           f"{path_launches['dr semi']} render launches, not 2")
     semi_cfg = load_checkpoint(str(
@@ -773,11 +848,11 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
           f"{semi_cfg['node']}")
     losses = finite_falling("DR semi", read_records(semi_dir /
                                                     "metrics.jsonl"))
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, semi_online_s = run_cli(semi_args + [
         "--online", "--epochs", "2", "--assets_dir", str(semi_online_dir)],
         "dr_main_semi")
-    path_launches["dr semi online"] = renderer_cuda.launches
+    path_launches.take("dr semi online")
     check(path_launches["dr semi online"] >= online_steps + 1,
           f"DR semi online: {path_launches['dr semi online']} render "
           f"launches for {online_steps} steps")
@@ -883,7 +958,7 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
     # the downstream evals: robustness on this phase's DR checkpoint,
     # sample efficiency on phase 8's, the toy experiment, and inference on
     # the DR checkpoint
-    renderer_cuda.launches = 0
+    path_launches.start()
     rob_dir, se_dir = work / "robustness", work / "sample_efficiency"
     _, rob, rob_s = run_cli(["--checkpoint", str(dr_ckpt), "--repeats",
                              str(EVAL_REPEATS), "--epochs",
@@ -908,7 +983,7 @@ def dr_and_downstream(*, work: Path, card: str, dev, rng, steps: int,
                               str(work / "dr_inference")], "inference")
     check(grid.shape == (5, 7, 64, 64, 3) and np.isfinite(grid).all(),
           f"DR do grid {grid.shape}")
-    path_launches["dr eval"] = renderer_cuda.launches
+    path_launches.take("dr eval")
     check(path_launches["dr eval"] == 5, f"DR eval: "
           f"{path_launches['dr eval']} render launches, not 5 (robustness "
           "2, sample efficiency 2, inference 1)")
@@ -1121,7 +1196,7 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
 
     # cli.generate_data: the real DGP at its defaults, then the DR DGP cut
     real, dr = work / "png_real", work / "png_dr"
-    renderer_cuda.launches = 0
+    path_launches.start()
     # the defaults, spelled out
     said, (n_train, n_test), real_s = run_cli(
         ["--dgp", "real", "--n", str(EXPORT_N), "--image_size",
@@ -1136,11 +1211,12 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
                                     int(is_test.sum())),
           f"generate_data real: {real_launches} render launches, files "
           f"{got}, expected {want}")
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, (dr_train, dr_test), dr_s = run_cli([
         "--dgp", "dr", "--n", str(EXPORT_DR_N), "--image_size",
         str(EXPORT_PX), "--out", str(dr)], "generate_data")
-    path_launches["png export"] = real_launches + renderer_cuda.launches
+    path_launches.take("png export")
+    path_launches["png export"] += real_launches
     check(renderer_cuda.launches == 1 and dr_train + dr_test == EXPORT_DR_N,
           f"generate_data dr: {renderer_cuda.launches} launches, "
           f"{dr_train} + {dr_test} files")
@@ -1188,7 +1264,7 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
     del x, y
     tree_dir = work / "png_cli"
     ckpt = tree_dir / "model_CDGVAE_linear"
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, main_s = run_cli(["--data_dir", str(real), "--epochs", "2",
                             "--assets_dir", str(tree_dir)])
     cfg = load_checkpoint(str(ckpt))["config"]
@@ -1217,6 +1293,7 @@ def png_trees(*, work: Path, card: str, dev, path_launches: dict,
           f"dr_main --data_dir: config {dr_cfg}, losses {dr_loss}")
     check(renderer_cuda.launches == 0, f"{renderer_cuda.launches} render "
           "launches on the PNG-tree paths, which load and render nothing")
+    path_launches.take("png trees")
     print(f"cli on the PNG trees (host clock, loads included): main "
           f"--data_dir 2 epochs {main_s:.3f} s, losses {losses}; metric "
           f"{metric_s:.3f} s (structural zeros exactly 0.0); inference "
@@ -2085,7 +2162,7 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
                 pendulum_batch_fn(BATCH, 64, device=dev), online_steps,
                 seed=1, device=dev, mesh=m,
                 local_bs=BATCH if m is not None else 0)
-            renderer_cuda.launches = 0
+            path_launches.start()
             hist = []
             for e in range(2):
                 avg = Averager(m)
@@ -2093,7 +2170,7 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
                 hist.append(avg.result())
             torch.cuda.synchronize()
             key = "dp online" if m is not None else "dp online one-device"
-            path_launches[key] = renderer_cuda.launches
+            path_launches.take(key)
             got[name] = (hist, export_params(model))
         equal, worst = same(got["one device"][1], got["dp world 1"][1])
         print(f"dp online, 2 epoch-equivalents of {online_steps} steps: "
@@ -2148,7 +2225,7 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
 
     # the CLI: --dp 1 and, on one card, --dp 0 run on one device in this
     # process (their render launches counted here); --dp 2 is refused
-    renderer_cuda.launches = 0
+    path_launches.start()
     for args in (["--dp", "1"], ["--dp", "0"], ["--dp", "1", "--online"]):
         run_dir = work / f"dp_cli_{'_'.join(a.strip('-') for a in args)}"
         said, _, wall = run_cli(["--n_samples", "1000", "--epochs", "1",
@@ -2158,7 +2235,7 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
               f"cli.main {' '.join(args)} did not train on one device")
         print(f"cli.main {' '.join(args)}: one device, 1 epoch in "
               f"{wall:.3f} s (host clock) [{card}]")
-    path_launches["dp cli"] = renderer_cuda.launches
+    path_launches.take("dp cli")
     check(path_launches["dp cli"] > 0, "the --dp CLI runs rendered nothing")
     try:
         run_cli(["--n_samples", "1000", "--epochs", "1", "--dp", "2",
@@ -2187,10 +2264,10 @@ def data_parallel(*, work: Path, card: str, dev, dataset, ckpt: Path,
     check(worst == 0.0, "mesh serving differs from plain serving")
 
     # the multi-rank dry run on every card of this machine
-    renderer_cuda.launches = 0
+    path_launches.start()
     dryrun_multichip(torch.cuda.device_count(), "cuda")
     torch.cuda.synchronize()
-    path_launches["dp dryrun"] = renderer_cuda.launches
+    path_launches.take("dp dryrun")
     launches = sum(v for k, v in path_launches.items()
                    if k.startswith("dp "))
     print(f"phase 19 (data parallel, NCCL world 1): "
@@ -2224,7 +2301,7 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
                 yield f"{prefix}{k}", np.asarray(v)
 
     t0 = time.perf_counter()
-    renderer_cuda.launches = 0
+    path_launches.start()
     config = vars(get_args([]))  # the defaults, --packed_params true
     check(config["packed_params"] is True,
           "celeba_main's --packed_params is not true by default")
@@ -2336,7 +2413,7 @@ def packing_and_preprocess(*, root: Path, work: Path, card: str, dev,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    path_launches["packing"] = renderer_cuda.launches
+    path_launches.take("packing")
     check(path_launches["packing"] == 0, "the packed CelebA path launched "
           f"the render kernel {path_launches['packing']} times")
 
@@ -2668,7 +2745,7 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
     # and every mask file through the native unfilter
     want = json.loads((fixtures / "expected.json").read_text())
     pre = work / "preprocess"
-    renderer_cuda.launches = 0
+    path_launches.start()
     t_pre = time.perf_counter()
     args = ["--base_dir", str(corpus), "--img_size", "128"]
     proc = subprocess.run(
@@ -2792,7 +2869,7 @@ def preprocessing(*, root: Path, work: Path, card: str, dev,
           f"cores busy {', '.join(f'{b:.2f}' for b in busy)} of "
           f"{os.cpu_count()} [{card}]")
     torch.cuda.synchronize()
-    path_launches["preprocess"] = renderer_cuda.launches
+    path_launches.take("preprocess")
     check(path_launches["preprocess"] == 0, "preprocessing launched the "
           f"render kernel {path_launches['preprocess']} times")
     counts = {"jpeg_reconstruct": jpeg_cuda.launches,
@@ -2901,7 +2978,7 @@ def library_options(*, card: str, dev, dataset, path_launches: dict,
     # host ms a step, bf16 against f32, on the dataset path and the online
     # path (whole epochs of 29 steps, interleaved), then 10 and 29
     # profiled steps: device busy a step
-    renderer_cuda.launches = 0
+    path_launches.start()
     online = {name: make_online_scanned_steps(
         m, opt, BETA, LAM, BATCH, steps, seed=21, device=dev,
         compute_dtype=dtypes[name]) for name, (m, opt, _) in models.items()}
@@ -2936,7 +3013,7 @@ def library_options(*, card: str, dev, dataset, path_launches: dict,
         busy[f"online {name}"] = sum(
             e.self_device_time_total for e in kernels) / 1e3 / steps
     torch.cuda.synchronize()
-    path_launches["library online"] = renderer_cuda.launches
+    path_launches.take("library online")
     check(path_launches["library online"] > 0,
           "the online bf16 and f32 paths never launched the render kernel")
     for where in ("dataset", "online"):
@@ -2984,11 +3061,11 @@ def library_options(*, card: str, dev, dataset, path_launches: dict,
 
     # (c) the CDM study cut: one seed, 2 epochs, the classifier 1 epoch,
     # on the cut DGP; the protected cells exactly 0.0
-    renderer_cuda.launches = 0
+    path_launches.start()
     result = run_seed(1, dict(STUDY, epochs=2, classifier_epochs=1,
                               n_samples=N_SAMPLES), device=dev)
     torch.cuda.synchronize()
-    path_launches["study"] = renderer_cuda.launches
+    path_launches.take("study")
     upper, lower = result["upper"], result["lower"]
     zeros = [float(m[i][j]) for m in (upper, lower) for i, j in PROTECTED]
     print(f"tools.cdm_seeds.run_seed cut (seed 1, 2 epochs, classifier 1 "
@@ -3046,13 +3123,13 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
     # at each replay, none at the capture: as many launches as steps
     online = 1 + (steps * 2 - 1)
     dr_cut = dict(dr_sweep.CONFIG, epochs=2, n_samples=STUDY_N)
-    renderer_cuda.launches = 0
+    path_launches.start()
     ds_tr, ds_te, ds_align = (
         PendulumDRDataset(train=train, seed=1, n=STUDY_N,
                           downstream=downstream, device=dev)
         for train, downstream in ((True, True), (False, True),
                                   (True, False)))
-    path_launches["dr study data"] = renderer_cuda.launches
+    path_launches.take("dr study data")
     train = load_tabular("loan", train=True)
     test = load_tabular("loan", train=False)
     g_real = real_cpdag(train.frame, "loan")
@@ -3093,12 +3170,12 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
                 (path, {}, expected),
                 (f"{path} eager", dict(eager=True, capturable=True),
                  expected_eager)):
-            renderer_cuda.launches = 0
+            path_launches.start()
             t1 = time.perf_counter()
             got[name] = run(**kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-            path_launches[name] = renderer_cuda.launches
+            path_launches.take(name)
             train_s = got[name].get("train_seconds",
                                     got[name].get("train_s"))
             if train_s is None:
@@ -3144,7 +3221,7 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
 
     # three graphed cut seeds in one process: each seed's runners and
     # their graph pools are freed when it returns, so the peak stays
-    renderer_cuda.launches = 0
+    path_launches.start()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     peaks = []
@@ -3152,7 +3229,7 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
         cdm_seeds.run_seed(seed, cut, device=dev)
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated())
-    path_launches["study three seeds"] = renderer_cuda.launches
+    path_launches.take("study three seeds")
     print(f"study, three graphed cut seeds: peak allocated after each "
           f"{[round(p / MIB, 2) for p in peaks]} MiB, now "
           f"{torch.cuda.memory_allocated() / MIB:.2f} MiB [{card}]")
@@ -3162,12 +3239,12 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
     for path, flags in (("tabular study main", ["--epochs", "2"]),
                         ("tabular tvae study main",
                          ["--tvae", "--epochs", "1"])):
-        renderer_cuda.launches = 0
+        path_launches.start()
         t1 = time.perf_counter()
         out = work / f"{path.replace(' ', '_')}.json"
         summary = tabular_seeds.main(["--datasets", "loan", "--seeds", "1",
                                       "--out", str(out), *flags])
-        path_launches[path] = renderer_cuda.launches
+        path_launches.take(path)
         loan = summary["loan"]
         print(f"{path}: {time.perf_counter() - t1:.1f} s; summary "
               f"{json.dumps({k: loan[k] for k in ('per_seed', 'efficacy_baseline', 'efficacy_rows')})}"
@@ -3186,14 +3263,14 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
             f"{path}: non-finite summary {row}")
     # the CelebA study, cut: its corpus, training through celeba_main in a
     # subprocess a seed, and the scores; the do-leakage is 0 by construction
-    renderer_cuda.launches = 0
+    path_launches.start()
     t1 = time.perf_counter()
     out = work / "celeba_study.json"
     cut_flags = ["--n_train", "32", "--n_test", "16", "--img_size", "32"]
     summary = celeba_study.main([
         *cut_flags, "--conv_dim", "8", "--epochs", "2", "--workdir",
         str(work / "celeba_study"), "--out", str(out)])
-    path_launches["celeba study"] = renderer_cuda.launches
+    path_launches.take("celeba study")
     print(f"celeba study: {time.perf_counter() - t1:.1f} s; diagonal "
           f"{summary['diag_mean']}, recon L1 "
           f"{[r['test_recon_l1'] for r in summary['per_seed']]}, do-leakage "
@@ -3213,7 +3290,7 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
     # the same seed as two arms of one worker: the second starts from the
     # state the first left, and must score as the study's own process;
     # each arm's memory is freed before the next
-    renderer_cuda.launches = 0
+    path_launches.start()
     t1 = time.perf_counter()
     arms = [{"tag": tag, "seed": 1, "epochs": 2, "conv_dim": 8}
             for tag in ("_a", "_b")]
@@ -3221,7 +3298,7 @@ def studies(*, work: Path, card: str, dev, path_launches: dict) -> None:
     summary = celeba_arms.main([
         *cut_flags, "--arms", json.dumps(arms), "--workdir",
         str(work / "celeba_arms"), "--out", str(out)])
-    path_launches["celeba arms"] = renderer_cuda.launches
+    path_launches.take("celeba arms")
     marks = summary["per_arm"]
     print(f"celeba arms: {time.perf_counter() - t1:.1f} s; markers {marks}; "
           f"device {summary['device']}; launches {{'render': "
@@ -3269,7 +3346,7 @@ def graphed_epochs(*, work: Path, card: str, dev, dataset,
                                             load_jax_params)
 
     t0 = time.perf_counter()
-    renderer_cuda.launches = 0
+    path_launches.start()
     float32_and_repeatable()  # celeba_main's switches, as phase 18 runs
     config = vars(get_args([]))  # celeba_main's defaults
     faces = CelebADataset(data_dir="", img_size=config["img_size"],
@@ -3399,7 +3476,7 @@ def graphed_epochs(*, work: Path, card: str, dev, dataset,
         print(f"phase 23, {name}: {time.perf_counter() - t_case:.1f} s "
               f"(host clock) [{card}]")
     del base
-    path_launches["graphed epochs"] = renderer_cuda.launches
+    path_launches.take("graphed epochs")
     check(path_launches["graphed epochs"] == 0, "the graphed epochs "
           f"launched the render kernel {renderer_cuda.launches} times")
     print(f"phase 23 (graphed epochs): {time.perf_counter() - t0:.1f} s "
@@ -3442,7 +3519,7 @@ def graphed_paths(*, work: Path, card: str, dev, dataset,
     from cdgvae_torch.utils.simulation import EPOCH, derived_generator
 
     t0 = time.perf_counter()
-    renderer_cuda.launches = 0
+    path_launches.start()
     dr_ds = PendulumDRDataset(n=N_SAMPLES, device=dev)  # one launch
     n_l = int(len(dataset) * 0.1)  # main_semi's labeled 10%
     pend = (dataset.x_data, dataset.y_data)
@@ -3706,15 +3783,17 @@ def graphed_paths(*, work: Path, card: str, dev, dataset,
         print(f"  {name} | {he * 1e3:.3f} -> {hg * 1e3:.3f} | "
               f"{be * 1e3:.3f} / {bg * 1e3:.3f} | {rp:.3f} | {ke:.0f} / "
               f"{kg:.0f}")
-    path_launches["graphed paths"] = renderer_cuda.launches
+    path_launches.take("graphed paths")
     print(f"phase 24 (graphed paths): {time.perf_counter() - t0:.1f} s "
           f"(host clock); launches {{'render': "
           f"{path_launches['graphed paths']}}} [{card}]")
 
 
-def capturable_adam(*, card: str, dev) -> None:
+def capturable_adam(*, card: str, dev) -> dict:
     """Phase 25: the capturable Adam of every graphed trainer against a
-    float64 copy of optax's update (``tools/adam_check.py``)."""
+    float64 copy of optax's update (``tools/adam_check.py``), then its
+    kernel timed against its plain version (:func:`adam_step_times`).
+    Returns the kernel's entry for the kernels line."""
     from cdgvae_torch.tools import adam_check
 
     t0 = time.perf_counter()
@@ -3731,8 +3810,120 @@ def capturable_adam(*, card: str, dev) -> None:
         check(not missed, f"adam {case}: {missed}")
         check(result["graphed"] == result["capturable"], f"adam {case}: "
               "the graphed update is not the eager one")
+    entry = adam_step_times(card=card, dev=dev)
     print(f"phase 25 (the capturable Adam): {time.perf_counter() - t0:.1f} "
           f"s (host clock) [{card}]")
+    return entry
+
+
+def eager_us(step, reps: int = 50, rounds: int = 3) -> tuple:
+    """Host and wall microseconds of an eager call of ``step``: medians
+    over ``rounds`` of the mean over ``reps`` back-to-back calls of the
+    time until the host has issued the last (host) and until the device
+    has run it (wall), after a warm-up."""
+    for _ in range(3):
+        step()
+    host, wall = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) / reps * 1e6)
+        wall.append((t2 - t0) / reps * 1e6)
+    return statistics.median(host), statistics.median(wall)
+
+
+def adam_step_times(*, card: str, dev) -> dict:
+    """One Adam step of the pendulum CDG-VAE's leaves (64 px) and of the
+    CelebA CDG-VAE's leaves (``cli.celeba_main``'s defaults), packed and
+    unpacked, each captured in a CUDA graph over static gradients and
+    timed as replays (:func:`time_ms`): the kernel (``CapturableAdam``),
+    its plain version (``CapturableAdam.plain_step``, the foreach chain)
+    and torch's ``Adam(fused=True, capturable=True)``. Then the kernel's
+    and the plain version's eager steps (:func:`eager_us`), whose host
+    time holds the wrapper's checks and leaf tables. The kernel and the
+    plain version then take one more step from one state on the same
+    gradients, which must agree bit for bit."""
+    from cdgvae_torch.factory import build_celeba_model, build_pendulum_model
+    from cdgvae_torch.ops.packing import Packer
+    from cdgvae_torch.train.steps import CapturableAdam
+
+    def replay_ms(step) -> float:
+        step()  # the state, and the kernels loaded, outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        return time_ms(graph.replay)
+
+    def celeba(seed):
+        return build_celeba_model(
+            dict(img_size=128, conv_dim=32, causal_structure=0,
+                 latent_dim=6, node=6, scm="linear", flow_num=1,
+                 inverse_loop=100), device=dev, seed=seed)
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    times = {}
+    for name, leaves_of in (
+            ("pendulum", lambda: list(build_pendulum_model(
+                FLAGSHIP, device=dev, seed=0)[0].parameters())),
+            ("celeba packed", lambda: Packer(celeba(1)).params()),
+            ("celeba unpacked", lambda: list(celeba(2).parameters()))):
+        params = leaves_of()
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device=dev)
+        kernel, plain = (CapturableAdam(params, LR) for _ in range(2))
+        library = torch.optim.Adam(params, lr=LR, betas=(0.9, 0.999),
+                                   eps=1e-8, fused=True, capturable=True)
+        ms = {"kernel": replay_ms(kernel.step)}
+        plain.load_state_dict(copy.deepcopy(kernel.state_dict()))
+        ms["plain"] = replay_ms(plain.plain_step)
+        ms["library"] = replay_ms(library.step)
+        eager = dict(zip(("kernel", "plain"), (eager_us(kernel.step),
+                                               eager_us(plain.plain_step))))
+        # one state, one more step each way
+        plain.load_state_dict(copy.deepcopy(kernel.state_dict()))
+        start = [p.detach().clone() for p in params]
+        kernel.step()
+        after = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for p, s in zip(params, start):
+                p.copy_(s)
+        plain.plain_step()
+        equal = all(torch.equal(a, p) for a, p in zip(after, params)) and \
+            all(torch.equal(kernel.state[p][k], plain.state[p][k])
+                for p in params for k in ("step", "exp_avg", "exp_avg_sq"))
+        check(equal, f"adam {name}: the kernel's step is not the plain "
+              "version's")
+        n = sum(p.numel() for p in params)
+        bound_ms = n * ADAM_BYTES_PER_ELEMENT / PEAK_BYTES_PER_S * 1e3
+        times[name] = {**ms, "bound": bound_ms, "leaves": len(params),
+                       "elements": n, "eager_host_us": eager}
+        share = bound_ms / ms["kernel"]
+        print(f"adam step, {name} ({len(params)} leaves, {n:,} elements): "
+              f"kernel {ms['kernel'] * 1e3:.2f} us ({share:.3f} of its "
+              f"{bound_ms * 1e3:.2f} us byte bound), plain "
+              f"{ms['plain'] * 1e3:.2f} us, torch fused capturable "
+              f"{ms['library'] * 1e3:.2f} us; a replay each, CUDA events; "
+              f"eager host/wall kernel {eager['kernel'][0]:.1f}/"
+              f"{eager['kernel'][1]:.1f} us, plain {eager['plain'][0]:.1f}/"
+              f"{eager['plain'][1]:.1f} us (host clock); bit for bit with "
+              f"the plain version [{card}]")
+        del params, kernel, plain, library
+    t = times["pendulum"]
+    return {"name": "adam_step", "route": "cuda",
+            "source": "cdgvae_torch/csrc/adam.cu",
+            "replaces": "none (the foreach chain of train/steps.py::"
+                        "CapturableAdam; XLA fuses optax's update on the "
+                        "TPU)",
+            "max_abs_err": 0.0, "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": t["bound"], "bound_by": "bytes",
+            "library_ms": t["library"], "eager_host_us": t["eager_host_us"],
+            "celeba_packed": times["celeba packed"],
+            "celeba_unpacked": times["celeba unpacked"]}
 
 
 def pretrained_regime(*, work: Path, card: str, dev,
@@ -3748,7 +3939,7 @@ def pretrained_regime(*, work: Path, card: str, dev,
     from cdgvae_torch.tools import celeba_pretrain, celeba_probe, celeba_study
     from cdgvae_torch.utils.checkpoint import load_checkpoint
 
-    renderer_cuda.launches = 0
+    path_launches.start()
     t0 = time.perf_counter()
     flags = ["--n_train", "128", "--n_test", "64", "--img_size", "128",
              "--epochs", "1"]
@@ -3815,7 +4006,7 @@ def pretrained_regime(*, work: Path, card: str, dev,
     check(probe["card"] is not None and all(
         0.0 <= a <= 1.0 for t in accs.values() for a in t.values()),
         f"probe: {accs}")
-    path_launches["pretrained regime"] = renderer_cuda.launches
+    path_launches.take("pretrained regime")
     print("pretrain " + json.dumps({
         "ms_per_step": sides["card"]["ms_per_step"],
         "steps": len(sides["card"]["losses"]),
@@ -3965,8 +4156,8 @@ def main() -> int:
                                         f_all[:BATCH]))
 
     # 4. the dataset path, with the launch counts read around it
-    path_launches = {}
-    renderer_cuda.launches = 0
+    path_launches = PathLaunches()
+    path_launches.start()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dataset = PendulumDataset(n=N_SAMPLES, device=dev)
@@ -3985,7 +4176,7 @@ def main() -> int:
     history = run_epochs(step, dataset.x_data, dataset.y_data, seed=1,
                          epochs=EPOCHS, batch_size=BATCH, on_epoch=on_epoch)
     torch.cuda.synchronize()
-    path_launches["dataset"] = renderer_cuda.launches
+    path_launches.take("dataset")
     print(f"dataset path launches: {{'render': {path_launches['dataset']}}}")
     check(len(dataset) == 3712, f"dataset has {len(dataset)} images")
     check(path_launches["dataset"] > 0,
@@ -4074,7 +4265,7 @@ def main() -> int:
     # 8. the CLI at full width: train, checkpoint, resume
     cli_dir = work / "cli"
     ckpt = cli_dir / "model_CDGVAE_linear"
-    renderer_cuda.launches = 0
+    path_launches.start()
     said, _, cli_s = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "2",
                               "--assets_dir", str(cli_dir)])
     for name in ("state.pkl", "config.json"):
@@ -4086,7 +4277,7 @@ def main() -> int:
     said, _, _ = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "3",
                           "--assets_dir", str(cli_dir), "--resume",
                           str(ckpt)])
-    path_launches["cli"] = renderer_cuda.launches
+    path_launches.take("cli")
     check(f"resumed from {ckpt} at epoch 2" in said, "no 'resumed' line")
     ck = load_checkpoint(str(ckpt))
     check(ck["step"] == 3, f"the resumed checkpoint is at step {ck['step']}")
@@ -4135,11 +4326,11 @@ def main() -> int:
 
     # 10. the online trainer through the CLI, then a profiled window
     online_dir = work / "online"
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, online_cli_s = run_cli(["--online", "--n_samples", str(N_SAMPLES),
                                   "--epochs", "2", "--assets_dir",
                                   str(online_dir)])
-    path_launches["online"] = renderer_cuda.launches
+    path_launches.take("online")
     online_steps = 2 * (train_split_size(N_SAMPLES) // BATCH)
     losses = [r["loss"] for r in read_records(online_dir / "metrics.jsonl")]
     check(len(losses) == 2 and all(math.isfinite(v) for v in losses),
@@ -4252,7 +4443,7 @@ def main() -> int:
     semi_ckpt = semi_dir / "model_CDGVAEsemi_nonlinear"
     semi_args = ["--n_samples", str(N_SAMPLES), "--labeled_ratio", "0.1",
                  "--batch_sizeL", str(BATCH_L)]
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, semi_cli_s = run_cli(semi_args + ["--epochs", "2", "--assets_dir",
                                             str(semi_dir)], "main_semi")
     check(renderer_cuda.launches == 2, f"semi: {renderer_cuda.launches} "
@@ -4260,7 +4451,7 @@ def main() -> int:
     said, _, _ = run_cli(semi_args + ["--epochs", "3", "--assets_dir",
                                       str(semi_dir), "--resume",
                                       str(semi_ckpt)], "main_semi")
-    path_launches["semi"] = renderer_cuda.launches
+    path_launches.take("semi")
     check(path_launches["semi"] == 4, f"semi: {path_launches['semi']} render "
           "launches over the two runs, not 4")
     check(f"resumed from {semi_ckpt} at epoch 2" in said, "semi: no "
@@ -4275,11 +4466,11 @@ def main() -> int:
           f"losses {losses}; fixed path launches {{'render': "
           f"{path_launches['semi']}}} (2 a run) [{card}]")
     semi_online_dir = work / "semi_online"
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, semi_online_s = run_cli(semi_args + [
         "--online", "--epochs", "2", "--assets_dir", str(semi_online_dir)],
         "main_semi")
-    path_launches["semi online"] = renderer_cuda.launches
+    path_launches.take("semi online")
     check(path_launches["semi online"] >= online_steps + 1,
           f"semi online: {path_launches['semi online']} render launches "
           f"for {online_steps} steps")
@@ -4318,7 +4509,7 @@ def main() -> int:
     im_dir = work / "infomax"
     im_ckpt = im_dir / "model_InfoMax_linear"
     im_args = ["--model", "InfoMax", "--n_samples", str(N_SAMPLES)]
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, im_cli_s = run_cli(im_args + ["--epochs", "2", "--assets_dir",
                                         str(im_dir)])
     said, _, _ = run_cli(im_args + ["--epochs", "3", "--assets_dir",
@@ -4338,7 +4529,7 @@ def main() -> int:
                                           "--assets_dir", str(im_eager_dir)])
     _, _, im_online_s = run_cli(im_args + ["--online", "--epochs", "2",
                                            "--assets_dir", str(im_online_dir)])
-    path_launches["infomax"] = renderer_cuda.launches
+    path_launches.take("infomax")
     check(path_launches["infomax"] >= 3 + online_steps + 1,
           f"InfoMax: {path_launches['infomax']} render launches")
     for d in (im_dir, im_eager_dir, im_online_dir):
@@ -4383,7 +4574,7 @@ def main() -> int:
     # checkpoints (exact structural zeros), cdm_matrices on the card against
     # the CPU, the inference diagnostics
     clf_dir, cdm_dir, inf_dir = work / "clf", work / "cdm", work / "inference"
-    renderer_cuda.launches = 0
+    path_launches.start()
     _, _, clf_s = run_cli(["--n_samples", str(N_SAMPLES), "--epochs", "2",
                            "--assets_dir", str(clf_dir)], "main_classifier")
     clf_ckpt = clf_dir / "CDMClassifier"
@@ -4424,7 +4615,7 @@ def main() -> int:
           f"do grid {grid.shape}")
     for png in INFERENCE_PNGS:
         check((inf_dir / png).is_file(), f"inference wrote no {png}")
-    path_launches["eval"] = renderer_cuda.launches
+    path_launches.take("eval")
     check(path_launches["eval"] == 4, f"eval: {path_launches['eval']} render "
           "launches, not 4 (classifier 1, metric 2, inference 1)")
     print(f"eval cli wall (host clock, dataset builds included): "
@@ -4450,25 +4641,29 @@ def main() -> int:
     max_err = max(max_err, png_err)
 
     # 16. the tabular family
+    path_launches.start()
     tabular(work=work, card=card, dev=dev, rng=rng,
             profiled_steps=profiled_steps)
+    path_launches.take("tabular")
+    check(path_launches["tabular"] == 0, f"the tabular path launched the "
+          f"render kernel {path_launches['tabular']} times")
 
     # 17. the CDG-TVAE, which renders nothing
-    renderer_cuda.launches = 0
+    path_launches.start()
     t0 = time.perf_counter()
     tvae(work=work, card=card, dev=dev, rng=rng,
          profiled_steps=profiled_steps)
-    path_launches["tvae"] = renderer_cuda.launches
+    path_launches.take("tvae")
     check(path_launches["tvae"] == 0, f"the TVAE path launched the render "
           f"kernel {path_launches['tvae']} times")
     print(f"phase 17 (TVAE): {time.perf_counter() - t0:.1f} s (host clock); "
           f"launches {{'render': 0}} [{card}]")
 
     # 18. the CelebA family, which renders nothing
-    renderer_cuda.launches = 0
+    path_launches.start()
     t0 = time.perf_counter()
     celeba(work=work, card=card, dev=dev, profiled_steps=profiled_steps)
-    path_launches["celeba"] = renderer_cuda.launches
+    path_launches.take("celeba")
     check(path_launches["celeba"] == 0, f"the CelebA path launched the "
           f"render kernel {path_launches['celeba']} times")
     print(f"phase 18 (CelebA): {time.perf_counter() - t0:.1f} s (host "
@@ -4502,8 +4697,11 @@ def main() -> int:
     graphed_paths(work=work, card=card, dev=dev, dataset=dataset,
                   path_launches=path_launches)
 
-    # 25. the capturable Adam against optax's update, which renders nothing
-    capturable_adam(card=card, dev=dev)
+    # 25. the capturable Adam against optax's update and its kernel timed,
+    # which render nothing
+    path_launches.start()
+    adam_entry = capturable_adam(card=card, dev=dev)
+    path_launches.take("capturable adam")
 
     # 26. the CelebA trunk's pretraining, a pretrained arm and the probe,
     # which render nothing
@@ -4515,6 +4713,12 @@ def main() -> int:
 
     launches = sum(path_launches.values())
     print(f"render launches by path: {path_launches}, total {launches}")
+    path_launches.start()  # checks and files what followed the last path
+    adam_launches = sum(path_launches.adam.values())
+    print(f"Adam kernel launches by path, each equal to what the path's "
+          f"capturable Adam steps owed: {path_launches.adam}, total "
+          f"{adam_launches}")
+    check(adam_launches > 0, "the Adam kernel never launched")
     print(json.dumps({"host_decoder": decoder}))
     print(json.dumps({"host_png_unfilter": {**png, **png_tree_rates}}))
     print(card_line())
@@ -4536,7 +4740,8 @@ def main() -> int:
         "replaces": "cdgvae_tpu/ops/renderer_pallas.py:146",
         "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}, *host_entries, *preprocess_entries]}))
+        "library_ms": None}, *host_entries, *preprocess_entries,
+        {**adam_entry, "launches": adam_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
